@@ -1,0 +1,75 @@
+"""Carry weights from the JAX package's flax variables to the port.
+
+``from_jax_variables`` maps the flax tree (collections ``params``,
+``batch_stats`` and ``spectral``, nested dicts or flat ``/``-joined
+keys, leaves as numpy arrays) onto the port's ``state_dict`` names:
+
+- ``<layer>/Conv_0/kernel`` HWIO -> ``<layer>.conv.weight`` OIHW, and
+  every other 4-D conv kernel (DCN ``conv_offset_mask``, heads
+  ``loc_i``/``conf_i``) -> ``.weight`` OIHW;
+- ``BatchNorm_0`` ``scale``/``bias`` and ``mean``/``var`` ->
+  ``bn.weight``/``bn.bias`` and ``bn.running_mean``/``bn.running_var``;
+- SNDense ``kernel`` [in, out], ``bias`` and ``spectral`` ``u``/``v``
+  keep their names; so do attention ``sigma``, DCN ``weight`` [K, C,
+  Cout] / ``bias`` and ``l2norm/weight``.
+
+Unknown leaves raise here; ``load_jax_variables`` loads strictly, so a
+missing or surplus key or a wrong shape raises too.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+_MODULE_NAMES = {"Conv_0": "conv", "BatchNorm_0": "bn"}
+_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, Any]:
+    flat: Dict[str, Any] = {}
+    for key, val in tree.items():
+        path = f"{prefix}/{key}" if prefix else str(key)
+        if isinstance(val, Mapping):
+            flat.update(_flatten(val, path))
+        else:
+            flat[path] = val
+    return flat
+
+
+def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """flax variables of ``gssd_tpu.models.SSD`` -> state_dict of
+    ``gssd_torch.models.SSD`` (f32 tensors on the CPU)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for key, val in _flatten(variables).items():
+        col, *path, leaf = key.split("/")
+        mods = [_MODULE_NAMES.get(p, p) for p in path]
+        arr = np.asarray(val, np.float32)
+        if col == "params":
+            if leaf == "kernel" and arr.ndim == 4:
+                name, arr = "weight", arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+            elif leaf == "kernel" and arr.ndim == 2:
+                name = "kernel"  # SNDense keeps the flax [in, out] layout
+            elif leaf == "scale" and mods[-1:] == ["bn"]:
+                name = "weight"
+            elif leaf in ("bias", "weight", "sigma"):
+                name = leaf
+            else:
+                raise KeyError(f"unknown flax parameter {key!r}")
+        elif col == "batch_stats" and leaf in _STATS:
+            name = _STATS[leaf]
+            sd[".".join(mods + ["num_batches_tracked"])] = torch.tensor(0)
+        elif col == "spectral" and leaf in ("u", "v"):
+            name = leaf
+        else:
+            raise KeyError(f"unknown flax variable {key!r}")
+        sd[".".join(mods + [name])] = torch.from_numpy(np.ascontiguousarray(arr))
+    return sd
+
+
+def load_jax_variables(model: torch.nn.Module, variables: Mapping) -> None:
+    """Load flax variables into ``model`` strictly (missing, surplus or
+    misshapen entries raise)."""
+    model.load_state_dict(from_jax_variables(variables), strict=True)

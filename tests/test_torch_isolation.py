@@ -1,0 +1,76 @@
+"""The port stands alone: gssd_torch and chip_smoke.py import nothing of
+JAX, flax, OpenCV, gssd_tpu or the root train.py, and the entry points
+refuse to fall back to the CPU without being asked."""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "cv2", "gssd_tpu", "train")
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            yield node.module.split(".")[0]
+
+
+def test_sources_import_nothing_of_jax():
+    files = sorted((ROOT / "gssd_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 15
+    for f in files:
+        bad = set(_imported_roots(f)) & set(BLOCKED)
+        assert not bad, f"{f.relative_to(ROOT)} imports {bad}"
+
+
+def test_imports_with_jax_blocked():
+    # a None entry in sys.modules makes any import of that name fail
+    code = (
+        "import sys\n"
+        f"for name in {BLOCKED!r}:\n"
+        "    sys.modules[name] = None\n"
+        "import gssd_torch, gssd_torch.infer, gssd_torch.models, gssd_torch.params\n"
+        "import gssd_torch.data, gssd_torch.ops.nms, gssd_torch.ops.kernels\n"
+        "loaded = [m for m in sys.modules if m.split('.')[0] in "
+        f"{BLOCKED!r} and sys.modules[m] is not None]\n"
+        "assert not loaded, loaded\n"
+        "print('isolated')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and "isolated" in res.stdout, res.stderr
+
+
+def test_default_device_refuses_cpu(monkeypatch, tmp_path):
+    from gssd_torch import infer
+    from gssd_torch.config import ModelConfig
+    from gssd_torch.models import build_model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        infer.main(["--weights", str(tmp_path / "none.pt"),
+                    "--datapath", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_model(ModelConfig())
+
+
+def test_chip_smoke_refuses_without_card(tmp_path):
+    # no card here: fails, prints no result, and so does a lone copy
+    for cwd, script in ((ROOT, ROOT / "chip_smoke.py"),
+                        (tmp_path, tmp_path / "chip_smoke.py")):
+        if cwd == tmp_path:
+            script.write_text((ROOT / "chip_smoke.py").read_text())
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+        res = subprocess.run([sys.executable, str(script)], cwd=cwd, env=env,
+                             capture_output=True, text=True, timeout=120)
+        assert res.returncode != 0
+        assert '"ok"' not in res.stdout and '"kernels"' not in res.stdout
