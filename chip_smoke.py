@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""GPU smoke run of the port's serving path (gssd_torch) on one card.
+"""GPU smoke run of the port (gssd_torch) on one card: the serving path
+and the training step.
 
     python3 chip_smoke.py        # from the root of a checkout
 
@@ -9,11 +10,13 @@ In order, failing (exit code 1) at the first phase that goes wrong:
    settings it pins (both off);
 2. builds the CUDA kernels from ``gssd_torch/csrc`` with nvcc for
    sm_90a, all sources at once;
-3. holds each kernel against its plain PyTorch version on the card at
-   every serving shape, batch 8: max |kernel - plain| must stay within
-   KERNEL_TOL * max |plain|; times kernel, plain version and (attention
-   only) ``F.scaled_dot_product_attention`` as a yardstick the port never
-   calls, and computes each call's bound from the H100 data sheet;
+3. holds each forward kernel against its plain PyTorch version on the
+   card at every serving shape, batch 8, and each backward kernel at
+   every training shape, batch 32: max |kernel - plain| must stay within
+   KERNEL_TOL * max |plain| for every output; times kernel, plain version
+   and (attention only) ``F.scaled_dot_product_attention`` forward or
+   backward as a yardstick the port never calls, and computes each call's
+   bound from the H100 data sheet;
 4. serves synthetic 512x512 slices through ``gssd_torch.infer.main`` at
    ``--reference_recipe gssd++ --eval_batch 8 --device cuda
    --compute_dtype bfloat16`` with seeded random weights, counting kernel
@@ -21,7 +24,21 @@ In order, failing (exit code 1) at the first phase that goes wrong:
    splits one batch's time into copy, forward and Detect/NMS;
 5. runs one image through the port on the CPU in f32 (plain versions)
    and on the card in bf16 (kernels): loc and conf must agree within
-   E2E_TOL * max |f32|.
+   E2E_TOL * max |f32|;
+6. trains through ``gssd_torch.train.main`` at ``--reference_recipe
+   gssd++ --synthetic True --batch_size 32 --max_iter 8 --device cuda
+   --compute_dtype bfloat16``, counting launches (12 + 12 attention and
+   1 + 1 DCN, forward + backward, per step); every loss must be finite;
+   prints the median ms/step after the first step and slices/s;
+7. takes 5 SGD steps on one repeated batch of 32 from seeded weights
+   (the loss must fall) and splits a step into forward, loss, backward
+   and optimizer by CUDA events;
+8. takes one step's loss and gradients at batch 2 in f32 on the CPU
+   (plain versions) and in bf16 on the card (kernels): the losses must
+   agree within TRAIN_LOSS_TOL; the gradients of f32 on the card and on
+   the CPU agree in direction (cosine >= TRAIN_COS_MIN per parameter),
+   and so do bf16 through the kernels and through the plain versions
+   (>= KERNEL_COS_MIN); see ``train_parity``.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or outside a
@@ -30,6 +47,7 @@ checkout, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -39,7 +57,9 @@ import tempfile
 import time
 
 SEED = 1234
-BATCH = 8
+BATCH = 8          # serving
+TRAIN_BATCH = 32   # the published recipe's batch
+TRAIN_ITERS = 8
 # kernel vs its plain version, both on the card, as a share of max|plain|:
 # the same bf16 roundings, in another summation order; a bf16 rounding of
 # P or of a DCN sample can flip (2^-8 relative on that one term)
@@ -47,8 +67,19 @@ KERNEL_TOL = 1e-2
 # bf16 serving forward (kernels) vs f32 forward (plain versions), as a
 # share of max|f32|: bf16 activations through ~25 conv/attention layers
 E2E_TOL = 5e-2
-# NVIDIA H100 SXM data sheet: dense bf16 tensor-core rate, HBM3 rate
+# one train step, bf16 on the card (kernels) vs f32 on the CPU (plain
+# versions), same weights and batch: relative loss difference, and the
+# least cosine between a parameter's two gradients
+TRAIN_LOSS_TOL = 5e-2
+TRAIN_COS_MIN = 0.98
+# the same step in bf16 through the kernels and through their plain
+# versions (same roundings, other summation orders): least cosine
+# between a parameter's two gradients
+KERNEL_COS_MIN = 0.9
+# NVIDIA H100 SXM data sheet: dense bf16 tensor-core rate, f32 rate
+# outside the tensor cores, HBM3 rate
 PEAK_BF16_OPS = 989e12
+PEAK_F32_OPS = 67e12
 PEAK_BYTES = 3.35e12
 # (N = M tokens, dk, dv, launches per forward) of the 12 attention sites
 ATTN_SITES = [(1444, 64, 256, 2), (361, 128, 512, 2), (100, 64, 256, 2),
@@ -81,10 +112,16 @@ def time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def bound(ops, nbytes):
-    """(least ms the card could take, what bounds it)."""
-    t_ops, t_bytes = ops / PEAK_BF16_OPS, nbytes / PEAK_BYTES
+def bound(ops, nbytes, f32_ops=0):
+    """(least ms the card could take, what bounds it): bf16 tensor-core
+    ``ops`` plus CUDA-core ``f32_ops``, against the bytes moved."""
+    t_ops = ops / PEAK_BF16_OPS + f32_ops / PEAK_F32_OPS
+    t_bytes = nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def nbytes_of(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def check_flash():
@@ -128,13 +165,72 @@ def check_flash():
     return sites
 
 
-def dcn_inputs():
+def check_flash_bwd():
+    """flash_attn_bwd against its plain version at the 12 training sites
+    (batch 32); each of dq, dk, dv within KERNEL_TOL of its own max,
+    except where one key makes the softmax constant (M = 1): there dq and
+    dk are 0 in exact arithmetic and the scale is the largest of the
+    three gradients."""
+    import torch
+    import torch.nn.functional as F
+
+    from gssd_torch.ops.kernels import flash_attn as fa
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    B = TRAIN_BATCH
+    sites = []
+    for n, dk, dv, count in ATTN_SITES:
+        q, k = (torch.randn(B, n, dk, device="cuda", generator=g).bfloat16() for _ in range(2))
+        v = torch.randn(B, n, dv, device="cuda", generator=g).bfloat16()
+        do = torch.randn(B, n, dv, device="cuda", generator=g).bfloat16()
+        o, lse = fa.flash_attention_fwd(q, k, v)
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+        want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
+        top = max(t.float().abs().max().item() for t in want)
+        errs, rels = [], []
+        for name, a, b in zip("qkv", got, want):
+            err = (a.float() - b.float()).abs().max().item()
+            scale = top if n == 1 else b.float().abs().max().item()
+            errs.append(err)
+            rels.append(err / scale)
+            check(math.isfinite(err) and err <= KERNEL_TOL * scale,
+                  f"flash_attn_bwd d{name} at N={n} dk={dk} dv={dv}: max err {err} > "
+                  f"{KERNEL_TOL} * {scale}")
+        q4, k4, v4 = (t[:, None].detach().clone().requires_grad_() for t in (q, k, v))
+        out4 = F.scaled_dot_product_attention(q4, k4, v4, scale=1.0)
+        do4 = do[:, None]
+        # operations by type: the logits recompute and the two dv-deep
+        # products on the tensor cores, dQ and dK as f32 FMA
+        ops = 2 * B * n * n * (dk + 2 * dv)
+        f32_ops = 2 * B * n * n * 2 * dk
+        nbytes = nbytes_of(q, k, v, do, o, lse, *got)
+        b_ms, b_by = bound(ops, nbytes, f32_ops)
+        site = dict(
+            N=n, M=n, dk=dk, dv=dv, per_step=count, max_abs_err=max(errs),
+            rel_err=max(rels),
+            fwd_ms=time_ms(lambda: fa.flash_attention_fwd(q, k, v), iters=10),
+            ms=time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do), iters=10),
+            plain_ms=time_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do),
+                             iters=5),
+            library_ms=time_ms(lambda: torch.autograd.grad(out4, (q4, k4, v4), do4,
+                                                           retain_graph=True), iters=10),
+            bound_ms=b_ms, bound_by=b_by, ops=ops, f32_ops=f32_ops, bytes=nbytes)
+        sites.append(site)
+        print(f"flash_attn_bwd B={B} N=M={n} dk={dk} dv={dv}: rel err "
+              f"{max(rels):.3g}, kernel {site['ms']:.4f} ms, plain {site['plain_ms']:.4f} ms, "
+              f"sdpa bwd {site['library_ms']:.4f} ms, bound {1e3 * b_ms:.2f} us ({b_by}); "
+              f"forward kernel at this batch {site['fwd_ms']:.4f} ms", flush=True)
+    return sites
+
+
+def dcn_inputs(batch=BATCH):
     import torch
 
     from gssd_torch.ops.kernels import deform_hat as dh
 
     s = DCN_SITE
-    B, H, W, C, G, K, Cout = BATCH, s["H"], s["W"], s["C"], s["G"], s["K"], s["Cout"]
+    B, H, W, C, G, K, Cout = batch, s["H"], s["W"], s["C"], s["G"], s["K"], s["Cout"]
     g = torch.Generator(device="cuda").manual_seed(SEED)
     x = torch.randn(B, H, W, C, device="cuda", generator=g)
     # offsets over +-3 px: border taps sample outside the map; a third
@@ -180,6 +276,57 @@ def check_dcn():
           f"Cout={s['Cout']}: err {err:.3g} (rel {err / scale:.3g}), kernel "
           f"{site['ms']:.4f} ms, plain {site['plain_ms']:.4f} ms, bound "
           f"{1e3 * b_ms:.2f} us ({b_by})", flush=True)
+    return site
+
+
+def check_dcn_bwd():
+    """deform_conv_bwd against its plain version at the training site
+    (batch 32, 38x38, C 1024, G 4, Cout 512); each of the five gradients
+    within KERNEL_TOL of its own max."""
+    import torch
+
+    from gssd_torch.ops.kernels import deform_hat as dh
+
+    x, py, px, m, wg, bias = dcn_inputs(TRAIN_BATCH)
+    B, P, G, K = py.shape
+    C, Cout = x.shape[-1], wg.shape[-1]
+    gout = torch.randn(B, P, Cout, device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(SEED + 2))
+    args = (x, py, px, m, wg, gout)
+    got = dh.deform_conv_bwd(*args)
+    torch.cuda.synchronize()
+    want = dh.deform_conv_bwd_plain(*args)
+    errs, rels = [], []
+    for name, a, b in zip(("dpy", "dpx", "dm", "dx", "dwg"), got, want):
+        err = (a.float() - b.float()).abs().max().item()
+        scale = b.float().abs().max().item()
+        errs.append(err)
+        rels.append(err / scale)
+        check(math.isfinite(err) and err <= KERNEL_TOL * scale,
+              f"deform_conv_bwd {name}: max err {err} > {KERNEL_TOL} * {scale}")
+    H, W = x.shape[1], x.shape[2]
+    # the corner terms this data needs: 6 * C/G f32 operations (dS, the
+    # sample, dx) per corner that lies inside the map
+    n_in = 0
+    for dy in (0, 1):
+        for dx in (0, 1):
+            qy, qx = torch.floor(py) + dy, torch.floor(px) + dx
+            n_in += int(((qy >= 0) & (qy < H) & (qx >= 0) & (qx < W)).sum().item())
+    ops = 4 * B * P * K * C * Cout
+    f32_ops = 6 * (C // G) * n_in
+    nbytes = nbytes_of(*args, *got)
+    b_ms, b_by = bound(ops, nbytes, f32_ops)
+    site = dict(
+        B=B, **DCN_SITE, max_abs_err=max(errs), rel_err=max(rels),
+        fwd_ms=time_ms(lambda: dh.deform_conv_fwd(x, py, px, m, wg, bias), iters=5),
+        ms=time_ms(lambda: dh.deform_conv_bwd(*args), iters=5),
+        plain_ms=time_ms(lambda: dh.deform_conv_bwd_plain(*args), iters=2, warmup=1),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by, ops=ops, f32_ops=f32_ops,
+        bytes=nbytes, corners_in_map=n_in)
+    print(f"deform_conv_bwd B={B} 38x38 C={C} G={G} Cout={Cout}: rel err "
+          f"{max(rels):.3g}, kernel {site['ms']:.4f} ms, plain {site['plain_ms']:.4f} ms, "
+          f"bound {1e3 * b_ms:.2f} us ({b_by}); forward kernel at this batch "
+          f"{site['fwd_ms']:.4f} ms", flush=True)
     return site
 
 
@@ -253,7 +400,8 @@ def serve(tmp):
         "--weights", weights, "--det_output", det_path])
     launches = {name: k.launches for name, k in KERNELS.items()}
     print(f"main-path launches over {n_batches} forwards: {launches}", flush=True)
-    check(launches == {"flash_attn_fwd": 12 * n_batches, "deform_conv_fwd": n_batches},
+    check(launches == {"flash_attn_fwd": 12 * n_batches, "flash_attn_bwd": 0,
+                       "deform_conv_fwd": n_batches, "deform_conv_bwd": 0},
           f"expected 12 flash and 1 DCN launch per forward, got {launches}")
     with open(det_path) as f:
         dets = json.load(f)
@@ -334,6 +482,233 @@ def parity(data):
     return errs
 
 
+def train(tmp, device="cuda", batch=TRAIN_BATCH, iters=TRAIN_ITERS):
+    """The trainer CLI at the published recipe on synthetic data, with
+    the launches of the main path counted."""
+    from gssd_torch import train as trainer
+    from gssd_torch.ops.kernels import KERNELS
+
+    for k in KERNELS.values():
+        k.launches = 0
+    res = trainer.main([
+        "--reference_recipe", "gssd++", "--synthetic", "True",
+        "--datapath", os.path.join(tmp, "train_ml"), "--num_test_subjects", "4",
+        "--load_data_to_ram", "True", "--batch_size", str(batch), "--max_iter", str(iters),
+        "--device", device, "--compute_dtype", "bfloat16", "--seed", str(SEED),
+        "--output", os.path.join(tmp, "run")])
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    print(f"training launches over {iters} steps: {launches}", flush=True)
+    if device == "cuda":
+        check(launches == {"flash_attn_fwd": 12 * iters, "flash_attn_bwd": 12 * iters,
+                           "deform_conv_fwd": iters, "deform_conv_bwd": iters},
+              f"expected 12 + 12 flash and 1 + 1 DCN launches per step, got {launches}")
+    losses = [r["loss"] for r in res["records"]]
+    check(len(losses) == iters and all(math.isfinite(v) for v in losses),
+          f"non-finite or missing training losses {losses}")
+    median = res["median_step_ms"]
+    print(f"training: median {median:.2f} ms/step after the first step, "
+          f"{batch / median * 1e3:.1f} slices/s at batch {batch}; losses {losses}", flush=True)
+    return launches, res, os.path.join(tmp, "train_ml")
+
+
+def fixed_batch(data, n, device):
+    """n slices of the synthetic set through the eval transform, as a
+    device batch (the training split repeated as needed)."""
+    from gssd_torch.data import BaseTransform, DataSplitter, LesionDataset, collate
+    from gssd_torch.train.trainer import to_device
+
+    ids = DataSplitter(data, 1, 4).data_cv_train[0]
+    ids = (ids * (n // len(ids) + 1))[:n]
+    ds = LesionDataset(data, ids, transform=BaseTransform(300))
+    return to_device(collate([ds[i] for i in range(n)]), device)
+
+
+def _optim():
+    from gssd_torch.config import OptimConfig
+    from gssd_torch.infer import REFERENCE_RECIPES
+
+    r = REFERENCE_RECIPES["gssd++"]
+    return OptimConfig(lr=r["lr"], gamma=r["gamma"], stepvalues=tuple(r["stepvalues"]),
+                       modify_dcn_lr=r["modify_dcn_lr"])
+
+
+def descend_and_split(data, device="cuda", batch=TRAIN_BATCH):
+    """Six train steps on one repeated batch from seeded weights (five
+    updates: the loss must fall), each split by CUDA events into
+    forward, loss, backward and optimizer."""
+    import torch
+
+    from gssd_torch.config import LossConfig
+    from gssd_torch.ops.losses import multibox_loss
+    from gssd_torch.train import make_optimizer
+    from gssd_torch.train.steps import backward, update
+
+    model, priors = seeded_model("bfloat16")
+    model = model.to(device).train()
+    priors = torch.tensor(priors, device=device)
+    b = fixed_batch(data, batch, device)
+    opt, ocfg, lcfg = make_optimizer(model, _optim()), _optim(), LossConfig()
+    losses, parts = [], []
+    for step in range(6):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)] if device == "cuda" else []
+        mark = (lambda i: ev[i].record()) if ev else (lambda i: None)
+        mark(0)
+        out = model(b["image"])
+        mark(1)
+        loss_l, loss_c, _ = multibox_loss(out["loc"], out["conf"], priors, b["boxes"],
+                                          b["labels"], b["valid"], lcfg)
+        loss = loss_l + loss_c
+        mark(2)
+        grads = backward(model, opt, loss)
+        mark(3)
+        update(opt, grads, ocfg, step)
+        mark(4)
+        losses.append(loss.item())
+        if ev:
+            torch.cuda.synchronize()
+            parts.append([ev[i].elapsed_time(ev[i + 1]) for i in range(4)])
+    print(f"repeated batch of {batch}, 5 updates: losses {losses}", flush=True)
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+          f"the loss did not fall on a repeated batch: {losses}")
+    split = {}
+    if parts:
+        for i, key in enumerate(("forward_ms", "loss_ms", "backward_ms", "optimizer_ms")):
+            vals = sorted(p[i] for p in parts[1:])
+            split[key] = vals[len(vals) // 2]
+        print("train step split (median of steps 2-6): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in split.items()), flush=True)
+    return losses, split
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Route the four kernel boundaries to their plain versions, also for
+    CUDA tensors, for the length of the block (the autograd Functions
+    look the boundaries up at call time)."""
+    from gssd_torch.ops.kernels import deform_hat as dh
+    from gssd_torch.ops.kernels import flash_attn as fa
+
+    swaps = [(fa, "flash_attention_fwd"), (fa, "flash_attention_bwd"),
+             (dh, "deform_conv_fwd"), (dh, "deform_conv_bwd")]
+    saved = [getattr(mod, name) for mod, name in swaps]
+    for mod, name in swaps:
+        setattr(mod, name, getattr(mod, name + "_plain"))
+    try:
+        yield
+    finally:
+        for (mod, name), fn in zip(swaps, saved):
+            setattr(mod, name, fn)
+
+
+def _structural_zero(name, model, cfg):
+    """Gradients that are 0 in exact arithmetic, so that their direction
+    is rounding noise: a conv bias in front of a train-mode BatchNorm
+    (the batch mean removes it), the attention key bias (it shifts every
+    logit of a row alike), and the value and output biases of an
+    attention block whose output only reaches the loss through a conv
+    and a train-mode BatchNorm (a per-channel shift, removed again)."""
+    if name.endswith(".phi.bias"):
+        return True
+    if name.endswith(".conv.bias"):
+        return getattr(model.get_submodule(name[: -len(".conv.bias")]), "bn", None) is not None
+    block = name.split(".")[0]
+    feeds_dcn = cfg.dcn_cat_sab and block == "attn_base_0"
+    return (block.startswith("attn") and not feeds_dcn
+            and name.endswith((".g.bias", ".out.bias")))
+
+
+def train_parity(data, f32_device="cpu", device="cuda"):
+    """Loss and gradients of one train step at batch 2, from the same
+    seeded weights and batch, in four runs: f32 on the CPU (plain
+    versions), f32 on the card (the DCN runs through its kernels there
+    too), bf16 on the card through the kernels, and bf16 on the card
+    through the plain versions.
+
+    Checks: the bf16 loss (kernels) against the f32 loss within
+    TRAIN_LOSS_TOL; then, with the f32 run's mined negatives replayed in
+    the other runs (mining is a discrete choice, and bf16 logits reorder
+    near-tied negatives), the cosine of every parameter's gradient,
+    f32 card against f32 CPU at least TRAIN_COS_MIN and bf16 kernels
+    against bf16 plain versions at least KERNEL_COS_MIN. Left out:
+    gradients that are 0 in exact arithmetic (``_structural_zero``) and
+    those this batch's loss does not reach. The cosine between the bf16
+    and the f32 gradients is printed, not held to a limit: bf16 rounding
+    moves the early layers' gradients of this model far from f32 (cosines
+    down to ~0.3), through the plain versions as much as through the
+    kernels, so that cosine says nothing about the kernels (PERF.md)."""
+    import torch
+
+    from gssd_torch.config import LossConfig
+    from gssd_torch.ops import losses
+    from gssd_torch.train import make_optimizer
+    from gssd_torch.train.steps import backward, forward_loss
+
+    mined = {}
+    real = losses.hard_negatives
+
+    def replay(ce, pos, ratio):
+        neg = real(ce, pos, ratio)
+        mined.setdefault("ref", neg.cpu())
+        mined["moved"] = int((neg.cpu() != mined["ref"]).sum())
+        return mined["ref"].to(ce.device) if mined["replay"] else neg
+
+    def run(dtype, dev, replaying, plain=False):
+        mined["replay"] = replaying
+        model, priors = seeded_model(dtype)
+        model = model.to(dev).train()
+        with plain_versions() if plain else contextlib.nullcontext():
+            loss_l, loss_c, _ = forward_loss(model, torch.tensor(priors, device=dev),
+                                             fixed_batch(data, 2, dev), LossConfig())
+            backward(model, make_optimizer(model, _optim()), loss_l + loss_c)
+        grads = {n: p.grad.float().cpu() for n, p in model.named_parameters()}
+        check(all(bool(torch.isfinite(g).all()) for g in grads.values()),
+              f"non-finite {dtype} gradient on {dev}")
+        return (loss_l + loss_c).item(), mined["moved"], grads, model
+
+    losses.hard_negatives = replay
+    try:
+        ref_loss, _, ref_g, model = run("float32", f32_device, False)
+        got_loss, moved, _, _ = run("bfloat16", device, False)
+        f32_g = run("float32", device, True)[2]
+        bf16_g = run("bfloat16", device, True)[2]
+        plain_g = run("bfloat16", device, True, plain=True)[2]
+    finally:
+        losses.hard_negatives = real
+
+    loss_rel = abs(got_loss - ref_loss) / abs(ref_loss)
+    print(f"train parity: loss f32 cpu {ref_loss:.6g}, bf16 card {got_loss:.6g}, rel "
+          f"{loss_rel:.4g} (limit {TRAIN_LOSS_TOL}); {moved} mined negatives differ",
+          flush=True)
+    check(math.isfinite(got_loss) and loss_rel <= TRAIN_LOSS_TOL,
+          f"train loss bf16 card vs f32 cpu: rel {loss_rel} > {TRAIN_LOSS_TOL}")
+    kept = [n for n, g in ref_g.items()
+            if not _structural_zero(n, model, model.cfg) and g.norm().item() > 0]
+
+    def cosines(a, b):
+        out = {}
+        for n in kept:
+            den = (a[n].norm() * b[n].norm()).item()
+            out[n] = (a[n] * b[n]).sum().item() / den if den > 0 else float("nan")
+        return out
+
+    report = {"loss_rel": loss_rel, "negatives_moved": moved, "n_params": len(kept),
+              "n_left_out": len(ref_g) - len(kept)}
+    for key, (a, b), limit in (("f32_card_vs_cpu", (ref_g, f32_g), TRAIN_COS_MIN),
+                               ("bf16_kernels_vs_plain", (plain_g, bf16_g), KERNEL_COS_MIN),
+                               ("bf16_card_vs_f32_cpu", (ref_g, bf16_g), None),
+                               ("bf16_plain_vs_f32_cpu", (ref_g, plain_g), None)):
+        cos = cosines(a, b)
+        worst = sorted(cos.items(), key=lambda kv: (kv[1] == kv[1], kv[1]))[:4]
+        report[key] = worst
+        print(f"train parity {key}: gradient cosine over {len(cos)} parameters "
+              f"({report['n_left_out']} left out), worst {worst}"
+              + (f" (limit {limit})" if limit else " (not held to a limit)"), flush=True)
+        if limit:
+            check(all(c >= limit for c in cos.values()),
+                  f"{key}: gradient cosine below {limit}: {worst}")
+    return report
+
+
 def main() -> int:
     try:
         import torch
@@ -369,19 +744,31 @@ def main() -> int:
         built = build(KERNELS.values())
         print(f"built {built} in {time.perf_counter() - t0:.1f} s", flush=True)
         attn_sites = check_flash()
+        attn_bwd_sites = check_flash_bwd()
         dcn_site = check_dcn()
+        dcn_bwd_site = check_dcn_bwd()
         with tempfile.TemporaryDirectory() as tmp:
             launches, lat, data = serve(tmp)
             parts = breakdown()
             errs = parity(data)
+            t_train = time.perf_counter()
+            train_launches, train_res, train_data = train(tmp)
+            losses, split = descend_and_split(train_data)
+            train_par = train_parity(train_data)
+            train_s = time.perf_counter() - t_train
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
 
-    def per_forward(key):
-        return sum(s[key] * s["per_forward"] for s in attn_sites)
+    def per_forward(key, sites=attn_sites, count="per_forward"):
+        return sum(s[key] * s[count] for s in sites)
+
+    def per_step(key):
+        return per_forward(key, attn_bwd_sites, "per_step")
 
     flash_bound, flash_by = bound(per_forward("ops"), per_forward("bytes"))
+    flash_bwd_bound, flash_bwd_by = bound(per_step("ops"), per_step("bytes"),
+                                          per_step("f32_ops"))
     kernels = [
         dict(name="flash_attn_fwd", route="cuda", source="gssd_torch/csrc/flash_attn_fwd.cu",
              replaces="gssd_tpu/ops/pallas/flash_attn.py:64",
@@ -391,18 +778,50 @@ def main() -> int:
              bound_ms=flash_bound, bound_by=flash_by,
              library_ms=per_forward("library_ms"),
              note=f"times summed over the 12 serving sites of one batch-{BATCH} forward",
-             sites=attn_sites),
+             ms_train_batch=per_step("fwd_ms"), sites=attn_sites),
         dict(name="deform_conv_fwd", route="cuda", source="gssd_torch/csrc/deform_conv_fwd.cu",
              replaces="gssd_tpu/ops/pallas/deform_hat.py:314",
              launches=launches["deform_conv_fwd"], max_abs_err=dcn_site["max_abs_err"],
              ms=dcn_site["ms"], plain_ms=dcn_site["plain_ms"], bound_ms=dcn_site["bound_ms"],
              bound_by=dcn_site["bound_by"], library_ms=None,
-             note=f"one batch-{BATCH} call at the 38x38 serving site", sites=[dcn_site]),
+             note=f"one batch-{BATCH} call at the 38x38 serving site",
+             ms_train_batch=dcn_bwd_site["fwd_ms"], sites=[dcn_site]),
+        dict(name="flash_attn_bwd", route="cuda", source="gssd_torch/csrc/flash_attn_bwd.cu",
+             replaces="gssd_tpu/ops/pallas/flash_attn.py:74",
+             launches=train_launches["flash_attn_bwd"],
+             max_abs_err=max(s["max_abs_err"] for s in attn_bwd_sites),
+             ms=per_step("ms"), plain_ms=per_step("plain_ms"),
+             bound_ms=flash_bwd_bound, bound_by=flash_bwd_by,
+             library_ms=per_step("library_ms"),
+             note=(f"times summed over the 12 sites of one batch-{TRAIN_BATCH} train step; "
+                   "one launch runs the dV and the dK/dQ kernels; library_ms is the "
+                   "backward of F.scaled_dot_product_attention(scale=1)"),
+             sites=attn_bwd_sites),
+        dict(name="deform_conv_bwd", route="cuda", source="gssd_torch/csrc/deform_conv_bwd.cu",
+             replaces="gssd_tpu/ops/pallas/deform_hat.py:587",
+             launches=train_launches["deform_conv_bwd"],
+             max_abs_err=dcn_bwd_site["max_abs_err"], ms=dcn_bwd_site["ms"],
+             plain_ms=dcn_bwd_site["plain_ms"], bound_ms=dcn_bwd_site["bound_ms"],
+             bound_by=dcn_bwd_site["bound_by"], library_ms=None,
+             note=(f"one batch-{TRAIN_BATCH} call at the 38x38 training site; one launch "
+                   "runs the dU GEMM, the corner kernel and the dW GEMM"),
+             sites=[dcn_bwd_site]),
     ]
+    recs = train_res["records"]
     print(json.dumps({"serving": {"batch": BATCH, "latency_ms_per_image": lat,
                                   "breakdown_ms_per_batch": parts,
-                                  "parity_rel_err": errs, "power": smi,
-                                  "seconds": time.perf_counter() - t_start}}))
+                                  "parity_rel_err": errs, "power": smi},
+                      "training": {"batch": TRAIN_BATCH, "steps": len(recs),
+                                   "ms_per_step": [r["ms"] for r in recs],
+                                   "input_wait_ms": [r["wait_ms"] for r in recs],
+                                   "losses": [r["loss"] for r in recs],
+                                   "median_ms_per_step": train_res["median_step_ms"],
+                                   "slices_per_s": TRAIN_BATCH / train_res["median_step_ms"] * 1e3,
+                                   "repeated_batch_losses": losses,
+                                   "step_split_ms": split, "parity": train_par,
+                                   "seconds": train_s, "power": smi},
+                      "seconds": time.perf_counter() - t_start}))
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -1,7 +1,7 @@
 """Configuration of the PyTorch port: model, anchor grid and Detect head.
 
-A copy of the parts of ``gssd_tpu/config.py`` the serving path needs, so
-that the port runs on a host that has no JAX. Field names and defaults
+A copy of the parts of ``gssd_tpu/config.py`` the serving and training
+paths need, so that the port runs on a host that has no JAX. Field names and defaults
 are the JAX package's, so one flag set builds the same model in both.
 """
 
@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -165,3 +165,28 @@ class DetectConfig:
     conf_thresh: float = 0.01
     nms_thresh: float = 0.45
     variance: Tuple[float, float] = (0.1, 0.2)
+
+
+@dataclass(frozen=True)
+class LossConfig:
+    """MultiBox loss: matching threshold, OHNM ratio, box variances."""
+
+    num_classes: int = 2
+    overlap_thresh: float = 0.5
+    neg_pos_ratio: int = 3  # --ohnm_neg_ratio
+    variance: Tuple[float, float] = (0.1, 0.2)
+    max_gt_boxes: int = 16  # static padding of variable-length targets
+
+
+@dataclass(frozen=True)
+class OptimConfig:
+    """SGD with momentum and weight decay, LR stepped by ``gamma`` at
+    ``stepvalues``, optional global-norm clip and x0.1 LR on dcn_*."""
+
+    lr: float = 1e-3
+    momentum: float = 0.9
+    weight_decay: float = 5e-4
+    gamma: float = 0.1
+    stepvalues: Tuple[int, ...] = (30000, 50000)
+    clip: Optional[float] = None  # global grad-norm clip
+    modify_dcn_lr: bool = False  # x0.1 LR for DCN params

@@ -2,3 +2,5 @@ from gssd_torch.data.splitter import DataSplitter  # noqa: F401
 from gssd_torch.data.dataset import LesionDataset  # noqa: F401
 from gssd_torch.data.transforms import BaseTransform  # noqa: F401
 from gssd_torch.data.synthetic import make_synthetic_dataset  # noqa: F401
+from gssd_torch.data.dataset import BatchLoader, collate, pad_targets  # noqa: F401
+from gssd_torch.data.augment import SSDAugmentation  # noqa: F401

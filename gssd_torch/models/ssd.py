@@ -6,6 +6,11 @@ logits with priors in (h, w, anchor) order, plus the 'offsets' aux list
 when a DCN is on and, with ``return_attn``, the 'attn' / 'attn_base'
 maps. Inside, activations are NCHW in the compute dtype.
 
+Train behaviour follows ``module.training`` (flax's ``train=True``):
+batch statistics in BatchNorm, a power iteration in each SNDense, and
+``cfg.detach_sab`` cuts the gradient of the attention branch that feeds
+the DCN.
+
 Submodules carry the flax module names (vgg_1, attn_base_0, dcn_0,
 fuse_1, loc_0, ...), so ``gssd_torch.params`` maps one tree onto the
 other by name.
@@ -186,7 +191,8 @@ class SSD(nn.Module):
         if cfg.use_self_attention_base:
             x, attn_g = attn("attn_base", x)
         if cfg.dcn_cat_sab:
-            x = slice_and_cat(x, attn_g, cfg.groups_vgg)
+            sab = attn_g.detach() if cfg.detach_sab else attn_g
+            x = slice_and_cat(x, sab, cfg.groups_vgg)
         for i in range(cfg.num_dcn_layers):
             x, offs = getattr(self, f"dcn_{i}")(x)
             aux["offsets"].append(offs)

@@ -17,6 +17,12 @@ def point_form(boxes: torch.Tensor) -> torch.Tensor:
     return torch.cat([cxy - wh / 2, cxy + wh / 2], dim=-1)
 
 
+def center_size(boxes: torch.Tensor) -> torch.Tensor:
+    """Point form -> center form. boxes: [..., 4]."""
+    mins, maxs = boxes[..., :2], boxes[..., 2:]
+    return torch.cat([(maxs + mins) / 2, maxs - mins], dim=-1)
+
+
 def area(boxes: torch.Tensor) -> torch.Tensor:
     """Area of point-form boxes. [..., 4] -> [...]."""
     wh = boxes[..., 2:] - boxes[..., :2]
@@ -39,6 +45,20 @@ def iou(box_a: torch.Tensor, box_b: torch.Tensor) -> torch.Tensor:
     inter = intersect(box_a, box_b)
     union = area(box_a)[..., :, None] + area(box_b)[..., None, :] - inter
     return inter / union
+
+
+def encode(
+    matched: torch.Tensor,
+    priors: torch.Tensor,
+    variances: Sequence[float] = (0.1, 0.2),
+) -> torch.Tensor:
+    """Encode matched point-form boxes [..., P, 4] against center-form
+    priors [P, 4] into regression targets [..., P, 4]."""
+    g_cxcy = (matched[..., :2] + matched[..., 2:]) / 2 - priors[..., :2]
+    g_cxcy = g_cxcy / (variances[0] * priors[..., 2:])
+    g_wh = (matched[..., 2:] - matched[..., :2]) / priors[..., 2:]
+    g_wh = torch.log(g_wh) / variances[1]
+    return torch.cat([g_cxcy, g_wh], dim=-1)
 
 
 def decode(

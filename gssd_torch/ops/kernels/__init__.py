@@ -1,12 +1,15 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
-version. ``KERNELS`` lists every kernel the serving path launches."""
+version. ``KERNELS`` lists every kernel the serving and training paths
+launch."""
 
 from gssd_torch.ops.kernels import deform_hat, flash_attn
 from gssd_torch.ops.kernels.build import CudaKernel, build
 
 KERNELS = {
     "flash_attn_fwd": flash_attn.KERNEL,
+    "flash_attn_bwd": flash_attn.BWD_KERNEL,
     "deform_conv_fwd": deform_hat.KERNEL,
+    "deform_conv_bwd": deform_hat.BWD_KERNEL,
 }
 
 __all__ = ["CudaKernel", "KERNELS", "build", "deform_hat", "flash_attn"]

@@ -1,14 +1,17 @@
-"""Modulated deformable conv (DCNv2) forward through the hand-written
-CUDA kernel ``csrc/deform_conv_fwd.cu``, the port of
-``gssd_tpu/ops/pallas/deform_hat.py`` (``_fwd_kernel`` /
-``_fwd_kernel_allwin`` behind ``deform_conv2d_hat``).
+"""Modulated deformable conv (DCNv2) through the hand-written CUDA
+kernels ``csrc/deform_conv_fwd.cu`` and ``csrc/deform_conv_bwd.cu``, the
+ports of ``gssd_tpu/ops/pallas/deform_hat.py`` (the forward kernels
+behind ``deform_conv2d_hat`` and the backward kernels of ``hat_bwd``).
 
-``deform_conv_fwd`` is the kernel boundary. On a CUDA tensor it
-launches the kernel; on a CPU tensor it runs ``deform_conv_fwd_plain``,
-the same arithmetic in plain PyTorch. ``deform_conv2d_hat`` keeps the JAX
-entry point's contract and prepares the kernel's inputs as it does:
-absolute f32 sample coordinates, bf16 input and bf16 weights regrouped
-per deformable group.
+``deform_conv_fwd`` and ``deform_conv_bwd`` are the kernel boundaries.
+On CUDA tensors they launch the kernels; on CPU tensors they run
+``deform_conv_fwd_plain`` and ``deform_conv_bwd_plain``, the same
+arithmetic in plain PyTorch. ``deform_conv2d_hat`` keeps the JAX entry
+point's contract, prepares the kernels' inputs as it does (absolute f32
+sample coordinates, bf16 input and bf16 weights regrouped per deformable
+group) and joins the two boundaries in a ``torch.autograd.Function``;
+the chain back to the offsets, mask, input and weight casts stays with
+autograd.
 """
 
 from __future__ import annotations
@@ -23,6 +26,10 @@ from gssd_torch.ops.kernels.build import CudaKernel
 KERNEL = CudaKernel(
     "deform_conv_fwd.cu", "deform_conv_fwd",
     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8)
+# one launch = the dU GEMM, the corner kernel and the dW GEMM, in order
+BWD_KERNEL = CudaKernel(
+    "deform_conv_bwd.cu", "deform_conv_bwd",
+    [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8)
 
 
 def deform_conv_fwd_plain(x, py, px, m, wg, bias):
@@ -53,40 +60,48 @@ def deform_conv_fwd_plain(x, py, px, m, wg, bias):
     return out + bias
 
 
-def deform_conv_fwd(x, py, px, m, wg, bias):
-    """x [B, H, W, C] bf16; py, px, m [B, P, G, K] f32 (absolute sample
-    coordinates and modulation); wg [G, K, C/G, Cout] bf16; bias [Cout]
-    f32 -> out [B, P, Cout] f32. All contiguous."""
+def _check(fn, x, py, px, m, wg, extra_name, extra):
+    """Validate the inputs of a kernel boundary: the shared ones and
+    ``extra``, the forward's bias [Cout] or the backward's g [B, P,
+    Cout]. Returns (B, H, W, C, P, G, K, Cout)."""
     B, H, W, C = x.shape
     if py.dim() != 4:
-        raise ValueError(f"deform_conv_fwd: py must be [B, P, G, K], got {tuple(py.shape)}")
+        raise ValueError(f"{fn}: py must be [B, P, G, K], got {tuple(py.shape)}")
     _, P, G, K = py.shape
     Cout = wg.shape[-1]
+    extra_shape = {"bias": (Cout,), "g": (B, P, Cout)}[extra_name]
     for name, t, dt, shape in (
         ("x", x, torch.bfloat16, (B, H, W, C)),
         ("py", py, torch.float32, (B, P, G, K)),
         ("px", px, torch.float32, (B, P, G, K)),
         ("m", m, torch.float32, (B, P, G, K)),
         ("wg", wg, torch.bfloat16, (G, K, C // G, Cout)),
-        ("bias", bias, torch.float32, (Cout,)),
+        (extra_name, extra, torch.float32, extra_shape),
     ):
         if t.dtype != dt:
-            raise TypeError(f"deform_conv_fwd: {name} must be {dt}, got {t.dtype}")
+            raise TypeError(f"{fn}: {name} must be {dt}, got {t.dtype}")
         if tuple(t.shape) != shape:
-            raise ValueError(
-                f"deform_conv_fwd: {name} has shape {tuple(t.shape)}, expected {shape}")
+            raise ValueError(f"{fn}: {name} has shape {tuple(t.shape)}, expected {shape}")
         if not t.is_contiguous():
-            raise ValueError(f"deform_conv_fwd: {name} must be contiguous")
+            raise ValueError(f"{fn}: {name} must be contiguous")
         if t.device != x.device:
-            raise ValueError("deform_conv_fwd: inputs on different devices")
+            raise ValueError(f"{fn}: inputs on different devices")
     if C % G:
-        raise ValueError(f"deform_conv_fwd: C={C} is not a multiple of G={G}")
+        raise ValueError(f"{fn}: C={C} is not a multiple of G={G}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{fn}: unsupported device {x.device}")
+    if x.device.type == "cuda" and (C // G) % 2:
+        raise ValueError(f"{fn}: the kernel takes an even C/G, got {C // G}")
+    return B, H, W, C, P, G, K, Cout
+
+
+def deform_conv_fwd(x, py, px, m, wg, bias):
+    """x [B, H, W, C] bf16; py, px, m [B, P, G, K] f32 (absolute sample
+    coordinates and modulation); wg [G, K, C/G, Cout] bf16; bias [Cout]
+    f32 -> out [B, P, Cout] f32. All contiguous."""
+    B, H, W, C, P, G, K, Cout = _check("deform_conv_fwd", x, py, px, m, wg, "bias", bias)
     if x.device.type == "cpu":
         return deform_conv_fwd_plain(x, py, px, m, wg, bias)
-    if x.device.type != "cuda":
-        raise ValueError(f"deform_conv_fwd: unsupported device {x.device}")
-    if (C // G) % 2:
-        raise ValueError(f"deform_conv_fwd: the kernel takes an even C/G, got {C // G}")
     tensors = (x, py, px, m, wg, bias)
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("deform_conv_fwd: inputs must be 16-byte aligned")
@@ -95,6 +110,99 @@ def deform_conv_fwd(x, py, px, m, wg, bias):
                   *(t.data_ptr() for t in tensors), out.data_ptr(),
                   B, H, W, C, G, K, P, Cout)
     return out
+
+
+def _hat(p, q):
+    """Bilinear hat weight max(0, 1 - |p - q|) in f32, as the TPU kernel
+    builds it."""
+    return torch.clamp(1.0 - (p - q).abs(), min=0.0)
+
+
+def deform_conv_bwd_plain(x, py, px, m, wg, g):
+    """Plain PyTorch version of the backward kernel (``hat_bwd``): per
+    tap, dU = bf16(bf16(g) . W_k^T); per corner q inside the map, dS =
+    <dU, x[q]>, dm += dS*ay*bx, dpy += m*dS*day*bx, dpx += m*dS*ay*dbx
+    (day, dbx = -1 at the floor, +1 above it), dx[q] += bf16(ay*bx*m)*dU,
+    samp += bf16(ay*bx*m)*x[q]; dW_k = bf16(samp)^T . bf16(g). dx and dW
+    are rounded to bf16."""
+    B, H, W, C = x.shape
+    _, P, G, K = py.shape
+    Cg = C // G
+    xf = x.float().reshape(B, H * W, G, Cg)
+    gb = g.to(torch.bfloat16).float()
+    y0, x0 = torch.floor(py), torch.floor(px)
+    dpy, dpx, dm = (torch.zeros_like(py) for _ in range(3))
+    dx = torch.zeros(B, H * W, G, Cg, dtype=torch.float32, device=x.device)
+    dw = torch.zeros(G, K, Cg, wg.shape[-1], dtype=torch.float32, device=x.device)
+    for k in range(K):
+        pyk, pxk, mk = py[..., k], px[..., k], m[..., k]
+        du = torch.einsum("bpn,gcn->bpgc", gb, wg[:, k].float())
+        du = du.to(torch.bfloat16).float()
+        samp = torch.zeros(B, P, G, Cg, dtype=torch.float32, device=x.device)
+        for dy in (0, 1):
+            for dxx in (0, 1):
+                qy, qx = y0[..., k] + dy, x0[..., k] + dxx
+                ay, bx = _hat(pyk, qy), _hat(pxk, qx)
+                inb = (qy >= 0) & (qy < H) & (qx >= 0) & (qx < W)
+                idx = (qy.clamp(0, H - 1) * W + qx.clamp(0, W - 1)).long()
+                idx = idx[..., None].expand(B, P, G, Cg)
+                vals = torch.gather(xf, 1, idx)
+                ds = (du * vals).sum(-1)
+                s0 = ay * bx
+                mds = ds * mk
+                zero = torch.zeros_like(ds)
+                dm[..., k] += torch.where(inb, ds * s0, zero)
+                dpy[..., k] += torch.where(inb, mds * (1.0 if dy else -1.0) * bx, zero)
+                dpx[..., k] += torch.where(inb, mds * ay * (1.0 if dxx else -1.0), zero)
+                sw = torch.where(inb, (s0 * mk).to(torch.bfloat16).float(), zero)
+                samp = samp + sw[..., None] * vals
+                dx.scatter_add_(1, idx, sw[..., None] * du)
+        samp = samp.to(torch.bfloat16).float()
+        dw[:, k] = torch.einsum("bpgc,bpn->gcn", samp, gb)
+    return (dpy, dpx, dm, dx.reshape(B, H, W, C).to(torch.bfloat16),
+            dw.to(torch.bfloat16))
+
+
+def deform_conv_bwd(x, py, px, m, wg, g):
+    """The gradients of ``deform_conv_fwd`` (without the bias): x, py,
+    px, m, wg as there, g [B, P, Cout] f32 the output gradient -> (dpy,
+    dpx, dm [B, P, G, K] f32, dx [B, H, W, C] bf16, dwg [G, K, C/G, Cout]
+    bf16)."""
+    B, H, W, C, P, G, K, Cout = _check("deform_conv_bwd", x, py, px, m, wg, "g", g)
+    if x.device.type == "cpu":
+        return deform_conv_bwd_plain(x, py, px, m, wg, g)
+    if any(t.data_ptr() % 16 for t in (x, py, px, m, wg, g)):
+        raise ValueError("deform_conv_bwd: inputs must be 16-byte aligned")
+    dev = x.device
+    gb = g.to(torch.bfloat16)
+    dpy, dpx, dm = (torch.empty(B, P, G, K, dtype=torch.float32, device=dev)
+                    for _ in range(3))
+    dx = torch.zeros(B, H, W, C, dtype=torch.float32, device=dev)
+    dwg = torch.empty(G, K, C // G, Cout, dtype=torch.bfloat16, device=dev)
+    du, samp = (torch.empty(B, P, G, K, C // G, dtype=torch.bfloat16, device=dev)
+                for _ in range(2))
+    BWD_KERNEL.launch(torch.cuda.current_stream(dev).cuda_stream,
+                      *(t.data_ptr() for t in (x, py, px, m, wg, gb, dpy, dpx, dm, dx,
+                                               dwg, du, samp)),
+                      B, H, W, C, G, K, P, Cout)
+    return dpy, dpx, dm, dx.to(torch.bfloat16), dwg
+
+
+class DeformConvHat(torch.autograd.Function):
+    """out = deform_conv_fwd(x, py, px, m, wg, bias) with its gradients
+    from ``deform_conv_bwd``; the bias gradient is the sum of g."""
+
+    @staticmethod
+    def forward(ctx, x, py, px, m, wg, bias):
+        ctx.save_for_backward(x, py, px, m, wg)
+        return deform_conv_fwd(x, py, px, m, wg, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, py, px, m, wg = ctx.saved_tensors
+        g = g.float().contiguous()
+        dpy, dpx, dm, dx, dwg = deform_conv_bwd(x, py, px, m, wg, g)
+        return dx, dpy, dpx, dm, dwg, g.sum(dim=(0, 1))
 
 
 def sample_coords(offset_y, offset_x, stride=1, padding=1, dilation=1):
@@ -116,7 +224,8 @@ def deform_conv2d_hat(x, offset_y, offset_x, mask, weight, bias,
                       stride=1, padding=1, dilation=1):
     """x [B, H, W, C]; offsets and mask [B, Ho, Wo, G, K]; weight
     [K, C, Cout]; bias [Cout] -> [B, Ho, Wo, Cout] in x's dtype.
-    Sampling and weights in bf16, accumulation in f32."""
+    Sampling and weights in bf16, accumulation in f32. Differentiable
+    in all six inputs."""
     B, H, W, C = x.shape
     K, _, Cout = weight.shape
     _, Ho, Wo, G, _ = mask.shape
@@ -124,7 +233,7 @@ def deform_conv2d_hat(x, offset_y, offset_x, mask, weight, bias,
     py, px = sample_coords(offset_y, offset_x, stride, padding, dilation)
     # wg[g] = [K, Cg, Cout], rows ordered (k, cg) within the group
     wg = weight.reshape(K, G, C // G, Cout).permute(1, 0, 2, 3)
-    out = deform_conv_fwd(
+    out = DeformConvHat.apply(
         x.to(torch.bfloat16).contiguous(),
         py.reshape(B, P, G, K).contiguous(),
         px.reshape(B, P, G, K).contiguous(),

@@ -43,9 +43,37 @@ def adaptive_avg_pool(x: torch.Tensor, out_size: int) -> torch.Tensor:
     return F.adaptive_avg_pool2d(x, out_size)
 
 
+class BatchNorm(nn.BatchNorm2d):
+    """BatchNorm over NCHW in f32 with flax's semantics.
+
+    Eval: the running statistics. Train (``self.training``): the batch
+    mean and the biased variance E[x^2] - E[x]^2 (clamped at 0) over
+    (N, H, W), and ``running = 0.9 * running + 0.1 * batch`` for both
+    statistics, updated in place outside autograd. Unlike torch's own
+    train mode it keeps the biased variance and takes a 1x1 map at batch
+    1 (variance 0). Parameter and buffer names are torch's."""
+
+    MOMENTUM = 0.9  # flax's convention: the weight of the running value
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        if not self.training:
+            mean, var = self.running_mean, self.running_var
+        else:
+            mean = x.mean(dim=(0, 2, 3))
+            var = ((x * x).mean(dim=(0, 2, 3)) - mean * mean).clamp(min=0.0)
+            with torch.no_grad():
+                mom = self.MOMENTUM
+                self.running_mean.mul_(mom).add_((1 - mom) * mean)
+                self.running_var.mul_(mom).add_((1 - mom) * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean[None, :, None, None]) * mul[None, :, None, None] + \
+            self.bias[None, :, None, None]
+
+
 class ConvBNRelu(nn.Module):
-    """Grouped conv + optional BatchNorm (eval: running statistics, in
-    f32, cast back to the compute dtype) + optional ReLU."""
+    """Grouped conv + optional BatchNorm (in f32, cast back to the
+    compute dtype; see ``BatchNorm``) + optional ReLU."""
 
     def __init__(self, in_channels: int, features: int, kernel: int = 3,
                  stride: int = 1, padding: int = 0, dilation: int = 1,
@@ -56,8 +84,7 @@ class ConvBNRelu(nn.Module):
                               dilation, groups)
         xavier_uniform_(self.conv.weight, generator)
         nn.init.zeros_(self.conv.bias)
-        self.bn = (nn.BatchNorm2d(features, eps=1e-5, momentum=0.1)
-                   if use_bn else None)
+        self.bn = BatchNorm(features) if use_bn else None
         self.relu = relu
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -85,9 +112,14 @@ class L2Norm(nn.Module):
 
 
 class SNDense(nn.Module):
-    """Spectral-normalised 1x1 conv over the last (channel) axis, eval
-    form: sigma = u . (W v) from the frozen power-iteration vectors,
-    W = kernel^T [out, in]. The kernel is stored [in, out] as in flax."""
+    """Spectral-normalised 1x1 conv over the last (channel) axis,
+    W = kernel^T [out, in]; the kernel is stored [in, out] as in flax.
+
+    Eval: sigma = u . (W v) from the stored power-iteration vectors.
+    Train: one power iteration first, outside autograd (v = normalize(W^T
+    u), u = normalize(W v), eps 1e-12 added to the norm), the new vectors
+    stored, and sigma = u . (W v) from them: gradients reach the kernel
+    through W but not through u and v."""
 
     def __init__(self, in_features: int, features: int,
                  generator: Optional[torch.Generator] = None):
@@ -98,11 +130,23 @@ class SNDense(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         u = torch.randn(features, generator=generator)
         v = torch.randn(in_features, generator=generator)
-        self.register_buffer("u", u / (u.norm() + 1e-12))
-        self.register_buffer("v", v / (v.norm() + 1e-12))
+        self.eps = 1e-12
+        self.register_buffer("u", u / (u.norm() + self.eps))
+        self.register_buffer("v", v / (v.norm() + self.eps))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        sigma = torch.dot(self.u, self.kernel.t() @ self.v)
+        u, v = self.u, self.v
+        if self.training:
+            with torch.no_grad():
+                w = self.kernel.t()
+                v = w.t() @ u
+                v = v / (v.norm() + self.eps)
+                u = w @ v
+                u = u / (u.norm() + self.eps)
+                # the buffers get copies: the graph below reads u and v
+                self.u.copy_(u)
+                self.v.copy_(v)
+        sigma = torch.dot(u, self.kernel.t() @ v)
         w_sn = (self.kernel / sigma).to(x.dtype)
         return x @ w_sn + self.bias.to(x.dtype)
 

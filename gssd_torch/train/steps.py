@@ -1,0 +1,80 @@
+"""Train and eval steps of the port.
+
+A train step runs the model in train mode (batch statistics and their
+running update, one spectral-norm power iteration per SNDense), matches
+the targets, takes the MultiBox loss, backpropagates, measures the
+global gradient norm before any clip, and applies one SGD step at that
+step's LR. The pieces (``forward_loss``, ``backward``, ``update``) are
+separate so that a caller can time them one by one.
+
+A batch is a dict of device tensors: ``image`` [B, H, W, 12] f32,
+``boxes`` [B, G, 4] point form, ``labels`` [B, G] int, ``valid`` [B, G]
+bool.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+import torch
+
+from gssd_torch.config import LossConfig, OptimConfig
+from gssd_torch.ops.losses import multibox_loss
+from gssd_torch.train.optim import clip_by_global_norm_, global_norm, set_lr
+
+
+def forward_loss(model, priors: torch.Tensor, batch: Dict[str, torch.Tensor],
+                 loss_cfg: LossConfig) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
+    """Forward in the model's current mode plus the loss ->
+    (loss_l, loss_c, aux)."""
+    out = model(batch["image"])
+    return multibox_loss(out["loc"], out["conf"], priors, batch["boxes"],
+                         batch["labels"], batch["valid"], loss_cfg)
+
+
+def backward(model, optimizer, loss: torch.Tensor) -> List[torch.Tensor]:
+    """Gradients of ``loss`` into every parameter (zeros where a
+    parameter does not reach the loss, so that weight decay and momentum
+    still apply to it as in optax). Returns them."""
+    optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    grads = []
+    for p in model.parameters():
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+        grads.append(p.grad)
+    return grads
+
+
+def update(optimizer, grads: List[torch.Tensor], optim_cfg: OptimConfig,
+           step: int) -> Tuple[torch.Tensor, float]:
+    """Global norm of ``grads`` (before the clip), the optional clip and
+    the SGD step at step ``step``'s LR -> (grad_norm, base lr)."""
+    norm = global_norm(grads)
+    if optim_cfg.clip is not None:
+        clip_by_global_norm_(grads, optim_cfg.clip, norm)
+    lr = set_lr(optimizer, optim_cfg, step)
+    optimizer.step()
+    return norm, lr
+
+
+def train_step(model, optimizer, priors, batch, loss_cfg: LossConfig,
+               optim_cfg: OptimConfig, step: int) -> Dict[str, torch.Tensor]:
+    """One step; returns loss, loss_l, loss_c, grad_norm, num_pos (device
+    scalars) and lr (float)."""
+    model.train()
+    loss_l, loss_c, aux = forward_loss(model, priors, batch, loss_cfg)
+    loss = loss_l + loss_c
+    grads = backward(model, optimizer, loss)
+    norm, lr = update(optimizer, grads, optim_cfg, step)
+    return {"loss": loss.detach(), "loss_l": loss_l.detach(), "loss_c": loss_c.detach(),
+            "grad_norm": norm, "num_pos": aux["num_pos"], "lr": lr}
+
+
+def eval_step(model, priors, batch, loss_cfg: LossConfig) -> Dict[str, torch.Tensor]:
+    """Validation loss: eval-mode forward (running BN statistics, stored
+    spectral vectors) plus the same loss."""
+    model.eval()
+    with torch.no_grad():
+        loss_l, loss_c, _ = forward_loss(model, priors, batch, loss_cfg)
+    return {"loss": loss_l + loss_c, "loss_l": loss_l, "loss_c": loss_c}

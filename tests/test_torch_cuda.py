@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
-card, at ragged shapes the serving path does not reach (chip_smoke.py
-covers the serving shapes). CUDA kernels have no CPU mode: without a card
+card, at ragged shapes the serving and training paths do not reach
+(chip_smoke.py covers their shapes). CUDA kernels have no CPU mode: without a card
 every test here skips.
 
     python -m pytest tests/test_torch_cuda.py -m cuda    # on a GPU host
@@ -67,3 +67,83 @@ def test_wrappers_reject_bad_inputs(gen):
     with pytest.raises(ValueError):
         fa.flash_attention_fwd(torch.zeros(1, 8, 24, device="cuda").bfloat16(),
                                torch.zeros(1, 8, 24, device="cuda").bfloat16(), qb)
+
+
+def _rel_err(got, want):
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+@pytest.mark.parametrize("B,N,M,dk,dv", [
+    (2, 70, 9, 16, 48), (1, 1, 1, 32, 16), (2, 200, 200, 128, 512), (3, 9, 200, 48, 96),
+    (1, 130, 1, 64, 256)])
+def test_flash_bwd_kernel_matches_plain(gen, B, N, M, dk, dv):
+    q = torch.randn(B, N, dk, device="cuda", generator=gen).bfloat16()
+    k = torch.randn(B, M, dk, device="cuda", generator=gen).bfloat16()
+    v = torch.randn(B, M, dv, device="cuda", generator=gen).bfloat16()
+    do = torch.randn(B, N, dv, device="cuda", generator=gen).bfloat16()
+    o, lse = fa.flash_attention_fwd_plain(q, k, v)
+    before = fa.BWD_KERNEL.launches
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert fa.BWD_KERNEL.launches == before + 1
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
+    # against the largest of the three gradients: at M = 1 the softmax is
+    # constant, so dq and dk are 0 in exact arithmetic and rounding noise
+    scale = max(t.float().abs().max().item() for t in want)
+    for name, a, b in zip("qkv", got, want):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        # same roundings; f32 sums in another order (atomics for dq) can
+        # move a bf16 rounding of P or of the result by one step
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= 1e-2 * scale, (name, err, scale)
+
+
+@pytest.mark.parametrize("B,H,W,C,G,Cout", [
+    (2, 9, 11, 24, 4, 36), (1, 5, 4, 12, 2, 8), (1, 6, 5, 16, 4, 24), (1, 20, 20, 512, 4, 256),
+    (2, 3, 3, 16, 1, 40)])
+def test_dcn_bwd_kernel_matches_plain(gen, B, H, W, C, G, Cout):
+    K = 9
+    P = H * W
+    x = torch.randn(B, H, W, C, device="cuda", generator=gen).bfloat16()
+    base_y = torch.arange(H, device="cuda").repeat_interleave(W).float() - 1
+    base_x = torch.arange(W, device="cuda").repeat(H).float() - 1
+    tap = torch.arange(K, device="cuda")
+    # offsets over +-3 px (corners outside the map), a third of them whole
+    # numbers (samples on integer coordinates)
+    off = torch.rand(2, B, P, G, K, device="cuda", generator=gen) * 6 - 3
+    whole = torch.rand(off.shape, device="cuda", generator=gen) < 1 / 3
+    off = torch.where(whole, off.round(), off)
+    py = (base_y[None, :, None, None] + (tap // 3).float() + off[0]).contiguous()
+    px = (base_x[None, :, None, None] + (tap % 3).float() + off[1]).contiguous()
+    m = torch.rand(B, P, G, K, device="cuda", generator=gen)
+    wg = (torch.randn(G, K, C // G, Cout, device="cuda", generator=gen) * 0.1).bfloat16()
+    g = torch.randn(B, P, Cout, device="cuda", generator=gen)
+    before = dh.BWD_KERNEL.launches
+    got = dh.deform_conv_bwd(x, py, px, m, wg, g)
+    torch.cuda.synchronize()
+    assert dh.BWD_KERNEL.launches == before + 1
+    want = dh.deform_conv_bwd_plain(x, py, px, m, wg, g)
+    for name, a, b in zip(["dpy", "dpx", "dm", "dx", "dwg"], got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        # same roundings; dx sums by atomics in no fixed order
+        assert _rel_err(a, b) <= 1e-2, (name, _rel_err(a, b))
+
+
+def test_autograd_goes_through_both_kernels(gen):
+    q, k = (torch.randn(2, 30, 16, device="cuda", generator=gen).requires_grad_()
+            for _ in range(2))
+    v = torch.randn(2, 30, 32, device="cuda", generator=gen).requires_grad_()
+    before = (fa.KERNEL.launches, fa.BWD_KERNEL.launches)
+    fa.flash_attention(q, k, v).sum().backward()
+    assert (fa.KERNEL.launches, fa.BWD_KERNEL.launches) == (before[0] + 1, before[1] + 1)
+    assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
+    x = torch.randn(1, 6, 7, 8, device="cuda", generator=gen).requires_grad_()
+    oy, ox = (torch.randn(1, 6, 7, 2, 9, device="cuda", generator=gen).requires_grad_()
+              for _ in range(2))
+    mk = torch.rand(1, 6, 7, 2, 9, device="cuda", generator=gen).requires_grad_()
+    w = torch.randn(9, 8, 8, device="cuda", generator=gen).requires_grad_()
+    b = torch.randn(8, device="cuda", generator=gen).requires_grad_()
+    before = (dh.KERNEL.launches, dh.BWD_KERNEL.launches)
+    dh.deform_conv2d_hat(x, oy, ox, mk, w, b).square().sum().backward()
+    assert (dh.KERNEL.launches, dh.BWD_KERNEL.launches) == (before[0] + 1, before[1] + 1)
+    assert all(torch.isfinite(t.grad).all() for t in (x, oy, ox, mk, w, b))

@@ -40,6 +40,8 @@ def test_imports_with_jax_blocked():
         "    sys.modules[name] = None\n"
         "import gssd_torch, gssd_torch.infer, gssd_torch.models, gssd_torch.params\n"
         "import gssd_torch.data, gssd_torch.ops.nms, gssd_torch.ops.kernels\n"
+        "import gssd_torch.train, gssd_torch.train.trainer, gssd_torch.ops.losses\n"
+        "import gssd_torch.ops.matcher, gssd_torch.data.augment\n"
         "loaded = [m for m in sys.modules if m.split('.')[0] in "
         f"{BLOCKED!r} and sys.modules[m] is not None]\n"
         "assert not loaded, loaded\n"
@@ -61,6 +63,17 @@ def test_default_device_refuses_cpu(monkeypatch, tmp_path):
                     "--datapath", str(tmp_path)])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_model(ModelConfig())
+
+
+def test_trainer_module_refuses_without_card(tmp_path):
+    # python -m gssd_torch.train defaults to --device cuda: no card, no run
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    res = subprocess.run([sys.executable, "-m", "gssd_torch.train", "--max_iter", "1",
+                          "--output", str(tmp_path)], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0
+    assert "CUDA is not available" in res.stderr
+    assert not list(tmp_path.iterdir())  # nothing generated or trained
 
 
 def test_chip_smoke_refuses_without_card(tmp_path):

@@ -83,7 +83,7 @@ def test_sndense(rng):
     x = rng.normal(size=(2, 10, 16)).astype(np.float32)
     ref = jl.SNDense(8, dtype=jnp.float32)
     v = _init(ref, x, rng)
-    mod = tl.SNDense(16, 8)
+    mod = tl.SNDense(16, 8).eval()  # the frozen-vector form flax applies by default
     mod.load_state_dict(from_jax_variables(v), strict=True)
     with torch.no_grad():
         got = mod(torch.from_numpy(x)).numpy()
@@ -98,7 +98,7 @@ def test_self_attention(rng, dtype, pool_factor):
     ref = jl.SelfAttention(max_pool_factor=pool_factor, dtype=jnp.dtype(dtype))
     v = _init(ref, x, rng)
     out_j, scaled_j, attn_j = ref.apply(v, jnp.asarray(x, dtype))
-    mod = tl.SelfAttention(32, pool_factor)
+    mod = tl.SelfAttention(32, pool_factor).eval()  # flax's default train=False
     mod.load_state_dict(from_jax_variables(v), strict=True)
     with torch.no_grad():
         out_t, scaled_t, attn_t = mod(_nchw(x).to(getattr(torch, dtype)),

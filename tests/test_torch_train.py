@@ -1,0 +1,147 @@
+"""The whole training slice on the CPU: one full-width GSSD++ train step
+of the port (f32, dcn_impl='xla', batch 1) against
+gssd_tpu.train.make_train_step, and the trainer CLI end to end, whose
+saved weights the serving CLI then loads.
+
+Variables come from ``jax.eval_shape`` plus seeded numpy, as in
+tests/test_torch_ssd.py, and the optax state is built from them (a
+jitted ``create_train_state`` would cost another half minute).
+"""
+
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from test_torch_ssd import GSSD_PP, _seeded_variables
+
+from gssd_tpu.config import LossConfig as JaxLossConfig
+from gssd_tpu.config import ModelConfig as JaxModelConfig
+from gssd_tpu.config import OptimConfig as JaxOptimConfig
+from gssd_tpu.models import build_model as jax_build_model
+from gssd_tpu.train import make_train_step
+from gssd_tpu.train.state import TrainState, make_optimizer as jax_make_optimizer
+from gssd_torch.config import LossConfig, ModelConfig, OptimConfig
+from gssd_torch.models import build_model
+from gssd_torch.params import from_jax_variables, load_jax_variables
+from gssd_torch.train import make_optimizer, train_step
+
+OPTIM = dict(lr=1.0, momentum=0.9, weight_decay=5e-4, gamma=0.1,
+             stepvalues=(30000, 50000), modify_dcn_lr=True)
+
+
+def _batch(rng):
+    x = rng.uniform(0, 1, (1, 300, 300, 12)).astype(np.float32)
+    boxes = np.zeros((1, 16, 4), np.float32)
+    boxes[0, 0] = [0.30, 0.35, 0.45, 0.52]
+    boxes[0, 1] = [0.55, 0.40, 0.62, 0.47]
+    labels = np.zeros((1, 16), np.int32)
+    valid = np.zeros((1, 16), bool)
+    valid[0, :2] = True
+    return {"image": x, "boxes": boxes, "labels": labels, "valid": valid}
+
+
+def test_full_width_train_step_matches_jax():
+    rng = np.random.default_rng(7)
+    jmodel, priors = jax_build_model(JaxModelConfig(**GSSD_PP))
+    variables = _seeded_variables(jmodel, rng)
+    batch = _batch(rng)
+
+    tx = jax_make_optimizer(JaxOptimConfig(**OPTIM))
+    params = jax.tree_util.tree_map(jnp.asarray, variables["params"])
+    state = TrainState(step=jnp.zeros((), jnp.int32), params=params,
+                       batch_stats=variables["batch_stats"], spectral=variables["spectral"],
+                       opt_state=tx.init(params), tx=tx)
+    step = jax.jit(make_train_step(jmodel, priors, JaxLossConfig(), JaxOptimConfig(**OPTIM)))
+    new_state, want = step(state, jax.tree_util.tree_map(jnp.asarray, batch))
+    want_after = from_jax_variables(jax.tree_util.tree_map(np.asarray, new_state.variables()))
+
+    model, tpriors = build_model(ModelConfig(**GSSD_PP), device="cpu")
+    load_jax_variables(model, variables)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    opt = make_optimizer(model, OptimConfig(**OPTIM))
+    got = train_step(model, opt, torch.from_numpy(tpriors),
+                     {k: torch.from_numpy(v) for k, v in batch.items()}, LossConfig(),
+                     OptimConfig(**OPTIM), 0)
+
+    assert int(got["num_pos"]) == int(want["num_pos"]) > 0
+    assert got["lr"] == float(want["lr"]) == 1.0
+    # f32 on both sides through ~25 layers and back; only the summation
+    # order differs (the forward alone agrees to 1e-3 of its scale)
+    for name in ("loss", "loss_l", "loss_c"):
+        np.testing.assert_allclose(float(got[name]), float(want[name]), rtol=1e-4)
+    np.testing.assert_allclose(float(got["grad_norm"]), float(want["grad_norm"]), rtol=2e-3)
+
+    after = model.state_dict()
+    assert set(after) == set(want_after)
+    updates = {}
+    for name, w in want_after.items():
+        if name.endswith("num_batches_tracked"):
+            continue
+        w, a, b = w.numpy(), after[name].numpy(), before[name].numpy()
+        if name.endswith(("running_mean", "running_var", ".u", ".v")):
+            # BN statistics and spectral vectors: forward quantities
+            np.testing.assert_allclose(a, w, rtol=1e-3, atol=1e-4 * np.abs(w).max(),
+                                       err_msg=name)
+        else:
+            # parameters: the SGD update lr * (grad + wd * p) itself (lr 1,
+            # so that it stands well above the f32 rounding of p)
+            updates[name] = (a - b, w - b)
+    top = max(np.abs(want).max() for _, want in updates.values())
+    for name, (got_u, want_u) in updates.items():
+        # f32 gradients through the whole detector in another sum order;
+        # BatchNorm at batch 1 subtracts nearly equal terms, so single
+        # entries move by up to ~10% of their tensor's largest update
+        # while the direction holds (cosine >= 0.9999 where measured)
+        np.testing.assert_allclose(got_u, want_u, atol=2e-2 * top, rtol=0, err_msg=name)
+        if np.abs(want_u).max() > 1e-3 * top:
+            # (skips the conv biases in front of a BatchNorm: their
+            # gradient is 0 in exact arithmetic, the update weight decay
+            # plus rounding)
+            cos = np.sum(got_u * want_u) / np.sqrt(np.sum(got_u ** 2) * np.sum(want_u ** 2))
+            assert cos >= 0.999, (name, cos)
+
+
+def test_trainer_cli_then_serving_cli(tmp_path, capsys):
+    from gssd_torch import infer
+    from gssd_torch.data import make_synthetic_dataset
+    from gssd_torch.train import main
+
+    data = tmp_path / "ml"
+    make_synthetic_dataset(str(data), num_subjects=6, slices_per_subject=1, image_size=64)
+    out = tmp_path / "run"
+    res = main([
+        "--reference_recipe", "gssd++", "--synthetic", "True", "--datapath", str(data),
+        "--num_test_subjects", "1", "--batch_size", "2", "--max_iter", "2",
+        "--val_every", "1", "--speedrun", "0", "--compute_dtype", "float32",
+        "--device", "cpu", "--output", str(out), "--model_name", "gssd_pp"])
+    text = capsys.readouterr().out
+    assert [r["iter"] for r in res["records"]] == [0, 1]
+    for r in res["records"]:
+        assert all(np.isfinite(r[k]) for k in ("loss", "loss_l", "loss_c", "grad_norm"))
+        assert r["lr"] == pytest.approx(1e-3) and r["ms"] > 0
+    assert [v["iter"] for v in res["valid"]] == [1]
+    assert "iter 1: loss=" in text and "ms/step" in text and "valid: loss=" in text
+    weights = out / "checkpoints" / "gssd_pp" / "gssd_pp_1_CV0.pt"
+    assert res["weights"] == str(weights) and weights.exists()
+
+    det_path = tmp_path / "dets.json"
+    infer.main([
+        "--reference_recipe", "gssd++", "--datapath", str(data), "--num_test_subjects", "1",
+        "--eval_batch", "1", "--compute_dtype", "float32", "--confidence_threshold", "0.0",
+        "--weights", str(weights), "--device", "cpu", "--det_output", str(det_path)])
+    dets = json.loads(det_path.read_text())
+    assert [d["id"] for d in dets] == ["synth005_0"]
+    assert len(dets[0]["scores"]) == len(dets[0]["boxes"]) > 0
+
+
+@pytest.mark.parametrize("flag", [
+    ["--cross_validation", "2"], ["--resume", "100"], ["--test", "True"],
+    ["--ap_list", "0.5"], ["--aug_method", "device"]])
+def test_trainer_refuses_what_is_not_ported(flag):
+    from gssd_torch.train import main
+
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        main(["--device", "cpu", *flag])
