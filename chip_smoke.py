@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""GPU smoke run of the port (gssd_torch) on one card: the serving path
-and the training step.
+"""GPU smoke run of the port (gssd_torch) on one card: the serving path,
+the training step, the three DCN routes and the trainer's evaluation,
+checkpoints and resume.
 
     python3 chip_smoke.py        # from the root of a checkout
 
@@ -38,7 +39,26 @@ In order, failing (exit code 1) at the first phase that goes wrong:
    agree within TRAIN_LOSS_TOL; the gradients of f32 on the card and on
    the CPU agree in direction (cosine >= TRAIN_COS_MIN per parameter),
    and so do bf16 through the kernels and through the plain versions
-   (>= KERNEL_COS_MIN); see ``train_parity``.
+   (>= KERNEL_COS_MIN); see ``train_parity``;
+9. holds the three deform_sample kernels against their plain versions at
+   the 38x38 DCN site (fwd at batch 8 and 32, dx and dA/dB at batch 32),
+   within KERNEL_TOL, and times them beside one ``torch.einsum`` each;
+10. serves through ``gssd_torch.infer.main --dcn_impl pallas``: 9
+   ``deform_sample_fwd`` and 12 ``flash_attn_fwd`` launches per forward,
+   no ``deform_conv_fwd``;
+11. trains through ``gssd_torch.train.main`` at batch 32 with
+   ``--dcn_impl pallas`` (9 + 9 + 9 deform_sample and 12 + 12 attention
+   launches per step) and ``--dcn_impl fused`` (9 ``deform_sample_dx``
+   and no other DCN launch per step), finite losses, ms/step printed;
+12. trains ``hat`` with ``--val_every``/``--speedrun`` set so that the
+   AP/IoBB evaluation and a checkpoint happen; restores the checkpoint
+   into a fresh model and optimizer and finds it equal, bit for bit, to
+   the trainer's state; resumes from it (the first resumed step runs at
+   the stored step's LR, past a ``--stepvalues`` boundary); evaluates it
+   with ``--test True --checkpoint``: the AP/IoBB keys, values in [0, 1];
+13. one DCN layer (1024 -> 512, 4 groups, 38x38, batch 8) on the
+   ``pallas`` and ``fused`` routes: gradients in bf16 through the kernels
+   against bf16 through the plain versions, cosine >= DCN_COS_MIN each.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or outside a
@@ -76,6 +96,12 @@ TRAIN_COS_MIN = 0.98
 # versions (same roundings, other summation orders): least cosine
 # between a parameter's two gradients
 KERNEL_COS_MIN = 0.9
+# one DCN layer's gradients, bf16 through the kernels vs bf16 through the
+# plain versions (the same roundings, other summation orders)
+DCN_COS_MIN = 0.999
+# steps of each extra training run (the DCN routes, the evaluation run)
+ROUTE_ITERS = 3
+AP_KEYS = {"ap30", "ap50", "ap70", "iobb30", "iobb50", "iobb70"}
 # NVIDIA H100 SXM data sheet: dense bf16 tensor-core rate, f32 rate
 # outside the tensor cores, HBM3 rate
 PEAK_BF16_OPS = 989e12
@@ -330,6 +356,148 @@ def check_dcn_bwd():
     return site
 
 
+def sample_inputs(batch):
+    """One tap's operands of the separable sampler at the 38x38 DCN site,
+    as deform_conv2d_pallas forms them: hat matrices A (times the mask) and
+    B of sample coordinates with offsets over +-3 px (a third of them whole
+    numbers), x and an output gradient, all bf16."""
+    import torch
+
+    from gssd_torch.ops.kernels import deform_sample as ds
+
+    s = DCN_SITE
+    H, W, G, Cg = s["H"], s["W"], s["G"], s["C"] // s["G"]
+    P = H * W
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    off = torch.rand(2, batch, G, P, device="cuda", generator=g) * 6 - 3
+    whole = torch.rand(off.shape, device="cuda", generator=g) < 1 / 3
+    off = torch.where(whole, off.round(), off)
+    # the centre tap: base - 1 (padding) + 1 (tap) + offset
+    py = torch.arange(H, device="cuda").repeat_interleave(W).float() + off[0]
+    px = torch.arange(W, device="cuda").repeat(H).float() + off[1]
+    m = torch.rand(batch, G, P, device="cuda", generator=g)
+    with torch.no_grad():
+        a = (ds.hat_weights(py, H) * m[..., None]).bfloat16().contiguous()
+        b = ds.hat_weights(px, W).bfloat16().contiguous()
+    x = torch.randn(batch, G, H, W, Cg, device="cuda", generator=g).bfloat16()
+    gout = torch.randn(batch, G, P, Cg, device="cuda", generator=g).bfloat16()
+    return a, b, x, gout
+
+
+def check_sample():
+    """The three deform_sample kernels against their plain versions at the
+    38x38 site: fwd at batch 8 and 32, dx and dA/dB at batch 32; each
+    output within KERNEL_TOL of its own max. Times kernel, plain version
+    and one torch.einsum of the same function (the yardstick)."""
+    import torch
+
+    from gssd_torch.ops.kernels import deform_sample as ds
+
+    s = DCN_SITE
+    sites = {}
+
+    def compare(name, got, want):
+        errs = []
+        for g_, w_ in zip(got, want):
+            err = (g_ - w_).abs().max().item()
+            scale = w_.abs().max().item()
+            check(math.isfinite(err) and err <= KERNEL_TOL * scale,
+                  f"{name}: max err {err} > {KERNEL_TOL} * {scale}")
+            errs.append((err, err / scale))
+        return max(e for e, _ in errs), max(r for _, r in errs)
+
+    for batch in (BATCH, TRAIN_BATCH):
+        a, b, x, gout = sample_inputs(batch)
+        n_mac = batch * s["G"] * s["H"] * s["W"] * s["H"] * s["W"] * (s["C"] // s["G"])
+        out = ds.abx_fwd(a, b, x)
+        torch.cuda.synchronize()
+        err, rel = compare(f"deform_sample_fwd B={batch}", [out], [ds.abx_fwd_plain(a, b, x)])
+        b_ms, b_by = bound(2 * n_mac, nbytes_of(a, b, x, out))
+        sites[f"fwd_b{batch}"] = dict(
+            B=batch, **s, max_abs_err=err, rel_err=rel,
+            ms=time_ms(lambda: ds.abx_fwd(a, b, x), iters=10),
+            plain_ms=time_ms(lambda: ds.abx_fwd_plain(a, b, x), iters=3, warmup=1),
+            library_ms=time_ms(lambda: torch.einsum("ngph,ngpw,nghwc->ngpc", a, b, x),
+                               iters=3, warmup=1),
+            bound_ms=b_ms, bound_by=b_by, ops=2 * n_mac)
+    # a, b, x, gout of batch 32 from here on
+    dx = ds.abx_dx(a, b, gout)
+    torch.cuda.synchronize()
+    err, rel = compare("deform_sample_dx", [dx], [ds.abx_dx_plain(a, b, gout)])
+    af, bf, gf = a.float(), b.float(), gout.float()
+    b_ms, b_by = bound(0, nbytes_of(a, b, gout, dx), f32_ops=2 * n_mac)
+    sites["dx"] = dict(
+        B=TRAIN_BATCH, **s, max_abs_err=err, rel_err=rel,
+        ms=time_ms(lambda: ds.abx_dx(a, b, gout), iters=5),
+        plain_ms=time_ms(lambda: ds.abx_dx_plain(a, b, gout), iters=3, warmup=1),
+        library_ms=time_ms(lambda: torch.einsum("ngph,ngpw,ngpc->nghwc", af, bf, gf),
+                           iters=3, warmup=1),
+        bound_ms=b_ms, bound_by=b_by, f32_ops=2 * n_mac)
+    del af, bf, gf
+    da, db = ds.abx_dab(x, gout, a, b)
+    torch.cuda.synchronize()
+    err, rel = compare("deform_sample_dab", [da, db], ds.abx_dab_plain(x, gout, a, b))
+    b_ms, b_by = bound(4 * n_mac, nbytes_of(x, gout, a, b, da, db))
+
+    def library_dab():
+        torch.einsum("ngpw,ngpc,nghwc->ngph", b, gout, x)
+        torch.einsum("ngph,ngpc,nghwc->ngpw", a, gout, x)
+
+    sites["dab"] = dict(
+        B=TRAIN_BATCH, **s, max_abs_err=err, rel_err=rel,
+        ms=time_ms(lambda: ds.abx_dab(x, gout, a, b), iters=5),
+        plain_ms=time_ms(lambda: ds.abx_dab_plain(x, gout, a, b), iters=3, warmup=1),
+        library_ms=time_ms(library_dab, iters=3, warmup=1),
+        bound_ms=b_ms, bound_by=b_by, ops=4 * n_mac)
+    for name, site in sites.items():
+        print(f"deform_sample_{name} B={site['B']} 38x38 Cg={s['C'] // s['G']}: rel err "
+              f"{site['rel_err']:.3g}, kernel {site['ms']:.4f} ms, plain {site['plain_ms']:.4f} "
+              f"ms, einsum {site['library_ms']:.4f} ms, bound {1e3 * site['bound_ms']:.2f} us "
+              f"({site['bound_by']})", flush=True)
+    return sites
+
+
+def dcn_grads():
+    """One DCN layer at the GSSD++ site (1024 -> 512, 4 deformable groups,
+    38x38, batch 8, bf16) on the pallas and fused routes: the gradients of
+    the input and of every parameter through the kernels against those
+    through the plain versions; cosine >= DCN_COS_MIN each."""
+    import torch
+
+    from gssd_torch.ops.deform_conv import DCN
+
+    s = DCN_SITE
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    x = torch.randn(BATCH, s["C"], s["H"], s["W"], device="cuda", generator=g).bfloat16()
+    r = torch.randn(BATCH, s["Cout"], s["H"], s["W"], device="cuda", generator=g)
+    report = {}
+    for impl in ("pallas", "fused"):
+        mod = DCN(s["C"], s["Cout"], deformable_groups=s["G"], impl=impl,
+                  generator=torch.Generator().manual_seed(SEED)).cuda()
+        with torch.no_grad():
+            w = mod.conv_offset_mask.weight
+            w.normal_(0, 1 / math.sqrt(w[0].numel()), generator=g)
+            mod.conv_offset_mask.bias.normal_(0, 0.1, generator=g)
+
+        def grads(plain):
+            xx = x.clone().requires_grad_()
+            mod.zero_grad()
+            with plain_versions() if plain else contextlib.nullcontext():
+                out, _ = mod(xx)
+                (out.float() * r).sum().backward()
+            return {"x": xx.grad.float(), **{n: p.grad.float() for n, p in mod.named_parameters()}}
+
+        got, want = grads(False), grads(True)
+        cos = {n: ((got[n] * want[n]).sum() / (got[n].norm() * want[n].norm())).item()
+               for n in want}
+        print(f"DCN[{impl}] gradients, kernels vs plain versions (bf16): cosines {cos} "
+              f"(limit {DCN_COS_MIN})", flush=True)
+        check(all(c >= DCN_COS_MIN for c in cos.values()),
+              f"DCN[{impl}] gradient cosine below {DCN_COS_MIN}: {cos}")
+        report[impl] = cos
+    return report
+
+
 def seeded_model(compute_dtype, seed=SEED):
     """GSSD++ with random weights from ``seed`` that make every path
     contribute: He-scaled convs (activations keep their scale through
@@ -400,9 +568,9 @@ def serve(tmp):
         "--weights", weights, "--det_output", det_path])
     launches = {name: k.launches for name, k in KERNELS.items()}
     print(f"main-path launches over {n_batches} forwards: {launches}", flush=True)
-    check(launches == {"flash_attn_fwd": 12 * n_batches, "flash_attn_bwd": 0,
-                       "deform_conv_fwd": n_batches, "deform_conv_bwd": 0},
-          f"expected 12 flash and 1 DCN launch per forward, got {launches}")
+    want = {name: 0 for name in KERNELS}
+    want.update(flash_attn_fwd=12 * n_batches, deform_conv_fwd=n_batches)
+    check(launches == want, f"expected 12 flash and 1 DCN launch per forward, got {launches}")
     with open(det_path) as f:
         dets = json.load(f)
     check(len(dets) == n_images and all(set(d) == {"id", "scores", "boxes"} for d in dets),
@@ -412,7 +580,34 @@ def serve(tmp):
           f"bad latency record {lat}")
     print(f"serving latency (excl. first batch, batch {BATCH}): "
           f"{sum(lat) / len(lat):.3f} ms/image over {len(lat)} batches", flush=True)
-    return launches, lat, data
+    return launches, lat, data, weights
+
+
+def serve_pallas(tmp, data, weights):
+    """The serving CLI with --dcn_impl pallas over the 32 slices of the
+    serving phase (four forwards of 8), launches counted."""
+    from gssd_torch import infer
+    from gssd_torch.ops.kernels import KERNELS
+
+    n_batches = 4
+    for k in KERNELS.values():
+        k.launches = 0
+    res = infer.main([
+        "--reference_recipe", "gssd++", "--datapath", data, "--split", "all",
+        "--num_test_subjects", "2", "--eval_batch", str(BATCH), "--dcn_impl", "pallas",
+        "--device", "cuda", "--compute_dtype", "bfloat16", "--weights", weights,
+        "--det_output", os.path.join(tmp, "detections_pallas.json")])
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    print(f"pallas serving launches over {n_batches} forwards: {launches}", flush=True)
+    want = {name: 0 for name in KERNELS}
+    want.update(flash_attn_fwd=12 * n_batches, deform_sample_fwd=9 * n_batches)
+    check(launches == want, f"expected 12 flash and 9 deform_sample_fwd launches per "
+                            f"forward, got {launches}")
+    check(len(res["detections"]) == 8 * n_batches, "pallas serving: wrong detection count")
+    lat = res["latency_ms"]
+    print(f"pallas serving latency (excl. first batch, batch {BATCH}): "
+          f"{sum(lat) / len(lat):.3f} ms/image over {len(lat)} batches", flush=True)
+    return launches, lat
 
 
 def breakdown():
@@ -482,33 +677,113 @@ def parity(data):
     return errs
 
 
-def train(tmp, device="cuda", batch=TRAIN_BATCH, iters=TRAIN_ITERS):
-    """The trainer CLI at the published recipe on synthetic data, with
-    the launches of the main path counted."""
+# launches per train step of each DCN route (no evaluation in the run)
+ROUTE_LAUNCHES = {
+    "hat": dict(flash_attn_fwd=12, flash_attn_bwd=12, deform_conv_fwd=1, deform_conv_bwd=1),
+    "pallas": dict(flash_attn_fwd=12, flash_attn_bwd=12, deform_sample_fwd=9,
+                   deform_sample_dx=9, deform_sample_dab=9),
+    "fused": dict(flash_attn_fwd=12, flash_attn_bwd=12, deform_sample_dx=9),
+}
+
+
+def train_argv(tmp, impl="hat", batch=TRAIN_BATCH, iters=TRAIN_ITERS, out="run",
+               device="cuda"):
+    return ["--reference_recipe", "gssd++", "--synthetic", "True",
+            "--datapath", os.path.join(tmp, "train_ml"), "--num_test_subjects", "4",
+            "--load_data_to_ram", "True", "--batch_size", str(batch), "--max_iter", str(iters),
+            "--device", device, "--compute_dtype", "bfloat16", "--seed", str(SEED),
+            "--dcn_impl", impl, "--tensorboard", "False", "--output", os.path.join(tmp, out)]
+
+
+def train(tmp, impl="hat", batch=TRAIN_BATCH, iters=TRAIN_ITERS):
+    """The trainer CLI at the published recipe on synthetic data with DCN
+    route ``impl``, the launches of the run counted: exactly
+    ROUTE_LAUNCHES[impl] per step."""
     from gssd_torch import train as trainer
     from gssd_torch.ops.kernels import KERNELS
 
     for k in KERNELS.values():
         k.launches = 0
-    res = trainer.main([
-        "--reference_recipe", "gssd++", "--synthetic", "True",
-        "--datapath", os.path.join(tmp, "train_ml"), "--num_test_subjects", "4",
-        "--load_data_to_ram", "True", "--batch_size", str(batch), "--max_iter", str(iters),
-        "--device", device, "--compute_dtype", "bfloat16", "--seed", str(SEED),
-        "--output", os.path.join(tmp, "run")])
+    res = trainer.main(train_argv(tmp, impl, batch, iters, out=f"run_{impl}"))
     launches = {name: k.launches for name, k in KERNELS.items()}
-    print(f"training launches over {iters} steps: {launches}", flush=True)
-    if device == "cuda":
-        check(launches == {"flash_attn_fwd": 12 * iters, "flash_attn_bwd": 12 * iters,
-                           "deform_conv_fwd": iters, "deform_conv_bwd": iters},
-              f"expected 12 + 12 flash and 1 + 1 DCN launches per step, got {launches}")
+    print(f"training ({impl}) launches over {iters} steps: {launches}", flush=True)
+    want = {name: ROUTE_LAUNCHES[impl].get(name, 0) * iters for name in KERNELS}
+    check(launches == want, f"{impl}: expected {ROUTE_LAUNCHES[impl]} launches per step, "
+                            f"got {launches}")
     losses = [r["loss"] for r in res["records"]]
     check(len(losses) == iters and all(math.isfinite(v) for v in losses),
-          f"non-finite or missing training losses {losses}")
+          f"{impl}: non-finite or missing training losses {losses}")
     median = res["median_step_ms"]
-    print(f"training: median {median:.2f} ms/step after the first step, "
+    print(f"training ({impl}): median {median:.2f} ms/step after the first step, "
           f"{batch / median * 1e3:.1f} slices/s at batch {batch}; losses {losses}", flush=True)
     return launches, res, os.path.join(tmp, "train_ml")
+
+
+def eval_resume_test(tmp, device="cuda", batch=TRAIN_BATCH):
+    """The hat trainer with an evaluation and a checkpoint at iteration 2
+    of 3 (--val_every 2 --speedrun 2), --stepvalues 3; the checkpoint
+    restored into a fresh model and optimizer must equal the trainer's
+    state bit for bit; --resume 2 must run its first step (iteration 2,
+    step 3) at the LR past the boundary; --test --checkpoint 2 must give
+    the AP/IoBB keys in [0, 1]."""
+    import torch
+
+    from gssd_torch import train as trainer
+    from gssd_torch.models import build_model
+    from gssd_torch.train import make_optimizer
+    from gssd_torch.train.checkpoint import restore_checkpoint
+    from gssd_torch.train.trainer import model_config, parse_args
+
+    extra = ["--val_every", "2", "--speedrun", "2", "--stepvalues", "3", "--eval_batch", "16"]
+    argv = train_argv(tmp, "hat", batch, ROUTE_ITERS, "run_eval", device) + extra
+    t0 = time.perf_counter()
+    first = trainer.main(argv)
+    evals = first["evals"]
+    check([e["iter"] for e in evals] == [2] and first["step"] == 3,
+          f"expected one evaluation at iteration 2 after 3 steps, got {evals}")
+    for split in ("valid", "test"):
+        res = evals[0][split]
+        check(set(res) == AP_KEYS and all(0.0 <= v <= 1.0 for v in res.values()),
+              f"{split} AP/IoBB malformed: {res}")
+    print(f"evaluation at iteration 2: valid {evals[0]['valid']}, test {evals[0]['test']}",
+          flush=True)
+
+    args = parse_args(argv)
+    model, _ = build_model(model_config(args), device="cpu", seed=SEED + 7)
+    model = model.to(device)
+    opt = make_optimizer(model, _optim())
+    step = restore_checkpoint(model, opt, os.path.join(args.output, "checkpoints"),
+                              args.model_name, 2)
+    want_sd, got_sd = first["model"].state_dict(), model.state_dict()
+    same = [torch.equal(got_sd[k], v) for k, v in want_sd.items()]
+    want_opt, got_opt = first["optimizer"].state_dict(), opt.state_dict()
+    same_m = [torch.equal(got_opt["state"][i]["momentum_buffer"], st["momentum_buffer"])
+              for i, st in want_opt["state"].items()]
+    check(step == 3 and all(same) and len(same) == len(got_sd) and all(same_m)
+          and len(same_m) == len(list(model.parameters())),
+          f"restore is not exact: step {step}, {same.count(False)} tensors and "
+          f"{same_m.count(False)} momenta differ")
+    print(f"checkpoint restored bit for bit: {len(same)} state tensors, {len(same_m)} "
+          f"momenta, step {step}", flush=True)
+    del model, opt
+
+    resumed = trainer.main(train_argv(tmp, "hat", batch, 4, "run_eval", device) + extra
+                           + ["--resume", "2"])
+    recs = resumed["records"]
+    lr_want = args.lr * args.gamma
+    check([r["iter"] for r in recs] == [2, 3] and abs(recs[0]["lr"] - lr_want) < 1e-12
+          and resumed["step"] == 5 and all(math.isfinite(r["loss"]) for r in recs),
+          f"resume: expected iterations [2, 3] from step 3 at lr {lr_want}, got "
+          f"{[(r['iter'], r['lr'], r['loss']) for r in recs]}, step {resumed['step']}")
+    print(f"resumed at iteration 2, step 3, lr {recs[0]['lr']:.2e}; losses "
+          f"{[r['loss'] for r in recs]}", flush=True)
+
+    tested = trainer.main(argv + ["--test", "True", "--checkpoint", "2"])["test"]
+    check(set(tested) == AP_KEYS and all(0.0 <= v <= 1.0 for v in tested.values()),
+          f"--test AP/IoBB malformed: {tested}")
+    print(f"--test --checkpoint 2: {tested}", flush=True)
+    return {"evaluation": evals[0], "resumed_losses": [r["loss"] for r in recs],
+            "resumed_lr": recs[0]["lr"], "test": tested, "seconds": time.perf_counter() - t0}
 
 
 def fixed_batch(data, n, device):
@@ -582,14 +857,16 @@ def descend_and_split(data, device="cuda", batch=TRAIN_BATCH):
 
 @contextlib.contextmanager
 def plain_versions():
-    """Route the four kernel boundaries to their plain versions, also for
+    """Route the seven kernel boundaries to their plain versions, also for
     CUDA tensors, for the length of the block (the autograd Functions
     look the boundaries up at call time)."""
     from gssd_torch.ops.kernels import deform_hat as dh
+    from gssd_torch.ops.kernels import deform_sample as ds
     from gssd_torch.ops.kernels import flash_attn as fa
 
     swaps = [(fa, "flash_attention_fwd"), (fa, "flash_attention_bwd"),
-             (dh, "deform_conv_fwd"), (dh, "deform_conv_bwd")]
+             (dh, "deform_conv_fwd"), (dh, "deform_conv_bwd"),
+             (ds, "abx_fwd"), (ds, "abx_dx"), (ds, "abx_dab")]
     saved = [getattr(mod, name) for mod, name in swaps]
     for mod, name in swaps:
         setattr(mod, name, getattr(mod, name + "_plain"))
@@ -709,6 +986,11 @@ def train_parity(data, f32_device="cpu", device="cuda"):
     return report
 
 
+def _kernel_numbers(site):
+    return {k: site[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")}
+
+
 def main() -> int:
     try:
         import torch
@@ -747,8 +1029,9 @@ def main() -> int:
         attn_bwd_sites = check_flash_bwd()
         dcn_site = check_dcn()
         dcn_bwd_site = check_dcn_bwd()
+        sample_sites = check_sample()
         with tempfile.TemporaryDirectory() as tmp:
-            launches, lat, data = serve(tmp)
+            launches, lat, data, weights = serve(tmp)
             parts = breakdown()
             errs = parity(data)
             t_train = time.perf_counter()
@@ -756,6 +1039,10 @@ def main() -> int:
             losses, split = descend_and_split(train_data)
             train_par = train_parity(train_data)
             train_s = time.perf_counter() - t_train
+            pallas_serve_launches, pallas_lat = serve_pallas(tmp, data, weights)
+            routes = {impl: train(tmp, impl, iters=ROUTE_ITERS) for impl in ("pallas", "fused")}
+            harness = eval_resume_test(tmp)
+        dcn_grad_cos = dcn_grads()
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -807,7 +1094,46 @@ def main() -> int:
                    "runs the dU GEMM, the corner kernel and the dW GEMM"),
              sites=[dcn_bwd_site]),
     ]
+    pallas_launches = routes["pallas"][0]
+    sample_note = ("times per launch at the 38x38 site; library_ms is one torch.einsum of "
+                   "the same function, never called by the port")
+    kernels += [
+        dict(name="deform_sample_fwd", route="cuda",
+             source="gssd_torch/csrc/deform_sample_fwd.cu",
+             replaces="gssd_tpu/ops/pallas/deform_sample.py:66",
+             launches=pallas_serve_launches["deform_sample_fwd"],
+             **_kernel_numbers(sample_sites["fwd_b8"]),
+             note=(f"{sample_note}; one batch-{BATCH} call (one tap; 9 per forward); "
+                   f"launches from the pallas serving run, "
+                   f"{pallas_launches['deform_sample_fwd']} in the pallas training run"),
+             ms_train_batch=sample_sites[f"fwd_b{TRAIN_BATCH}"]["ms"],
+             sites=[sample_sites["fwd_b8"], sample_sites[f"fwd_b{TRAIN_BATCH}"]]),
+        dict(name="deform_sample_dx", route="cuda", source="gssd_torch/csrc/deform_sample_dx.cu",
+             replaces="gssd_tpu/ops/pallas/deform_sample.py:79",
+             launches=pallas_launches["deform_sample_dx"],
+             **_kernel_numbers(sample_sites["dx"]),
+             note=(f"{sample_note}; one batch-{TRAIN_BATCH} call (one tap; 9 per step); launches "
+                   f"from the pallas training run, {routes['fused'][0]['deform_sample_dx']} in "
+                   f"the fused one"),
+             sites=[sample_sites["dx"]]),
+        dict(name="deform_sample_dab", route="cuda",
+             source="gssd_torch/csrc/deform_sample_dab.cu",
+             replaces="gssd_tpu/ops/pallas/deform_sample.py:104",
+             launches=pallas_launches["deform_sample_dab"],
+             **_kernel_numbers(sample_sites["dab"]),
+             note=(f"{sample_note} (two einsums: dA and dB); one batch-{TRAIN_BATCH} call "
+                   "(one tap; 9 per step) runs the dA and the dB pass"),
+             sites=[sample_sites["dab"]]),
+    ]
     recs = train_res["records"]
+    print(json.dumps({"routes": {
+        impl: {"batch": TRAIN_BATCH, "steps": len(res["records"]),
+               "ms_per_step": [r["ms"] for r in res["records"]],
+               "losses": [r["loss"] for r in res["records"]],
+               "median_ms_per_step": res["median_step_ms"], "launches": lc}
+        for impl, (lc, res, _) in routes.items()},
+        "pallas_serving": {"batch": BATCH, "latency_ms_per_image": pallas_lat},
+        "harness": harness, "dcn_grad_cosines": dcn_grad_cos, "power": smi}))
     print(json.dumps({"serving": {"batch": BATCH, "latency_ms_per_image": lat,
                                   "breakdown_ms_per_batch": parts,
                                   "parity_rel_err": errs, "power": smi},

@@ -131,10 +131,13 @@ class ModelConfig:
     anchors: str = "v2"
     # compute dtype for conv/matmul activations; params stay f32
     compute_dtype: str = "bfloat16"
-    # deformable-conv core: 'hat' runs the hand-written CUDA kernel
-    # (ops/kernels/deform_hat.py: bf16 sampling and weights, f32
-    # accumulation, like the JAX hat kernel); 'xla' runs the plain
-    # 4-corner gather in the compute dtype (the f32 parity reference)
+    # deformable-conv core (ops/deform_conv.py resolve_deform_impl):
+    # 'hat' runs the hat DCN's CUDA kernels (ops/kernels/deform_hat.py:
+    # bf16 sampling and weights, f32 accumulation, like the JAX hat
+    # kernel); 'pallas' the separable sampler's kernels
+    # (ops/kernels/deform_sample.py); 'fused' the patch gather with an
+    # analytic backward (ops/deform_fused.py); 'xla' the plain 4-corner
+    # gather in the compute dtype (the f32 parity reference)
     dcn_impl: str = "hat"
 
     def __post_init__(self):

@@ -1,7 +1,7 @@
 // Modulated deformable convolution (DCNv2) forward for Hopper (sm_90a).
 //
 //   out[b, p, n] = bias[n] + sum_{g, k, c} samp[b, p, g, k, c] * wg[g, k, c, n]
-//   samp         = bf16( sum_{4 corners} w_corner * m[b, p, g, k] * x[b, corner, g*Cg + c] )
+//   samp         = bf16( sum_{4 corners} bf16(ay * bx * m[b, p, g, k]) * x[b, corner, g*Cg + c] )
 //
 // Replaces gssd_tpu/ops/pallas/deform_hat.py _fwd_kernel /
 // _fwd_kernel_allwin (the Pallas TPU kernels behind deform_conv2d_hat).
@@ -18,8 +18,9 @@
 //   3. the [64 x 32] sample tile times the [32 x 256] bf16 weight slice
 //      on the tensor cores (wmma, f32 accumulation).
 // Groups and taps sum in the same f32 accumulator, then the bias is
-// added. Unlike the hat kernel, the corner weight ay*bx*m stays f32
-// (the TPU kernel rounds it to bf16); the sample is rounded once.
+// added. Each corner weight ay*bx*m is rounded to bf16 before the blend,
+// as the hat kernel rounds it (deform_hat.py:343), and the sample once
+// more after it.
 //
 // What bounds it here: the GEMM is 2*P*K*C*Cout = 13.6 GFLOP per image
 // at the 38x38, C = 1024, Cout = 512 serving site against ~7 MB of
@@ -108,12 +109,8 @@ deform_fwd_kernel(const bf16* __restrict__ x,      // [B, H, W, C]
             // -1 or above H-1 leaves both corners of that axis outside
             const float y0f = fminf(fmaxf(floorf(fy), -2.0f), (float)H);
             const float x0f = fminf(fmaxf(floorf(fx), -2.0f), (float)W);
-            const float ly = fy - floorf(fy);
-            const float lx = fx - floorf(fx);
             const int y0 = (int)y0f;
             const int x0 = (int)x0f;
-            const float wy[2] = {1.0f - ly, ly};
-            const float wx[2] = {1.0f - lx, lx};
 #pragma unroll
             for (int dy = 0; dy < 2; ++dy) {
 #pragma unroll
@@ -121,8 +118,14 @@ deform_fwd_kernel(const bf16* __restrict__ x,      // [B, H, W, C]
                     const int yy = y0 + dy;
                     const int xx = x0 + dx;
                     const bool in = p < P && yy >= 0 && yy < H && xx >= 0 && xx < W;
+                    // the hat weights max(0, 1 - |p - q|) in f32, and their
+                    // product with the mask rounded to bf16, as the TPU
+                    // kernel forms them
+                    const float ay = fmaxf(0.0f, 1.0f - fabsf(fy - (float)yy));
+                    const float bx = fmaxf(0.0f, 1.0f - fabsf(fx - (float)xx));
+                    const float w = __bfloat162float(__float2bfloat16(ay * bx * m));
                     cidx[(tb * TP + tid) * 4 + dy * 2 + dx] = in ? yy * W + xx : 0;
-                    cw[(tb * TP + tid) * 4 + dy * 2 + dx] = in ? wy[dy] * wx[dx] * m : 0.0f;
+                    cw[(tb * TP + tid) * 4 + dy * 2 + dx] = in ? w : 0.0f;
                 }
             }
         }

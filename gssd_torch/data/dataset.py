@@ -54,6 +54,10 @@ class LesionDataset:
         """Original-resolution image [4, H, W, 3] float 0..255."""
         return self.raw_item(index)[0]
 
+    def pull_anno(self, index: int) -> np.ndarray:
+        """[n, 5] boxes in original pixels plus the class."""
+        return self.raw_item(index)[1]
+
     def __getitem__(self, index: int):
         """(image, boxes [n, 4] in [0, 1], labels [n]) after the transform."""
         img, target = self.raw_item(index)
@@ -104,7 +108,7 @@ def collate(items: Sequence[Tuple[np.ndarray, np.ndarray, np.ndarray]],
 class BatchLoader:
     """Shuffling, endlessly repeating batch iterator with one background
     prefetch thread. The order is a seeded ``default_rng`` permutation
-    per epoch."""
+    per epoch. ``close`` stops the thread."""
 
     def __init__(self, dataset: LesionDataset, batch_size: int, max_gt: int = 16,
                  seed: int = 1111, shuffle: bool = True, prefetch: int = 2):
@@ -118,6 +122,7 @@ class BatchLoader:
         self._queue: queue_mod.Queue = queue_mod.Queue(maxsize=prefetch)
         self._thread = threading.Thread(target=self._worker, daemon=True)
         self._started = False
+        self._stop = threading.Event()
 
     def _index_stream(self) -> Iterator[int]:
         n = len(self.dataset)
@@ -127,9 +132,21 @@ class BatchLoader:
 
     def _worker(self):
         stream = self._index_stream()
-        while True:
+        while not self._stop.is_set():
             items = [self.dataset[next(stream)] for _ in range(self.batch_size)]
-            self._queue.put(collate(items, self.max_gt))
+            batch = collate(items, self.max_gt)
+            while not self._stop.is_set():
+                try:
+                    self._queue.put(batch, timeout=0.1)
+                    break
+                except queue_mod.Full:
+                    pass
+
+    def close(self):
+        """Stop the prefetch thread and wait for it (at most one batch)."""
+        self._stop.set()
+        if self._started:
+            self._thread.join()
 
     def __iter__(self):
         if not self._started:

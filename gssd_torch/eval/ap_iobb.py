@@ -1,0 +1,202 @@
+"""AP / IoBB evaluation, the port of ``gssd_tpu/eval/ap_iobb.py`` (numpy).
+
+1. run the detector over every eval image, keep class-1 detections,
+   scale boxes to original pixels, filter by the confidence threshold;
+2. sort all detections by confidence (descending) across the dataset;
+3. for every (metric in {IoU, IoBB}) x (threshold in ap_list/iobb_list):
+   greedy TP/FP assignment, where a detection is a TP if its best-overlap
+   gt in the same image clears the threshold and is not already claimed;
+   IoBB divides the intersection by the predicted box's area instead of
+   the union;
+4. precision/recall cumsums -> AP by the 11-point VOC-07 rule or the
+   exact area under the curve.
+
+The sweep is the JAX package's numpy loop (its C++ sweep has the same
+semantics and is not ported). Unlike the JAX package, the last chunk of
+images is not padded to the batch size: an eager forward has no fixed
+shape to keep, and the padding rows were never read.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+
+def voc_ap(rec: np.ndarray, prec: np.ndarray, use_07_metric: bool = False) -> float:
+    """VOC AP from recall/precision curves."""
+    if use_07_metric:
+        ap = 0.0
+        for t in np.arange(0.0, 1.1, 0.1):
+            p = prec[rec >= t].max() if (rec >= t).any() else 0.0
+            ap += p / 11.0
+        return float(ap)
+    mrec = np.concatenate([[0.0], rec, [1.0]])
+    mpre = np.concatenate([[0.0], prec, [0.0]])
+    for i in range(mpre.size - 1, 0, -1):
+        mpre[i - 1] = max(mpre[i - 1], mpre[i])
+    idx = np.where(mrec[1:] != mrec[:-1])[0]
+    return float(np.sum((mrec[idx + 1] - mrec[idx]) * mpre[idx + 1]))
+
+
+def _overlap(pred_box: np.ndarray, gts: np.ndarray, metric: str) -> np.ndarray:
+    """Overlap of one predicted box against [n, 4] gts (pixel coords)."""
+    ix1 = np.maximum(gts[:, 0], pred_box[0])
+    iy1 = np.maximum(gts[:, 1], pred_box[1])
+    ix2 = np.minimum(gts[:, 2], pred_box[2])
+    iy2 = np.minimum(gts[:, 3], pred_box[3])
+    inter = np.maximum(ix2 - ix1, 0.0) * np.maximum(iy2 - iy1, 0.0)
+    pred_area = (pred_box[2] - pred_box[0]) * (pred_box[3] - pred_box[1])
+    if metric == "iobb":
+        denom = pred_area
+    else:
+        gt_area = (gts[:, 2] - gts[:, 0]) * (gts[:, 3] - gts[:, 1])
+        denom = gt_area + pred_area - inter
+    return inter / np.maximum(denom, 1e-12)
+
+
+def evaluate_detections(
+    predictions: np.ndarray,
+    gt_boxes: Dict[int, np.ndarray],
+    threshold: float,
+    metric: str = "iou",
+    use_07_metric: bool = False,
+    gt_difficult: Optional[Dict[int, np.ndarray]] = None,
+) -> float:
+    """AP of a detection set at one (metric, threshold).
+
+    predictions: [N, 6] rows (image_idx, score, x1, y1, x2, y2), any order.
+    gt_boxes: image_idx -> [n, 4] pixel gt boxes. metric: 'iou' or 'iobb'.
+    gt_difficult: optional image_idx -> [n] bool flags aligned with
+    gt_boxes; difficult objects are ignored (VOC protocol): left out of
+    npos, and a detection whose best match is difficult counts as
+    neither TP nor FP.
+    """
+    any_difficult = gt_difficult is not None and any(
+        np.any(v) for v in gt_difficult.values())
+    if any_difficult:
+        npos = sum(int(np.sum(~np.asarray(gt_difficult.get(k, np.zeros(len(v), bool)))))
+                   for k, v in gt_boxes.items())
+    else:
+        npos = sum(len(v) for v in gt_boxes.values())
+    if npos == 0 or len(predictions) == 0:
+        return 0.0
+    preds = predictions[np.argsort(-predictions[:, 1], kind="stable")]
+    claimed = {k: np.zeros(len(v), bool) for k, v in gt_boxes.items()}
+    tp = np.zeros(len(preds))
+    fp = np.zeros(len(preds))
+    for i, row in enumerate(preds):
+        img = int(row[0])
+        gts = gt_boxes.get(img)
+        if gts is None or len(gts) == 0:
+            fp[i] = 1.0
+            continue
+        ov = _overlap(row[2:6], gts, metric)
+        j = int(np.argmax(ov))
+        if ov[j] > threshold:
+            if (any_difficult and gt_difficult.get(img) is not None
+                    and len(gt_difficult[img]) > j and gt_difficult[img][j]):
+                continue  # ignored: neither TP nor FP
+            if not claimed[img][j]:
+                tp[i] = 1.0
+                claimed[img][j] = True
+            else:
+                fp[i] = 1.0
+        else:
+            fp[i] = 1.0
+    tp_c = np.cumsum(tp)
+    fp_c = np.cumsum(fp)
+    rec = tp_c / npos
+    prec = tp_c / np.maximum(tp_c + fp_c, np.finfo(np.float64).eps)
+    return voc_ap(rec, prec, use_07_metric)
+
+
+def _stream_batches(dataset, transform, batch_size: int, gt_boxes: Dict[int, np.ndarray]):
+    """Yield (start, batch [b, H, W, 12] f32, sizes [(W, H), ...]) chunk by
+    chunk, b <= batch_size; fills gt_boxes (pixel boxes) on the way."""
+    n = len(dataset)
+    for start in range(0, n, batch_size):
+        images, sizes = [], []
+        for idx in range(start, min(start + batch_size, n)):
+            raw = dataset.pull_image(idx)  # [4, H, W, 3] 0..255
+            gt_boxes[idx] = dataset.pull_anno(idx)[:, :4].astype(np.float64)
+            x, _, _ = transform(raw)
+            p, h, w, c = x.shape
+            images.append(np.transpose(x, (1, 2, 0, 3)).reshape(h, w, p * c))
+            sizes.append((raw.shape[2], raw.shape[1]))  # (W, H)
+        yield start, np.stack(images).astype(np.float32), sizes
+
+
+def collect_predictions(
+    infer_fn: Callable[[np.ndarray], np.ndarray],
+    dataset,
+    transform,
+    conf_threshold: float = 0.2,
+    batch_size: int = 16,
+    class_idx: int = 1,
+    score_sink: Optional[Dict[str, np.ndarray]] = None,
+) -> Tuple[np.ndarray, Dict[int, np.ndarray]]:
+    """Run the detector over a dataset -> (predictions [N, 6], gt_boxes).
+
+    infer_fn maps a [B, H, W, 12] float batch to [B, C, K, 5] detections
+    (score, x1, y1, x2, y2) in normalised coordinates. Predictions are
+    scaled to the original pixel size and filtered at conf_threshold. If
+    score_sink is given it receives 'raw' (every score > 0) and
+    'filtered' (after the threshold) score arrays.
+    """
+    preds: List[np.ndarray] = []
+    gt_boxes: Dict[int, np.ndarray] = {}
+    raw_scores: List[np.ndarray] = []
+    kept_scores: List[np.ndarray] = []
+    for start, batch, sizes in _stream_batches(dataset, transform, batch_size, gt_boxes):
+        det = np.asarray(infer_fn(batch))
+        for bi, (W, H) in enumerate(sizes):
+            rows = det[bi, class_idx]
+            if score_sink is not None:
+                raw_scores.append(rows[rows[:, 0] > 0, 0])
+            rows = rows[rows[:, 0] > conf_threshold]
+            if score_sink is not None:
+                kept_scores.append(rows[:, 0])
+            if len(rows) == 0:
+                continue
+            out = np.empty((len(rows), 6))
+            out[:, 0] = start + bi
+            out[:, 1] = rows[:, 0]
+            out[:, 2] = rows[:, 1] * W
+            out[:, 3] = rows[:, 2] * H
+            out[:, 4] = rows[:, 3] * W
+            out[:, 5] = rows[:, 4] * H
+            preds.append(out)
+    if score_sink is not None:
+        score_sink["raw"] = np.concatenate(raw_scores) if raw_scores else np.zeros(0)
+        score_sink["filtered"] = np.concatenate(kept_scores) if kept_scores else np.zeros(0)
+    return (np.concatenate(preds) if preds else np.zeros((0, 6))), gt_boxes
+
+
+def run_detection_eval(
+    infer_fn,
+    dataset,
+    transform,
+    ap_list: Sequence[float] = (0.3, 0.5, 0.7),
+    iobb_list: Sequence[float] = (0.3, 0.5, 0.7),
+    conf_threshold: float = 0.2,
+    use_07_metric: bool = False,
+    batch_size: int = 16,
+    use_pixel_link: bool = False,
+    score_sink: Optional[Dict[str, np.ndarray]] = None,
+) -> Dict[str, float]:
+    """Full sweep -> {'ap30': ..., 'ap50': ..., 'iobb30': ...}."""
+    if use_pixel_link:
+        raise NotImplementedError(
+            "PixelLink evaluation is not ported to gssd_torch yet (ROADMAP.md, Queue A 13)")
+    preds, gts = collect_predictions(infer_fn, dataset, transform, conf_threshold,
+                                     batch_size, score_sink=score_sink)
+    out = {}
+    for t in ap_list:
+        out[f"ap{int(round(t * 100))}"] = evaluate_detections(preds, gts, t, "iou",
+                                                              use_07_metric)
+    for t in iobb_list:
+        out[f"iobb{int(round(t * 100))}"] = evaluate_detections(preds, gts, t, "iobb",
+                                                                use_07_metric)
+    return out

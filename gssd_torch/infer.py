@@ -63,7 +63,8 @@ def build_parser():
     p.add_argument("--max_pool_factor", default=1, type=int)
     p.add_argument("--compute_dtype", default="bfloat16",
                    choices=["bfloat16", "float32"])
-    p.add_argument("--dcn_impl", default="hat", choices=["hat", "xla"])
+    p.add_argument("--dcn_impl", default="hat",
+                   choices=["xla", "pallas", "fused", "hat"])
     # eval / serving
     p.add_argument("--confidence_threshold", default=0.2, type=float)
     p.add_argument("--eval_batch", default=16, type=int)
@@ -72,8 +73,9 @@ def build_parser():
                    help="preset the published model flags; explicit flags "
                         "still override")
     p.add_argument("--weights", default=None, type=str,
-                   help="a .pt state_dict of the port, or an .npz of flat "
-                        "'/'-joined flax variables of the JAX package")
+                   help="a .pt state_dict or trainer checkpoint of the port, "
+                        "or an .npz of flat '/'-joined flax variables of the "
+                        "JAX package")
     p.add_argument("--device", default="cuda", type=str)
     p.add_argument("--det_output", default="detections.json", type=str)
     return p
@@ -145,15 +147,16 @@ def model_config(args) -> ModelConfig:
 
 
 def load_weights(model: torch.nn.Module, path: str) -> None:
-    """Strictly load a .pt state_dict or an .npz of flax variables."""
+    """Strictly load a .pt (a state_dict, or a trainer checkpoint, whose
+    "model" entry is one) or an .npz of flax variables."""
     if path.endswith(".npz"):
         from gssd_torch.params import load_jax_variables
 
         with np.load(path) as z:
             load_jax_variables(model, {k: z[k] for k in z.files})
     else:
-        model.load_state_dict(
-            torch.load(path, map_location="cpu", weights_only=True), strict=True)
+        state = torch.load(path, map_location="cpu", weights_only=True)
+        model.load_state_dict(state.get("model", state), strict=True)
 
 
 def main(argv=None) -> Dict[str, Any]:
@@ -162,13 +165,13 @@ def main(argv=None) -> Dict[str, Any]:
 
     from gssd_torch.data import BaseTransform, DataSplitter, LesionDataset
     from gssd_torch.models import build_model
-    from gssd_torch.ops.nms import detect
+    from gssd_torch.train.steps import make_infer_step
 
     model, priors = build_model(model_config(args), device="cpu")
     load_weights(model, args.weights)
     model = model.to(device).eval()
-    priors_t = torch.tensor(priors, device=device)
-    detect_cfg = DetectConfig(num_classes=args.num_classes)
+    infer_step = make_infer_step(model, torch.tensor(priors, device=device),
+                                 DetectConfig(num_classes=args.num_classes))
 
     splitter = DataSplitter(args.datapath, args.cross_validation,
                             args.num_test_subjects)
@@ -190,34 +193,31 @@ def main(argv=None) -> Dict[str, Any]:
     results = []
     lat_ms = []  # per-image latency, one entry per batch after the first
     bs = args.eval_batch
-    with torch.inference_mode():
-        for start in range(0, len(ds), bs):
-            chunk = images[start:start + bs]
-            pad = bs - len(chunk)
-            batch = np.stack(chunk + [chunk[-1]] * pad).astype(np.float32)
-            t0 = time.perf_counter()
-            out = model(torch.from_numpy(batch).to(device))
-            conf = torch.softmax(out["conf"], dim=-1)
-            # .cpu() waits for the device: the timing covers the work
-            det = detect(out["loc"], conf, priors_t, detect_cfg).cpu().numpy()
-            dt_ms = (time.perf_counter() - t0) * 1e3 / len(chunk)
-            if start:
-                lat_ms.append(dt_ms)
-            print(f"im_detect: {min(start + bs, len(ds))}/{len(ds)} "
-                  f"{dt_ms:.1f} ms/image")
-            for bi in range(len(chunk)):
-                rows = det[bi, 1]
-                rows = rows[rows[:, 0] > args.confidence_threshold]
-                W, H = sizes[start + bi]
-                results.append({
-                    "id": ids[start + bi],
-                    "scores": [float(s) for s in rows[:, 0]],
-                    "boxes": [
-                        [float(r[1] * W), float(r[2] * H),
-                         float(r[3] * W), float(r[4] * H)]
-                        for r in rows
-                    ],
-                })
+    for start in range(0, len(ds), bs):
+        chunk = images[start:start + bs]
+        pad = bs - len(chunk)
+        batch = np.stack(chunk + [chunk[-1]] * pad).astype(np.float32)
+        t0 = time.perf_counter()
+        # .cpu() waits for the device: the timing covers the work
+        det = infer_step(batch).cpu().numpy()
+        dt_ms = (time.perf_counter() - t0) * 1e3 / len(chunk)
+        if start:
+            lat_ms.append(dt_ms)
+        print(f"im_detect: {min(start + bs, len(ds))}/{len(ds)} "
+              f"{dt_ms:.1f} ms/image")
+        for bi in range(len(chunk)):
+            rows = det[bi, 1]
+            rows = rows[rows[:, 0] > args.confidence_threshold]
+            W, H = sizes[start + bi]
+            results.append({
+                "id": ids[start + bi],
+                "scores": [float(s) for s in rows[:, 0]],
+                "boxes": [
+                    [float(r[1] * W), float(r[2] * H),
+                     float(r[3] * W), float(r[4] * H)]
+                    for r in rows
+                ],
+            })
     with open(args.det_output, "w") as f:
         json.dump(results, f, indent=1)
     n_det = sum(len(r["scores"]) for r in results)

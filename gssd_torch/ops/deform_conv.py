@@ -5,13 +5,23 @@
 reference, ``dcn_impl='xla'``). ``DCN`` predicts its own offsets and
 mask with a zero-initialised 3x3 conv to 3*G*K channels laid out
 (3, G, K): channel t*G*K + g*K + k with t in (dy, dx, mask-logit), then
-runs ``deform_conv2d_hat`` (the CUDA kernel, ``dcn_impl='hat'``) or
-``deform_conv2d``.
+runs the deformable conv that ``resolve_deform_impl`` picks for its
+``dcn_impl`` and map size:
+
+- ``'hat'``: ``deform_conv2d_hat`` (CUDA kernels), or ``deform_conv2d``
+  on maps of more than ``GSSD_HAT_MAX_HW`` (default 6000) positions, as
+  the JAX package falls back there;
+- ``'pallas'``: ``deform_conv2d_pallas`` (the separable sampler's CUDA
+  kernels);
+- ``'fused'``: ``deform_conv2d_fused`` (patch gather forward, analytic
+  backward with the dx kernel of the separable sampler);
+- ``'xla'``: ``deform_conv2d``.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -24,25 +34,40 @@ from gssd_torch.ops.kernels.deform_hat import deform_conv2d_hat
 def _bilinear_gather(xg, py, px):
     """Sample xg [B, H, W, G, C] at real-valued (py, px) [B, Ho, Wo, G];
     a corner outside the map contributes 0. Returns [B, Ho, Wo, G, C]."""
-    B, H, W, G, C = xg.shape
-    Ho, Wo = py.shape[1], py.shape[2]
-    y0, x0 = torch.floor(py), torch.floor(px)
-    wy1 = (py - y0)[..., None]
-    wx1 = (px - x0)[..., None]
-    xf = xg.reshape(B, H * W, G, C)
+    B, Ho, Wo, G = py.shape
+    corners = patch_corners(xg, py.reshape(B, Ho * Wo, G), px.reshape(B, Ho * Wo, G))
+    return blend_corners(*corners)[2].reshape(B, Ho, Wo, G, -1)
 
-    def corner(yi, xi):
-        inb = (yi >= 0) & (yi < H) & (xi >= 0) & (xi < W)
-        flat = (yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)).long()
-        idx = flat.reshape(B, Ho * Wo, G, 1).expand(B, Ho * Wo, G, C)
-        vals = torch.gather(xf, 1, idx).reshape(B, Ho, Wo, G, C)
+
+def patch_corners(xg, py, px):
+    """The four bilinear corners of the 2x2 patch at (py, px): xg [B, H,
+    W, G, Cg], py/px [B, P, G] f32 -> (v00, v01, v10, v11) [B, P, G, Cg]
+    in xg's dtype (0 for a corner outside the map) and the lerp weights
+    wy, wx [B, P, G, 1] in py's dtype. The corners of the JAX package's
+    ``_bilinear_gather_group``, ``_patch_gather_group`` and
+    ``_corners_group``, for every group at once."""
+    B, H, W, G, Cg = xg.shape
+    P = py.shape[1]
+    y0, x0 = torch.floor(py), torch.floor(px)
+    xf = xg.reshape(B, H * W, G, Cg)
+
+    def corner(dy, dx):
+        yy, xx = y0 + dy, x0 + dx
+        inb = (yy >= 0) & (yy < H) & (xx >= 0) & (xx < W)
+        idx = (yy.clamp(0, H - 1) * W + xx.clamp(0, W - 1)).long()
+        vals = torch.gather(xf, 1, idx[..., None].expand(B, P, G, Cg))
         return torch.where(inb[..., None], vals, 0)
 
-    v00, v01 = corner(y0, x0), corner(y0, x0 + 1)
-    v10, v11 = corner(y0 + 1, x0), corner(y0 + 1, x0 + 1)
-    top = v00 * (1 - wx1) + v01 * wx1
-    bot = v10 * (1 - wx1) + v11 * wx1
-    return top * (1 - wy1) + bot * wy1
+    return (corner(0, 0), corner(0, 1), corner(1, 0), corner(1, 1),
+            (py - y0)[..., None], (px - x0)[..., None])
+
+
+def blend_corners(v00, v01, v10, v11, wy, wx):
+    """Bilinear blend of ``patch_corners``' output -> (top row, bottom
+    row, sample), in the JAX package's order of operations."""
+    top = v00 * (1 - wx) + v01 * wx
+    bot = v10 * (1 - wx) + v11 * wx
+    return top, bot, top * (1 - wy) + bot * wy
 
 
 def deform_conv2d(x, offset_y, offset_x, mask, weight, bias,
@@ -74,6 +99,26 @@ def deform_conv2d(x, offset_y, offset_x, mask, weight, bias,
     return acc.reshape(B, Ho, Wo, -1) + bias.to(dt)
 
 
+IMPLS = ("xla", "pallas", "fused", "hat")
+
+
+def resolve_deform_impl(impl: str, hw: int):
+    """The deformable conv of ``impl`` for a map of ``hw`` positions."""
+    if impl == "pallas":
+        from gssd_torch.ops.kernels.deform_sample import deform_conv2d_pallas
+
+        return deform_conv2d_pallas
+    if impl == "hat":
+        if hw > int(os.environ.get("GSSD_HAT_MAX_HW", "6000")):
+            return deform_conv2d
+        return deform_conv2d_hat
+    if impl == "fused":
+        from gssd_torch.ops.deform_fused import deform_conv2d_fused
+
+        return deform_conv2d_fused
+    return deform_conv2d
+
+
 class DCN(nn.Module):
     """Deformable conv block with its own offset/mask predictor.
 
@@ -86,9 +131,8 @@ class DCN(nn.Module):
                  deformable_groups: int = 1, impl: str = "hat",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if impl not in ("hat", "xla"):
-            raise NotImplementedError(
-                f"dcn_impl={impl!r} is not ported (the port has 'hat' and 'xla')")
+        if impl not in IMPLS:
+            raise ValueError(f"dcn_impl={impl!r}: expected one of {IMPLS}")
         self.kernel, self.stride = kernel, stride
         self.padding, self.dilation = padding, dilation
         self.groups = deformable_groups
@@ -114,7 +158,7 @@ class DCN(nn.Module):
         om = om.float().permute(0, 2, 3, 1).reshape(B, Ho, Wo, 3, G, K)
         dy, dx = om[..., 0, :, :], om[..., 1, :, :]
         m = torch.sigmoid(om[..., 2, :, :])
-        fn = deform_conv2d_hat if self.impl == "hat" else deform_conv2d
+        fn = resolve_deform_impl(self.impl, x.shape[2] * x.shape[3])
         out = fn(x.permute(0, 2, 3, 1), dy, dx, m, self.weight, self.bias,
                  stride=self.stride, padding=self.padding,
                  dilation=self.dilation)

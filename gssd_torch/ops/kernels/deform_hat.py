@@ -34,24 +34,25 @@ BWD_KERNEL = CudaKernel(
 
 def deform_conv_fwd_plain(x, py, px, m, wg, bias):
     """Plain PyTorch version of the kernel: for each tap, blend the four
-    corners of bf16 ``x`` with f32 weights (times the mask; a corner
-    outside the map is 0), round the sample to bf16, contract it with
-    the bf16 weights in f32, then add the bias."""
+    corners of bf16 ``x`` with the corner weights bf16(ay*bx*m) (f32 hat
+    weights times the mask, rounded as the TPU kernel rounds them; a
+    corner outside the map is 0), round the sample to bf16, contract it
+    with the bf16 weights in f32, then add the bias."""
     B, H, W, C = x.shape
     _, P, G, K = py.shape
     Cg = C // G
     xf = x.float().reshape(B, H * W, G, Cg)
     y0, x0 = torch.floor(py), torch.floor(px)
-    ly, lx = py - y0, px - x0
     out = torch.zeros(B, P, wg.shape[-1], dtype=torch.float32, device=x.device)
     for k in range(K):
         samp = torch.zeros(B, P, G, Cg, dtype=torch.float32, device=x.device)
-        for dy, wy in ((0, 1 - ly[..., k]), (1, ly[..., k])):
-            for dx, wx in ((0, 1 - lx[..., k]), (1, lx[..., k])):
+        for dy in (0, 1):
+            for dx in (0, 1):
                 yy = y0[..., k] + dy
                 xx = x0[..., k] + dx
                 inb = (yy >= 0) & (yy < H) & (xx >= 0) & (xx < W)
-                w = torch.where(inb, wy * wx * m[..., k], 0.0)
+                s = _hat(py[..., k], yy) * _hat(px[..., k], xx) * m[..., k]
+                w = torch.where(inb, s.to(torch.bfloat16).float(), 0.0)
                 idx = (yy.clamp(0, H - 1) * W + xx.clamp(0, W - 1)).long()
                 vals = torch.gather(xf, 1, idx[..., None].expand(B, P, G, Cg))
                 samp = samp + w[..., None] * vals

@@ -1,4 +1,4 @@
-"""Train and eval steps of the port.
+"""Train, eval and inference steps of the port.
 
 A train step runs the model in train mode (batch statistics and their
 running update, one spectral-norm power iteration per SNDense), matches
@@ -14,12 +14,13 @@ bool.
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, List, Tuple
 
 import torch
 
-from gssd_torch.config import LossConfig, OptimConfig
+from gssd_torch.config import DetectConfig, LossConfig, OptimConfig
 from gssd_torch.ops.losses import multibox_loss
+from gssd_torch.ops.nms import detect
 from gssd_torch.train.optim import clip_by_global_norm_, global_norm, set_lr
 
 
@@ -78,3 +79,21 @@ def eval_step(model, priors, batch, loss_cfg: LossConfig) -> Dict[str, torch.Ten
     with torch.no_grad():
         loss_l, loss_c, _ = forward_loss(model, priors, batch, loss_cfg)
     return {"loss": loss_l + loss_c, "loss_l": loss_l, "loss_c": loss_c}
+
+
+def make_infer_step(model, priors: torch.Tensor, detect_cfg: DetectConfig) -> Callable:
+    """Test-phase forward: a [B, H, W, 12] float batch (numpy or tensor)
+    -> eval-mode forward, softmax over the classes and Detect/NMS ->
+    [B, C, top_k, 5] (score, x1, y1, x2, y2) on the model's device."""
+    device = priors.device
+
+    def infer_step(images) -> torch.Tensor:
+        if not torch.is_tensor(images):
+            images = torch.from_numpy(images)
+        model.eval()
+        with torch.inference_mode():
+            out = model(images.to(device))
+            conf = torch.softmax(out["conf"], dim=-1)
+            return detect(out["loc"], conf, priors, detect_cfg)
+
+    return infer_step

@@ -2,18 +2,23 @@
 
 One fold of the JAX package's ``train.py``, with its flag names: host
 augmentation, SGD with the published LR steps (x0.1 on dcn_* with
-``--modify_dcn_lr``), a validation loss every ``--val_every``
-iterations, and at the end the model's state_dict as
-``<output>/checkpoints/<model_name>/<model_name>_<last iter>_CV0.pt``,
-which ``python -m gssd_torch.infer --weights`` loads. Each iteration
-prints loss, loss_l, loss_c, lr and ms/step (the step from the batch on
-the device to the updated weights, synchronised) and the time spent
-waiting for the batch.
+``--modify_dcn_lr``) and, every ``--val_every`` iterations from
+``--speedrun`` on (and at the last iteration), the validation loss, the
+AP/IoBB evaluation of the validation and test sets and a checkpoint
+``<output>/checkpoints/<model_name>/<model_name>_<iter>_CV0.pt`` (step,
+model state, optimizer momenta; ``python -m gssd_torch.infer --weights``
+reads it too). ``--resume N`` restores checkpoint N and continues from
+iteration N at the stored step's LR; ``--test True --checkpoint N``
+evaluates checkpoint N on the test set. Each iteration prints loss,
+loss_l, loss_c, lr and ms/step (the step from the batch on the device to
+the updated weights, synchronised) and the time spent waiting for the
+batch. Logs go to ``<output>/logs/<model_name>/`` (tab-separated text;
+TensorBoard too with ``--tensorboard True`` where it imports).
 
 Runs on the GPU (``--device cuda``, the default) and refuses to start
 without one unless ``--device cpu`` is given. Cross-validation folds,
-resume, test mode, AP/IoBB evaluation, the multi-process loader and
-device augmentation are not ported yet (ROADMAP.md) and raise.
+the multi-process loader, device augmentation and ``--visualize`` are
+not ported yet (ROADMAP.md) and raise.
 
 Example (GSSD++ on synthetic data):
   python -m gssd_torch.train --reference_recipe gssd++ --synthetic True \
@@ -23,6 +28,7 @@ Example (GSSD++ on synthetic data):
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import statistics
 import time
@@ -32,7 +38,7 @@ import numpy as np
 import torch
 
 from gssd_torch import resolve_device
-from gssd_torch.config import LossConfig, ModelConfig, OptimConfig
+from gssd_torch.config import DetectConfig, LossConfig, ModelConfig, OptimConfig
 from gssd_torch.infer import REFERENCE_RECIPES, str2bool
 
 
@@ -70,7 +76,8 @@ def build_parser():
     p.add_argument("--max_pool_factor", default=1, type=int)
     p.add_argument("--compute_dtype", default="bfloat16",
                    choices=["bfloat16", "float32"])
-    p.add_argument("--dcn_impl", default="hat", choices=["hat", "xla"])
+    p.add_argument("--dcn_impl", default="hat",
+                   choices=["xla", "pallas", "fused", "hat"])
     # optimization (defaults: the published recipe)
     p.add_argument("--batch_size", default=32, type=int)
     p.add_argument("--lr", "--learning-rate", default=1e-3, type=float)
@@ -85,28 +92,37 @@ def build_parser():
     # harness
     p.add_argument("--max_iter", default=60000, type=int)
     p.add_argument("--val_every", default=500, type=int,
-                   help="validation loss every this many iterations")
+                   help="validation loss, AP/IoBB and a checkpoint every this "
+                        "many iterations")
     p.add_argument("--speedrun", default=1, type=int,
                    help="no validation before this iteration")
     p.add_argument("--cross_validation", default=1, type=int)
     p.add_argument("--num_test_subjects", default=10, type=int)
-    p.add_argument("--resume", default=None, type=int)
+    p.add_argument("--start_iter", default=0, type=int)
+    p.add_argument("--resume", default=None, type=int,
+                   help="iteration to resume from (its checkpoint); the "
+                        "batch stream restarts from its first batch")
     p.add_argument("--seed", default=1111, type=int)
     p.add_argument("--output", default="output", type=str)
     p.add_argument("--model_name", default="gssd", type=str)
+    p.add_argument("--log_iters", default=True, type=str2bool)
+    p.add_argument("--tensorboard", default=True, type=str2bool,
+                   help="also log to TensorBoard where torch.utils.tensorboard imports")
+    # eval
     p.add_argument("--test", default=False, type=str2bool)
-    p.add_argument("--ap_list", default="", type=str,
-                   help="AP thresholds; AP/IoBB evaluation is not ported yet")
-    p.add_argument("--iobb_list", default="", type=str)
+    p.add_argument("--checkpoint", default=None, type=int)
+    p.add_argument("--confidence_threshold", default=0.2, type=float)
+    p.add_argument("--use_07_metric", default=False, type=str2bool)
+    p.add_argument("--ap_list", default="0.3,0.5,0.7", type=str)
+    p.add_argument("--iobb_list", default="0.3,0.5,0.7", type=str)
+    p.add_argument("--visualize", default=False, type=str2bool)
+    p.add_argument("--eval_batch", default=16, type=int,
+                   help="inference batch of the AP/IoBB evaluation")
     p.add_argument("--reference_recipe", default=None, choices=["gssd", "gssd++"],
                    help="preset the published training flags; explicit "
                         "flags still override")
     p.add_argument("--device", default="cuda", type=str)
     return p
-
-
-# recipe keys of the evaluation half, which the trainer does not run
-_EVAL_KEYS = ("ap_list", "iobb_list", "use_07_metric", "confidence_threshold")
 
 
 def parse_args(argv=None):
@@ -115,8 +131,7 @@ def parse_args(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
     if args.reference_recipe is not None:
-        recipe = REFERENCE_RECIPES[args.reference_recipe]
-        parser.set_defaults(**{k: v for k, v in recipe.items() if k not in _EVAL_KEYS})
+        parser.set_defaults(**REFERENCE_RECIPES[args.reference_recipe])
         args = parser.parse_args(argv)
     return args
 
@@ -124,17 +139,21 @@ def parse_args(argv=None):
 def _refuse(args) -> None:
     todo = {
         "--cross_validation > 1": args.cross_validation > 1,
-        "--resume": args.resume is not None,
-        "--test": args.test,
-        "AP/IoBB evaluation (--ap_list, --iobb_list)": bool(args.ap_list or args.iobb_list),
         "--aug_method device*": args.aug_method.startswith("device"),
         "--num_workers > 1 (the multi-process loader)": args.num_workers > 1,
+        "--visualize": args.visualize,
     }
     asked = [name for name, on in todo.items() if on]
     if asked:
         raise NotImplementedError(
             f"{', '.join(asked)}: not ported to gssd_torch yet (see ROADMAP.md, "
             "Queue A); use the JAX trainer train.py")
+    if args.test and args.checkpoint is None:
+        raise ValueError("--test requires --checkpoint")
+
+
+def _floats(text: str):
+    return [float(t) for t in text.split(",") if t.strip()]
 
 
 def model_config(args) -> ModelConfig:
@@ -155,24 +174,37 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
 
 
 def main(argv=None) -> Dict[str, Any]:
-    """Train; returns {"records": one dict per iteration, "valid": the
-    validation losses, "median_step_ms": median ms/step after the first
-    step, "weights": path of the saved state_dict}."""
+    """Train (or, with --test, evaluate a checkpoint). Returns {"records":
+    one dict per iteration, "valid": the validation losses, "evals": per
+    evaluation the iteration, the valid and test AP/IoBB and the
+    checkpoint, "median_step_ms": median ms/step after the first step,
+    "weights": the last checkpoint written (None if none), "step": SGD
+    steps taken in all, "model", "optimizer"}; with --test, {"test": the
+    AP/IoBB of the checkpoint}."""
     args = parse_args(argv)
     _refuse(args)
     device = resolve_device(args.device)
 
     from gssd_torch.data import (BaseTransform, BatchLoader, DataSplitter,
                                  LesionDataset, SSDAugmentation, make_synthetic_dataset)
+    from gssd_torch.eval import run_detection_eval
     from gssd_torch.models import build_model
+    from gssd_torch.train.checkpoint import (checkpoint_path, load_weights_partial,
+                                             restore_checkpoint, save_checkpoint)
     from gssd_torch.train.optim import make_optimizer
-    from gssd_torch.train.steps import eval_step, train_step
+    from gssd_torch.train.steps import eval_step, make_infer_step, train_step
+    from gssd_torch.utils.logging import MetricsLogger
 
     if args.synthetic and not args.datapath:
         args.datapath = os.path.join(args.output, "synthetic_ml_ready")
     if args.synthetic and not os.path.exists(os.path.join(args.datapath, "metadata.txt")):
         print(f"generating synthetic dataset at {args.datapath}")
         make_synthetic_dataset(args.datapath)
+
+    ap_list, iobb_list = _floats(args.ap_list), _floats(args.iobb_list)
+    logger = MetricsLogger(os.path.join(args.output, "logs", args.model_name),
+                           tensorboard=args.tensorboard)
+    logger.log_args(vars(args))
 
     model, priors = build_model(model_config(args), device="cpu", seed=args.seed)
     model = model.to(device)
@@ -184,54 +216,102 @@ def main(argv=None) -> Dict[str, Any]:
                             stepvalues=tuple(args.stepvalues), clip=args.clip,
                             modify_dcn_lr=args.modify_dcn_lr)
     optimizer = make_optimizer(model, optim_cfg)
+    infer_step = make_infer_step(model, priors_t, DetectConfig(num_classes=args.num_classes))
 
     splitter = DataSplitter(args.datapath, args.cross_validation, args.num_test_subjects)
+    base_tf = BaseTransform(args.ssd_dim, args.means, args.p_only, args.use_normalize)
+    test_set = LesionDataset(args.datapath, splitter.data_test)
+    valid_set = LesionDataset(args.datapath, splitter.data_cv_eval[0])
+    ckpt_dir = os.path.join(args.output, "checkpoints")
+
+    def eval_ap(dataset, tag, iteration):
+        sink: Dict[str, np.ndarray] = {}
+        res = run_detection_eval(
+            lambda batch: infer_step(batch).cpu().numpy(), dataset, base_tf, ap_list,
+            iobb_list, args.confidence_threshold, args.use_07_metric, args.eval_batch,
+            score_sink=sink)
+        logger.log_scalars(tag, iteration, res, file="test")
+        logger.log_histogram(f"{tag}/scores_raw", iteration, sink["raw"])
+        logger.log_histogram(f"{tag}/scores_filtered", iteration, sink["filtered"])
+        return res
+
+    if args.test:
+        load_weights_partial(model, checkpoint_path(ckpt_dir, args.model_name,
+                                                    args.checkpoint, 0))
+        res = eval_ap(test_set, "test_ap_cv0", args.checkpoint)
+        print(f"[fold 0] {res}")
+        print("test mean over folds:", json.dumps(res), flush=True)
+        logger.close()
+        return {"test": res}
+
+    step, start_iter = 0, args.start_iter
+    if args.resume is not None:
+        step = restore_checkpoint(model, optimizer, ckpt_dir, args.model_name, args.resume, 0)
+        start_iter = args.resume
+        print(f"resumed from iteration {args.resume} (step {step})")
+
     aug = SSDAugmentation(pixeljitter=args.gt_pixel_jitter, ratio=args.expand_ratio,
                           size=args.ssd_dim, mean=args.means,
                           use_normalize=args.use_normalize, p_only=args.p_only,
                           seed=args.seed)
     train_set = LesionDataset(args.datapath, splitter.data_cv_train[0], transform=aug,
                               load_to_ram=args.load_data_to_ram)
-    loader = iter(BatchLoader(train_set, args.batch_size, args.max_gt, seed=args.seed))
-    base_tf = BaseTransform(args.ssd_dim, args.means, args.p_only, args.use_normalize)
-    valid_loader = iter(BatchLoader(
-        LesionDataset(args.datapath, splitter.data_cv_eval[0], transform=base_tf),
-        args.batch_size, args.max_gt, seed=args.seed + 100))
+    loaders = [BatchLoader(train_set, args.batch_size, args.max_gt, seed=args.seed),
+               BatchLoader(LesionDataset(args.datapath, splitter.data_cv_eval[0],
+                                         transform=base_tf),
+                           args.batch_size, args.max_gt, seed=args.seed + 100)]
+    loader, valid_loader = map(iter, loaders)
+    records, valid, evals = [], [], []
+    try:
+        for it in range(start_iter, args.max_iter):
+            t0 = time.perf_counter()
+            batch = to_device(next(loader), device)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            t1 = time.perf_counter()
+            m = train_step(model, optimizer, priors_t, batch, loss_cfg, optim_cfg, step)
+            step += 1
+            rec = {"iter": it, **{k: (v if isinstance(v, float) else float(v.item()))
+                                  for k, v in m.items()}}
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            rec["ms"] = (time.perf_counter() - t1) * 1e3
+            rec["wait_ms"] = (t1 - t0) * 1e3
+            records.append(rec)
+            print(f"iter {it}: loss={rec['loss']:.4f} (l={rec['loss_l']:.4f} "
+                  f"c={rec['loss_c']:.4f}) lr={rec['lr']:.2e} {rec['ms']:.1f} ms/step "
+                  f"input_wait={rec['wait_ms']:.1f} ms", flush=True)
+            if args.log_iters and it % 10 == 0:
+                logger.log_scalars("loss", it, {k: rec[k] for k in ("loss", "loss_l", "loss_c",
+                                                                     "lr", "grad_norm")})
 
-    records, valid = [], []
-    for it in range(args.max_iter):
-        t0 = time.perf_counter()
-        batch = to_device(next(loader), device)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        t1 = time.perf_counter()
-        m = train_step(model, optimizer, priors_t, batch, loss_cfg, optim_cfg, it)
-        rec = {"iter": it, **{k: (v if isinstance(v, float) else float(v.item()))
-                              for k, v in m.items()}}
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        rec["ms"] = (time.perf_counter() - t1) * 1e3
-        rec["wait_ms"] = (t1 - t0) * 1e3
-        records.append(rec)
-        print(f"iter {it}: loss={rec['loss']:.4f} (l={rec['loss_l']:.4f} "
-              f"c={rec['loss_c']:.4f}) lr={rec['lr']:.2e} {rec['ms']:.1f} ms/step "
-              f"input_wait={rec['wait_ms']:.1f} ms", flush=True)
+            last = it == args.max_iter - 1
+            if ((it % args.val_every == 0 and it > start_iter) or last) and it >= args.speedrun:
+                vm = eval_step(model, priors_t, to_device(next(valid_loader), device), loss_cfg)
+                vrec = {k: float(v.item()) for k, v in vm.items()}
+                valid.append({"iter": it, **vrec})
+                logger.log_scalars("eval_loss", it, vrec, file="valid")
+                print(f"iter {it} valid: loss={vrec['loss']:.4f} (l={vrec['loss_l']:.4f} "
+                      f"c={vrec['loss_c']:.4f})", flush=True)
+                res_v = eval_ap(valid_set, "eval_ap_cv0", it)
+                res_t = eval_ap(test_set, "test_ap_cv0", it)
+                path = save_checkpoint(model, optimizer, step, ckpt_dir, args.model_name, it, 0)
+                logger.log_scalars("eval_ap", it, res_v, file="valid")
+                logger.log_scalars("test_ap", it, res_t, file="test")
+                print(f"iter {it} valid: {json.dumps(res_v)}")
+                print(f"iter {it} test:  {json.dumps(res_t)}")
+                print(f"checkpoint -> {path}", flush=True)
+                evals.append({"iter": it, "valid": res_v, "test": res_t, "checkpoint": path})
+    finally:
+        for lo in loaders:
+            lo.close()
+        logger.close()
 
-        last = it == args.max_iter - 1
-        if ((it % args.val_every == 0 and it > 0) or last) and it >= args.speedrun:
-            vm = eval_step(model, priors_t, to_device(next(valid_loader), device), loss_cfg)
-            vrec = {"iter": it, **{k: float(v.item()) for k, v in vm.items()}}
-            valid.append(vrec)
-            print(f"iter {it} valid: loss={vrec['loss']:.4f} (l={vrec['loss_l']:.4f} "
-                  f"c={vrec['loss_c']:.4f})", flush=True)
-
-    ckpt_dir = os.path.join(args.output, "checkpoints", args.model_name)
-    os.makedirs(ckpt_dir, exist_ok=True)
-    weights = os.path.join(ckpt_dir, f"{args.model_name}_{args.max_iter - 1}_CV0.pt")
-    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, weights)
     steps = [r["ms"] for r in records[1:]] or [r["ms"] for r in records]
     median = statistics.median(steps) if steps else float("nan")
     print(f"median {median:.1f} ms/step after the first step, "
           f"{args.batch_size / median * 1e3:.1f} slices/s (batch {args.batch_size}, "
-          f"device {device}); weights -> {weights}", flush=True)
-    return {"records": records, "valid": valid, "median_step_ms": median, "weights": weights}
+          f"device {device})", flush=True)
+    return {"records": records, "valid": valid, "evals": evals, "median_step_ms": median,
+            "weights": evals[-1]["checkpoint"] if evals else None, "step": step,
+            "model": model, "optimizer": optimizer}

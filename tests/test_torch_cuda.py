@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from gssd_torch.ops.kernels import deform_hat as dh
+from gssd_torch.ops.kernels import deform_sample as ds
 from gssd_torch.ops.kernels import flash_attn as fa
 
 pytestmark = pytest.mark.cuda
@@ -146,4 +147,46 @@ def test_autograd_goes_through_both_kernels(gen):
     before = (dh.KERNEL.launches, dh.BWD_KERNEL.launches)
     dh.deform_conv2d_hat(x, oy, ox, mk, w, b).square().sum().backward()
     assert (dh.KERNEL.launches, dh.BWD_KERNEL.launches) == (before[0] + 1, before[1] + 1)
+    assert all(torch.isfinite(t.grad).all() for t in (x, oy, ox, mk, w, b))
+
+
+@pytest.mark.parametrize("N,G,P,H,W,Cg", [
+    (1, 2, 30, 5, 7, 8), (2, 3, 200, 17, 13, 72), (1, 1, 1444, 38, 38, 256),
+    (1, 1, 300, 64, 64, 16), (1, 1, 1, 1, 1, 8)])
+def test_deform_sample_kernels_match_plain(gen, N, G, P, H, W, Cg):
+    # dense hat rows with a few zeros, as the sampler's are mostly zero
+    a, b = (torch.rand(N, G, P, n, device="cuda", generator=gen) for n in (H, W))
+    a, b = (torch.where(t < 0.3, 0.0, t).bfloat16() for t in (a, b))
+    x = torch.randn(N, G, H, W, Cg, device="cuda", generator=gen).bfloat16()
+    g = torch.randn(N, G, P, Cg, device="cuda", generator=gen).bfloat16()
+    kernels = (ds.FWD_KERNEL, ds.DX_KERNEL, ds.DAB_KERNEL)
+    before = [k.launches for k in kernels]
+    got = (ds.abx_fwd(a, b, x), ds.abx_dx(a, b, g), *ds.abx_dab(x, g, a, b))
+    torch.cuda.synchronize()
+    assert [k.launches for k in kernels] == [n + 1 for n in before]
+    want = (ds.abx_fwd_plain(a, b, x), ds.abx_dx_plain(a, b, g), *ds.abx_dab_plain(x, g, a, b))
+    for name, u, v in zip(("fwd", "dx", "dA", "dB"), got, want):
+        assert u.dtype == v.dtype == torch.float32 and u.shape == v.shape
+        # the same roundings; only the f32 summation order differs (the
+        # tensor cores' for fwd, dA and dB; the order over p for dx)
+        assert _rel_err(u, v) <= 1e-3, (name, _rel_err(u, v))
+
+
+@pytest.mark.parametrize("impl", ["pallas", "fused"])
+def test_dcn_routes_go_through_the_sample_kernels(gen, impl):
+    from gssd_torch.ops.deform_conv import resolve_deform_impl
+
+    fn = resolve_deform_impl(impl, 7 * 9)
+    x = torch.randn(2, 7, 9, 16, device="cuda", generator=gen).bfloat16().requires_grad_()
+    oy, ox = (torch.randn(2, 7, 9, 2, 9, device="cuda", generator=gen).requires_grad_()
+              for _ in range(2))
+    mk = torch.rand(2, 7, 9, 2, 9, device="cuda", generator=gen).requires_grad_()
+    w = (torch.randn(9, 16, 8, device="cuda", generator=gen) * 0.1).requires_grad_()
+    b = torch.randn(8, device="cuda", generator=gen).requires_grad_()
+    kernels = (ds.FWD_KERNEL, ds.DX_KERNEL, ds.DAB_KERNEL)
+    before = [k.launches for k in kernels]
+    fn(x, oy, ox, mk, w, b).float().square().sum().backward()
+    torch.cuda.synchronize()
+    want = [9, 9, 9] if impl == "pallas" else [0, 9, 0]
+    assert [k.launches - n for k, n in zip(kernels, before)] == want
     assert all(torch.isfinite(t.grad).all() for t in (x, oy, ox, mk, w, b))

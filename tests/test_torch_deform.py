@@ -40,10 +40,12 @@ def test_kernel_plain_version_matches_hat_interpret(rng):
     args = _inputs(rng)
     want = np.asarray(jax_hat(*map(jnp.asarray, args)))
     got = deform_conv2d_hat(*map(torch.from_numpy, args)).numpy()
-    # both round the sample to bf16; the TPU kernel also rounds each
-    # corner weight ay*bx*m to bf16, this port does not (2^-8 relative
-    # per term, through a K*C = 72-deep contraction)
-    np.testing.assert_allclose(got, want, atol=2e-2 * np.abs(want).max(), rtol=0)
+    # the same roundings (corner weights bf16(ay*bx*m), the sample to
+    # bf16, f32 accumulation): only the f32 summation order differs, and
+    # with it, rarely, the bf16 rounding of one sample (2^-8 of that
+    # sample times its weight, ~1e-3 of max|out| here). Measured 6e-8;
+    # the forward that kept the corner weights in f32 gave 2.2e-3.
+    np.testing.assert_allclose(got, want, atol=1e-3 * np.abs(want).max(), rtol=0)
     f32 = deform_conv2d(*map(torch.from_numpy, args)).numpy()
     np.testing.assert_allclose(got, f32, atol=2e-2 * np.abs(f32).max(), rtol=0)
 
@@ -67,7 +69,9 @@ def test_dcn_block_matches_flax(rng, impl):
     with torch.no_grad():
         out, offs = mod(torch.from_numpy(x).permute(0, 3, 1, 2))
     np.testing.assert_allclose(offs.numpy(), want_offs, rtol=1e-5, atol=1e-5)
-    # f32 gather: sum order only; hat: bf16 sampling (see above)
-    atol = 1e-5 if impl == "xla" else 2e-2 * np.abs(want_out).max()
+    # f32 gather: sum order only; hat: the same bf16 roundings in another
+    # sum order (see above; measured 1.1e-7 of max, 3.7e-3 with f32
+    # corner weights)
+    atol = 1e-5 if impl == "xla" else 1e-3 * np.abs(want_out).max()
     np.testing.assert_allclose(out.permute(0, 2, 3, 1).numpy(), want_out,
                                atol=atol, rtol=1e-5 if impl == "xla" else 0)

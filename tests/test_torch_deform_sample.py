@@ -1,0 +1,132 @@
+"""The port's separable deformable sampler and the two DCN routes built on
+it against gssd_tpu: ``abx_sample`` (the plain versions of the three CUDA
+kernels behind an autograd Function) against the Pallas kernels in
+interpret mode, ``deform_conv2d_pallas`` and ``deform_conv2d_fused``
+in output and in every gradient at fractional, zero and integer offsets,
+and the DCN block on both routes against the flax block.
+
+Everything is f32 outside the kernels' own bf16 roundings, which the two
+packages make at the same places on the same values; what is left is the
+f32 summation order (measured below 1e-6 of each tensor's largest entry)
+and, rarely, a bf16 rounding that a last-bit difference flips. The
+tolerances are 1e-4 of the largest entry, which no flip-free difference
+approaches.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gssd_tpu.ops import deform_conv as jdc
+from gssd_tpu.ops.deform_fused import deform_conv2d_fused as jax_fused
+from gssd_tpu.ops.pallas import deform_sample as jds
+from gssd_torch.ops.deform_conv import DCN
+from gssd_torch.ops.deform_fused import deform_conv2d_fused
+from gssd_torch.ops.kernels import deform_sample as ds
+from gssd_torch.params import from_jax_variables
+
+TOL = 1e-4
+
+
+def _close(got, want, name, tol=TOL):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    scale = max(np.abs(want).max(), 1e-30)
+    err = np.abs(got - want).max()
+    assert err <= tol * scale, f"{name}: max err {err:.3g} > {tol} * {scale:.3g}"
+
+
+def test_hat_weights_derivative_is_jax_at_integers():
+    pos = np.array([2.0, 2.5, -1.0, 4.0, 5.0, 0.0, 3.25], np.float32)
+    g = np.random.default_rng(0).normal(size=(7, 5)).astype(np.float32)
+    want_v, vjp = jax.vjp(lambda p: jds.hat_weights(p, 5), jnp.asarray(pos))
+    want_d = np.asarray(vjp(jnp.asarray(g))[0])
+    p = torch.from_numpy(pos).requires_grad_()
+    got = ds.hat_weights(p, 5)
+    got.backward(torch.from_numpy(g))
+    np.testing.assert_array_equal(got.detach().numpy(), np.asarray(want_v))
+    # exact: at most three non-zero terms of +-1, +-0.5 times g
+    np.testing.assert_allclose(p.grad.numpy(), want_d, rtol=1e-6, atol=1e-6)
+
+
+def test_abx_sample_forward_and_vjp_match_pallas(rng):
+    N, G, P, H, W, Cg = 2, 2, 20, 5, 6, 8
+    A = rng.uniform(0, 1, (N, G, P, H)).astype(np.float32)
+    B = rng.uniform(0, 1, (N, G, P, W)).astype(np.float32)
+    xg = rng.normal(size=(N, G, H, W, Cg)).astype(np.float32)
+    g = rng.normal(size=(N, G, P, Cg)).astype(np.float32)
+    want, vjp = jax.vjp(jds.abx_sample, *map(jnp.asarray, (A, B, xg)))
+    want_grads = vjp(jnp.asarray(g))
+
+    ts = [torch.from_numpy(a).requires_grad_() for a in (A, B, xg)]
+    got = ds.abx_sample(*ts)
+    got.backward(torch.from_numpy(g))
+    _close(got.detach(), want, "sampled")
+    for name, t, w in zip(("dA", "dB", "dx"), ts, want_grads):
+        _close(t.grad, w, name)
+
+
+def _inputs(rng, case, B=2, H=6, W=6, C=8, G=2, K=9, Cout=4):
+    x = rng.normal(size=(B, H, W, C)).astype(np.float32)
+    shape = (B, H, W, G, K)
+    if case == "fractional":  # up to +-2 px, past the border
+        oy, ox = (rng.uniform(-2, 2, shape).astype(np.float32) for _ in range(2))
+    elif case == "zero":  # the zero-initialised offset conv: every sample on the grid
+        oy = ox = np.zeros(shape, np.float32)
+    else:  # whole pixels, some outside the map
+        oy, ox = (rng.integers(-2, 3, shape).astype(np.float32) for _ in range(2))
+    m = rng.uniform(0, 1, shape).astype(np.float32)
+    w = (rng.normal(size=(K, C, Cout)) * 0.3).astype(np.float32)
+    b = rng.normal(size=(Cout,)).astype(np.float32)
+    gout = rng.normal(size=(B, H, W, Cout)).astype(np.float32)
+    return (x, oy, ox, m, w, b), gout
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_vjp(route):
+    fn = jds.deform_conv2d_pallas if route == "pallas" else jax_fused
+
+    @jax.jit
+    def run(args, gout):
+        out, vjp = jax.vjp(fn, *args)
+        return out, vjp(gout)
+
+    return run
+
+
+@pytest.mark.parametrize("case", ["fractional", "zero", "integer"])
+@pytest.mark.parametrize("route", ["pallas", "fused"])
+def test_deform_conv2d_routes_match_jax(rng, route, case):
+    args, gout = _inputs(rng, case)
+    want, want_grads = _jax_vjp(route)(tuple(map(jnp.asarray, args)), jnp.asarray(gout))
+    fn = ds.deform_conv2d_pallas if route == "pallas" else deform_conv2d_fused
+    ts = [torch.from_numpy(a).requires_grad_() for a in args]
+    got = fn(*ts)
+    got.backward(torch.from_numpy(gout))
+    _close(got.detach(), want, f"{route} out")
+    for name, t, w in zip(("x", "offset_y", "offset_x", "mask", "weight", "bias"),
+                          ts, want_grads):
+        _close(t.grad, w, f"{route} d{name}")
+
+
+@pytest.mark.parametrize("impl", ["pallas", "fused"])
+def test_dcn_block_matches_flax(rng, impl):
+    B, H, W, C, G, Cout = 2, 6, 6, 16, 4, 8
+    x = rng.normal(size=(B, H, W, C)).astype(np.float32)
+    ref = jdc.DCN(features=Cout, deformable_groups=G, dtype=jnp.float32, impl=impl)
+    v = jax.eval_shape(ref.init, jax.random.PRNGKey(0), jnp.asarray(x))
+    v = jax.tree_util.tree_map_with_path(
+        lambda p, a: rng.normal(0, 0.1 if "conv_offset_mask" in str(p) else 0.3,
+                                a.shape).astype(np.float32), v)
+    want_out, want_offs = map(np.asarray, jax.jit(ref.apply)(v, jnp.asarray(x)))
+    assert np.abs(want_offs).max() > 1.0
+
+    mod = DCN(C, Cout, deformable_groups=G, impl=impl)
+    mod.load_state_dict(from_jax_variables(v), strict=True)
+    with torch.no_grad():
+        out, offs = mod(torch.from_numpy(x).permute(0, 3, 1, 2))
+    np.testing.assert_allclose(offs.numpy(), want_offs, rtol=1e-5, atol=1e-5)
+    _close(out.permute(0, 2, 3, 1), want_out, f"DCN[{impl}]")

@@ -42,6 +42,9 @@ def test_imports_with_jax_blocked():
         "import gssd_torch.data, gssd_torch.ops.nms, gssd_torch.ops.kernels\n"
         "import gssd_torch.train, gssd_torch.train.trainer, gssd_torch.ops.losses\n"
         "import gssd_torch.ops.matcher, gssd_torch.data.augment\n"
+        "import gssd_torch.eval, gssd_torch.eval.ap_iobb, gssd_torch.train.checkpoint\n"
+        "import gssd_torch.utils.logging, gssd_torch.ops.deform_fused\n"
+        "import gssd_torch.ops.kernels.deform_sample\n"
         "loaded = [m for m in sys.modules if m.split('.')[0] in "
         f"{BLOCKED!r} and sys.modules[m] is not None]\n"
         "assert not loaded, loaded\n"

@@ -116,7 +116,8 @@ def test_trainer_cli_then_serving_cli(tmp_path, capsys):
         "--reference_recipe", "gssd++", "--synthetic", "True", "--datapath", str(data),
         "--num_test_subjects", "1", "--batch_size", "2", "--max_iter", "2",
         "--val_every", "1", "--speedrun", "0", "--compute_dtype", "float32",
-        "--device", "cpu", "--output", str(out), "--model_name", "gssd_pp"])
+        "--device", "cpu", "--output", str(out), "--model_name", "gssd_pp",
+        "--tensorboard", "False"])
     text = capsys.readouterr().out
     assert [r["iter"] for r in res["records"]] == [0, 1]
     for r in res["records"]:
@@ -124,6 +125,10 @@ def test_trainer_cli_then_serving_cli(tmp_path, capsys):
         assert r["lr"] == pytest.approx(1e-3) and r["ms"] > 0
     assert [v["iter"] for v in res["valid"]] == [1]
     assert "iter 1: loss=" in text and "ms/step" in text and "valid: loss=" in text
+    # the evaluation at the last iteration: the recipe's AP/IoBB keys
+    assert [e["iter"] for e in res["evals"]] == [1]
+    keys = {"ap30", "ap50", "ap70", "iobb30", "iobb50", "iobb70"}
+    assert set(res["evals"][0]["valid"]) == set(res["evals"][0]["test"]) == keys
     weights = out / "checkpoints" / "gssd_pp" / "gssd_pp_1_CV0.pt"
     assert res["weights"] == str(weights) and weights.exists()
 
@@ -138,8 +143,8 @@ def test_trainer_cli_then_serving_cli(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--cross_validation", "2"], ["--resume", "100"], ["--test", "True"],
-    ["--ap_list", "0.5"], ["--aug_method", "device"]])
+    ["--cross_validation", "2"], ["--num_workers", "2"], ["--visualize", "True"],
+    ["--aug_method", "device_cached"], ["--aug_method", "device"]])
 def test_trainer_refuses_what_is_not_ported(flag):
     from gssd_torch.train import main
 
