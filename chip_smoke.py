@@ -42,7 +42,7 @@ In order, failing (exit code 1) at the first phase that goes wrong:
    (>= KERNEL_COS_MIN); see ``train_parity``;
 9. holds the three deform_sample kernels against their plain versions at
    the 38x38 DCN site (fwd at batch 8 and 32, dx and dA/dB at batch 32),
-   within KERNEL_TOL, and times them beside one ``torch.einsum`` each;
+   within SAMPLE_TOL, and times them beside one ``torch.einsum`` each;
 10. serves through ``gssd_torch.infer.main --dcn_impl pallas``: 9
    ``deform_sample_fwd`` and 12 ``flash_attn_fwd`` launches per forward,
    no ``deform_conv_fwd``;
@@ -84,6 +84,13 @@ TRAIN_ITERS = 8
 # the same bf16 roundings, in another summation order; a bf16 rounding of
 # P or of a DCN sample can flip (2^-8 relative on that one term)
 KERNEL_TOL = 1e-2
+# the deform_sample kernels round nothing their plain versions do not:
+# fwd and dA/dB differ only in the f32 summation order (tensor cores,
+# measured <= 1e-7 and <= 8.3e-7 of max at the 38x38 site), dx sums the
+# same exact f32 terms in one fixed order (measured bit-equal). A bf16
+# rounding of an intermediate (E = B * g, T = A . x) or a TF32 product
+# reads ~1e-4 to ~2e-3 and must fail (PERF.md, PR 3)
+SAMPLE_TOL = {"fwd": 1e-5, "dx": 1e-6, "dab": 1e-5}
 # bf16 serving forward (kernels) vs f32 forward (plain versions), as a
 # share of max|f32|: bf16 activations through ~25 conv/attention layers
 E2E_TOL = 5e-2
@@ -387,8 +394,8 @@ def sample_inputs(batch):
 def check_sample():
     """The three deform_sample kernels against their plain versions at the
     38x38 site: fwd at batch 8 and 32, dx and dA/dB at batch 32; each
-    output within KERNEL_TOL of its own max. Times kernel, plain version
-    and one torch.einsum of the same function (the yardstick)."""
+    output within SAMPLE_TOL[kernel] of its own max. Times kernel, plain
+    version and one torch.einsum of the same function (the yardstick)."""
     import torch
 
     from gssd_torch.ops.kernels import deform_sample as ds
@@ -397,12 +404,13 @@ def check_sample():
     sites = {}
 
     def compare(name, got, want):
+        tol = SAMPLE_TOL[name.split()[0].removeprefix("deform_sample_")]
         errs = []
         for g_, w_ in zip(got, want):
             err = (g_ - w_).abs().max().item()
             scale = w_.abs().max().item()
-            check(math.isfinite(err) and err <= KERNEL_TOL * scale,
-                  f"{name}: max err {err} > {KERNEL_TOL} * {scale}")
+            check(math.isfinite(err) and err <= tol * scale,
+                  f"{name}: max err {err} (rel {err / scale:.3g}) > {tol} * {scale}")
             errs.append((err, err / scale))
         return max(e for e, _ in errs), max(r for _, r in errs)
 
@@ -692,7 +700,7 @@ def train_argv(tmp, impl="hat", batch=TRAIN_BATCH, iters=TRAIN_ITERS, out="run",
             "--datapath", os.path.join(tmp, "train_ml"), "--num_test_subjects", "4",
             "--load_data_to_ram", "True", "--batch_size", str(batch), "--max_iter", str(iters),
             "--device", device, "--compute_dtype", "bfloat16", "--seed", str(SEED),
-            "--dcn_impl", impl, "--tensorboard", "False", "--output", os.path.join(tmp, out)]
+            "--dcn_impl", impl, "--output", os.path.join(tmp, out)]
 
 
 def train(tmp, impl="hat", batch=TRAIN_BATCH, iters=TRAIN_ITERS):

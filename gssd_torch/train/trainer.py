@@ -13,7 +13,7 @@ evaluates checkpoint N on the test set. Each iteration prints loss,
 loss_l, loss_c, lr and ms/step (the step from the batch on the device to
 the updated weights, synchronised) and the time spent waiting for the
 batch. Logs go to ``<output>/logs/<model_name>/`` (tab-separated text;
-TensorBoard too with ``--tensorboard True`` where it imports).
+TensorBoard too where it imports).
 
 Runs on the GPU (``--device cuda``, the default) and refuses to start
 without one unless ``--device cpu`` is given. Cross-validation folds,
@@ -106,8 +106,6 @@ def build_parser():
     p.add_argument("--output", default="output", type=str)
     p.add_argument("--model_name", default="gssd", type=str)
     p.add_argument("--log_iters", default=True, type=str2bool)
-    p.add_argument("--tensorboard", default=True, type=str2bool,
-                   help="also log to TensorBoard where torch.utils.tensorboard imports")
     # eval
     p.add_argument("--test", default=False, type=str2bool)
     p.add_argument("--checkpoint", default=None, type=int)
@@ -202,8 +200,7 @@ def main(argv=None) -> Dict[str, Any]:
         make_synthetic_dataset(args.datapath)
 
     ap_list, iobb_list = _floats(args.ap_list), _floats(args.iobb_list)
-    logger = MetricsLogger(os.path.join(args.output, "logs", args.model_name),
-                           tensorboard=args.tensorboard)
+    logger = MetricsLogger(os.path.join(args.output, "logs", args.model_name))
     logger.log_args(vars(args))
 
     model, priors = build_model(model_config(args), device="cpu", seed=args.seed)

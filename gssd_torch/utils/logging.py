@@ -17,18 +17,16 @@ import numpy as np
 
 
 class MetricsLogger:
-    def __init__(self, log_dir: str, tensorboard: bool = True):
+    def __init__(self, log_dir: str):
         self.log_dir = log_dir
         os.makedirs(log_dir, exist_ok=True)
         self._files: Dict[str, object] = {}
         self.tb = None
-        if tensorboard:
-            try:
-                from torch.utils.tensorboard import SummaryWriter
-            except ImportError:
-                SummaryWriter = None
-            if SummaryWriter is not None:
-                self.tb = SummaryWriter(os.path.join(log_dir, "tb"))
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except ImportError:
+            return
+        self.tb = SummaryWriter(os.path.join(log_dir, "tb"))
 
     def _file(self, name: str):
         if name not in self._files:

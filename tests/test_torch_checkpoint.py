@@ -7,6 +7,8 @@ it at the stored step's LR, then ``--test --checkpoint``. The CLI runs
 the GSSD recipe (no attention, no DCN) to stay cheap on a CPU; the
 GSSD++ recipe's evaluation runs in tests/test_torch_train.py."""
 
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -96,17 +98,20 @@ def test_partial_load_skips_mismatched_shapes(tmp_path, capsys):
     assert text.count("WARNING") == len(skipped)
 
 
-def test_trainer_eval_checkpoint_resume_and_test(tmp_path, capsys):
+def test_trainer_eval_checkpoint_resume_and_test(tmp_path, capsys, monkeypatch):
     from gssd_torch.data import make_synthetic_dataset
     from gssd_torch.train import main
 
     data = tmp_path / "ml"
     make_synthetic_dataset(str(data), num_subjects=6, slices_per_subject=1, image_size=64)
     out = tmp_path / "run"
+    # text logs only: where TensorBoard is installed its import can pull in
+    # TensorFlow (tens of seconds); the logger runs without it
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
     common = ["--reference_recipe", "gssd", "--datapath", str(data),
               "--num_test_subjects", "1", "--batch_size", "1", "--val_every", "1",
               "--speedrun", "0", "--compute_dtype", "float32", "--device", "cpu",
-              "--output", str(out), "--model_name", "gssd", "--tensorboard", "False",
+              "--output", str(out), "--model_name", "gssd",
               "--stepvalues", "2", "--eval_batch", "2"]
     first = main(common + ["--max_iter", "2"])
     assert [e["iter"] for e in first["evals"]] == [1] and first["step"] == 2

@@ -168,8 +168,10 @@ def test_deform_sample_kernels_match_plain(gen, N, G, P, H, W, Cg):
     for name, u, v in zip(("fwd", "dx", "dA", "dB"), got, want):
         assert u.dtype == v.dtype == torch.float32 and u.shape == v.shape
         # the same roundings; only the f32 summation order differs (the
-        # tensor cores' for fwd, dA and dB; the order over p for dx)
-        assert _rel_err(u, v) <= 1e-3, (name, _rel_err(u, v))
+        # tensor cores' for fwd, dA and dB; the order over p for dx). With
+        # dense rows that is up to ~1e-6 of max over 1444 terms; a bf16 E
+        # or T, or a TF32 product, reads ~1e-4 to ~2e-3
+        assert _rel_err(u, v) <= 1e-5, (name, _rel_err(u, v))
 
 
 @pytest.mark.parametrize("impl", ["pallas", "fused"])

@@ -9,6 +9,7 @@ jitted ``create_train_state`` would cost another half minute).
 """
 
 import json
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -104,7 +105,7 @@ def test_full_width_train_step_matches_jax():
             assert cos >= 0.999, (name, cos)
 
 
-def test_trainer_cli_then_serving_cli(tmp_path, capsys):
+def test_trainer_cli_then_serving_cli(tmp_path, capsys, monkeypatch):
     from gssd_torch import infer
     from gssd_torch.data import make_synthetic_dataset
     from gssd_torch.train import main
@@ -112,12 +113,14 @@ def test_trainer_cli_then_serving_cli(tmp_path, capsys):
     data = tmp_path / "ml"
     make_synthetic_dataset(str(data), num_subjects=6, slices_per_subject=1, image_size=64)
     out = tmp_path / "run"
+    # text logs only: where TensorBoard is installed its import can pull in
+    # TensorFlow (tens of seconds); the logger runs without it
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
     res = main([
         "--reference_recipe", "gssd++", "--synthetic", "True", "--datapath", str(data),
         "--num_test_subjects", "1", "--batch_size", "2", "--max_iter", "2",
         "--val_every", "1", "--speedrun", "0", "--compute_dtype", "float32",
-        "--device", "cpu", "--output", str(out), "--model_name", "gssd_pp",
-        "--tensorboard", "False"])
+        "--device", "cpu", "--output", str(out), "--model_name", "gssd_pp"])
     text = capsys.readouterr().out
     assert [r["iter"] for r in res["records"]] == [0, 1]
     for r in res["records"]:
