@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """GPU smoke run of the port (gssd_torch) on one card: the serving path,
-the training step, the three DCN routes and the trainer's evaluation,
-checkpoints and resume.
+the training step, the three DCN routes, the trainer's evaluation,
+checkpoints and resume, and PixelLink++ (4s) with the stem kernels.
 
     python3 chip_smoke.py        # from the root of a checkout
 
@@ -58,7 +58,25 @@ In order, failing (exit code 1) at the first phase that goes wrong:
    with ``--test True --checkpoint``: the AP/IoBB keys, values in [0, 1];
 13. one DCN layer (1024 -> 512, 4 groups, 38x38, batch 8) on the
    ``pallas`` and ``fused`` routes: gradients in bf16 through the kernels
-   against bf16 through the plain versions, cosine >= DCN_COS_MIN each.
+   against bf16 through the plain versions, cosine >= DCN_COS_MIN each;
+14. holds the stem kernels (``stem_conv_fwd``, ``stem_conv_bwd``) against
+   their plain versions at PixelLink++'s conv1_1 and conv1_2 (batch 16,
+   300x300, bf16): y and dx within STEM_ULP_MAX ulp with at most
+   STEM_DIFF_SHARE of the elements differing, dW within STEM_DW_TOL; a
+   planted double rounding must fail; times them beside cuDNN;
+15. holds the attention and hat DCN kernels at PixelLink++'s 75x75 shapes
+   (N = 5625; 512 -> 256 channels) against their plain versions, timed;
+16. with ``USE_WIDE_CONV_KERNEL`` set in-process, trains PixelLink++
+   through ``gssd_torch.train_pixellink.main`` at ``--reference_recipe
+   pixellink++ --synthetic True --batch_size 16 --device cuda
+   --compute_dtype bfloat16`` (2 + 2 stem, 8 + 8 (remat) + 8 attention
+   and 1 + 1 DCN launches per step, finite losses, ms/step), runs its
+   evaluation and checkpoint, then ``--test True --checkpoint`` (the
+   AP/IoBB keys in [0, 1]; 2 stem, 8 attention, 1 DCN launches per
+   batch); one step with the switch off launches no stem kernel;
+17. PixelLink++ bf16 on the card (kernels) against f32 on the CPU (plain
+   versions): logits within E2E_TOL, a train-mode loss at batch 2 within
+   TRAIN_LOSS_TOL.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or outside a
@@ -865,16 +883,18 @@ def descend_and_split(data, device="cuda", batch=TRAIN_BATCH):
 
 @contextlib.contextmanager
 def plain_versions():
-    """Route the seven kernel boundaries to their plain versions, also for
+    """Route the nine kernel boundaries to their plain versions, also for
     CUDA tensors, for the length of the block (the autograd Functions
     look the boundaries up at call time)."""
     from gssd_torch.ops.kernels import deform_hat as dh
     from gssd_torch.ops.kernels import deform_sample as ds
     from gssd_torch.ops.kernels import flash_attn as fa
+    from gssd_torch.ops.kernels import stem_conv as sc
 
     swaps = [(fa, "flash_attention_fwd"), (fa, "flash_attention_bwd"),
              (dh, "deform_conv_fwd"), (dh, "deform_conv_bwd"),
-             (ds, "abx_fwd"), (ds, "abx_dx"), (ds, "abx_dab")]
+             (ds, "abx_fwd"), (ds, "abx_dx"), (ds, "abx_dab"),
+             (sc, "stem_conv_fwd"), (sc, "stem_conv_bwd")]
     saved = [getattr(mod, name) for mod, name in swaps]
     for mod, name in swaps:
         setattr(mod, name, getattr(mod, name + "_plain"))
@@ -994,6 +1014,472 @@ def train_parity(data, f32_device="cpu", device="cuda"):
     return report
 
 
+# ---- PixelLink++ (4s) with the wide-conv switch on: the stem kernels ----
+
+# (name, Cin, Cout) of the two stem sites, 4 groups, at 300 x 300
+STEM_SITES = [("conv1_1", 12, 64), ("conv1_2", 64, 64)]
+PL_BATCH = 16  # the pixellink++ recipe's batch
+PL_ITERS = 3
+# the stem kernels against their plain versions (both on the card): the
+# same roundings, f32 sums in another order, so a bf16 output can flip by
+# one ulp where its f32 sum lies near a rounding boundary. Every element
+# within STEM_ULP_MAX bf16 ulp, counted at the element's magnitude or at
+# max |plain| / 256 where the element is smaller (an output near zero is
+# a near-cancelling sum, whose f32 order noise is that of its large
+# terms: thousands of steps of its own tiny value at batch 16, PERF.md),
+# and at most STEM_DIFF_SHARE of the elements differing at all
+# (read <= 2.45e-5 at batch 16; a double rounding, conv rounded to bf16
+# then a bf16 bias added, reads 0.29: the negative control of
+# check_stem). dW is f32: within STEM_DW_TOL of max |plain| (read <=
+# 2.2e-6: sums of 1.44M exact products in another order)
+STEM_ULP_MAX = 1
+STEM_DIFF_SHARE = 2e-4
+STEM_DW_TOL = 2e-5
+# launches of one PixelLink++ train step (remat recomputes the 8
+# attention forwards) and of one forward (valid loss, evaluation, --test)
+PL_STEP_LAUNCHES = dict(stem_conv_fwd=2, stem_conv_bwd=2, flash_attn_fwd=16,
+                        flash_attn_bwd=8, deform_conv_fwd=1, deform_conv_bwd=1)
+PL_FORWARD_LAUNCHES = dict(stem_conv_fwd=2, flash_attn_fwd=8, deform_conv_fwd=1)
+PL_AP_KEYS = {"ap50", "iobb50"}
+
+
+def bf16_ulp_err(got, want):
+    """|got - want| per element in bf16 ulps of max(|want|, max|want| /
+    256) (bf16 tensors)."""
+    import torch
+
+    g, w = got.float(), want.float()
+    scale = torch.maximum(w.abs(), w.abs().max() / 256).clamp(min=1e-30)
+    return (g - w).abs() / torch.exp2(torch.floor(torch.log2(scale)) - 7)
+
+
+def _agreement(got, want):
+    """(the largest bf16_ulp_err, the share of elements that differ)."""
+    return (bf16_ulp_err(got, want).max().item(),
+            (got != want).float().mean().item())
+
+
+def raw_bf16_ulps(got, want):
+    """The largest distance in bf16 steps between two bf16 tensors, with
+    no floor (near zero it counts every step between tiny values)."""
+    import torch
+
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i + 32768), i)
+
+    return int((ordered(got) - ordered(want)).abs().max().item())
+
+
+def check_stem():
+    """stem_conv_fwd and stem_conv_bwd against their plain versions at
+    the two PixelLink++ stem sites (batch 16, 300 x 300, bf16): y and dx
+    within STEM_ULP_MAX ulp with at most STEM_DIFF_SHARE of the elements
+    differing, dW within STEM_DW_TOL of max |plain|; a planted double
+    rounding of the forward must fail the share limit. Times kernel,
+    plain version and cuDNN (F.conv2d, aten.convolution_backward), the
+    yardstick the port never calls."""
+    import torch
+    import torch.nn.functional as F
+
+    from gssd_torch.ops.kernels import stem_conv as sc
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    B, H, W, G = PL_BATCH, 300, 300, 4
+    sites = []
+    for name, cin, cout in STEM_SITES:
+        x = torch.rand(B, cin, H, W, device="cuda", generator=g).bfloat16()
+        w = torch.randn(cout, cin // G, 3, 3, device="cuda", generator=g) * math.sqrt(
+            2 / (9 * cin / G))
+        b = torch.randn(cout, device="cuda", generator=g) * 0.5
+        gout = torch.randn(B, cout, H, W, device="cuda", generator=g).bfloat16()
+        wb = w.bfloat16()
+        need_dx = name != "conv1_1"  # conv1_1's input is the image
+        y = sc.stem_conv_fwd(x, wb, b, G)
+        dx, dw = sc.stem_conv_bwd(x, w, gout, G, need_dx)
+        torch.cuda.synchronize()
+        yp = sc.stem_conv_fwd_plain(x, wb, b, G)
+        dxp, dwp = sc.stem_conv_bwd_plain(x, w, gout, G, need_dx)
+        y_ulp, y_share = _agreement(y, yp)
+        planted = F.conv2d(x.float(), wb.float(), None, padding=1, groups=G).bfloat16() \
+            + b.bfloat16()[None, :, None, None]
+        p_ulp, p_share = _agreement(planted, yp)
+        dx_ulp, dx_share = _agreement(dx, dxp) if need_dx else (0, 0.0)
+        raw = max(raw_bf16_ulps(y, yp), raw_bf16_ulps(dx, dxp) if need_dx else 0)
+        dw_rel = ((dw - dwp).abs().max() / dwp.abs().max()).item()
+        print(f"stem_conv {name} B={B} {cin}->{cout} G={G}: y max {y_ulp:.3g} ulp, "
+              f"{y_share:.3g} differ; dx max {dx_ulp:.3g} ulp, {dx_share:.3g} differ; dW rel "
+              f"{dw_rel:.3g}; planted double rounding: max {p_ulp:.3g} ulp, {p_share:.3g} "
+              f"differ; unfloored max {raw} steps", flush=True)
+        for what, ulp, share in (("y", y_ulp, y_share), ("dx", dx_ulp, dx_share)):
+            check(ulp <= STEM_ULP_MAX and share <= STEM_DIFF_SHARE,
+                  f"stem_conv {name} {what}: {ulp} ulp max, {share} of elements differ "
+                  f"(limits {STEM_ULP_MAX}, {STEM_DIFF_SHARE})")
+        check(math.isfinite(dw_rel) and dw_rel <= STEM_DW_TOL,
+              f"stem_conv {name} dW: rel err {dw_rel} > {STEM_DW_TOL}")
+        check(p_share > STEM_DIFF_SHARE,
+              f"stem_conv {name}: the planted double rounding passes the share limit "
+              f"({p_share} <= {STEM_DIFF_SHARE})")
+        ops = 2 * B * H * W * cout * (cin // G) * 9
+        fwd_bytes = nbytes_of(x, wb, b, y)
+        bwd_bytes = nbytes_of(x, gout, dw, *((dx,) if need_dx else ()))
+        fwd_bound = bound(ops, fwd_bytes)
+        bwd_bound = bound(ops * (2 if need_dx else 1), bwd_bytes)
+        xr = x.detach().requires_grad_(need_dx)
+        sites.append(dict(
+            site=name, B=B, H=H, W=W, Cin=cin, Cout=cout, G=G, need_dx=need_dx,
+            y_max_ulp=y_ulp, y_share=y_share, dx_max_ulp=dx_ulp, dx_share=dx_share,
+            unfloored_max_steps=raw,
+            dw_rel=dw_rel, planted_max_ulp=p_ulp, planted_share=p_share,
+            max_abs_err=max((y.float() - yp.float()).abs().max().item(),
+                            (dx.float() - dxp.float()).abs().max().item() if need_dx else 0.0,
+                            (dw - dwp).abs().max().item()),
+            fwd_ms=time_ms(lambda: sc.stem_conv_fwd(x, wb, b, G)),
+            fwd_plain_ms=time_ms(lambda: sc.stem_conv_fwd_plain(x, wb, b, G), iters=5),
+            fwd_library_ms=time_ms(lambda: F.conv2d(x, wb, b.bfloat16(), padding=1, groups=G)),
+            fwd_bound_ms=fwd_bound[0], fwd_bound_by=fwd_bound[1],
+            bwd_ms=time_ms(lambda: sc.stem_conv_bwd(x, w, gout, G, need_dx), iters=10),
+            bwd_plain_ms=time_ms(lambda: sc.stem_conv_bwd_plain(x, w, gout, G, need_dx),
+                                 iters=3),
+            bwd_library_ms=time_ms(lambda: torch.ops.aten.convolution_backward(
+                gout, xr, wb, [cout], [1, 1], [1, 1], [1, 1], False, [0, 0], G,
+                [need_dx, True, False]), iters=10),
+            bwd_bound_ms=bwd_bound[0], bwd_bound_by=bwd_bound[1], ops=ops,
+            fwd_bytes=fwd_bytes, bwd_bytes=bwd_bytes))
+        s = sites[-1]
+        print(f"  forward: kernel {s['fwd_ms']:.4f} ms, plain {s['fwd_plain_ms']:.4f}, cuDNN "
+              f"{s['fwd_library_ms']:.4f}, bound {s['fwd_bound_ms']:.4f} ({s['fwd_bound_by']}); "
+              f"backward: kernel {s['bwd_ms']:.4f} ms, plain {s['bwd_plain_ms']:.4f}, cuDNN "
+              f"{s['bwd_library_ms']:.4f}, bound {s['bwd_bound_ms']:.4f} ({s['bwd_bound_by']})",
+              flush=True)
+        del x, gout, y, yp, dx, dxp, planted, xr
+    return sites
+
+
+def check_pixellink_sites():
+    """The attention and hat DCN kernels at the shapes only PixelLink++
+    gives them (batch 16): attention at the 75 x 75 sites (N = M = 5625,
+    dk 32, dv 128), forward and backward, and the hat DCN at 75 x 75
+    (512 -> 256 channels, 4 groups), forward and backward; each output
+    within KERNEL_TOL of its plain version's max; timed beside SDPA."""
+    import torch
+    import torch.nn.functional as F
+
+    from gssd_torch.ops.kernels import deform_hat as dh
+    from gssd_torch.ops.kernels import flash_attn as fa
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    B, n, dk, dv = PL_BATCH, 5625, 32, 128
+    q, k = (torch.randn(B, n, dk, device="cuda", generator=g).bfloat16() for _ in range(2))
+    v = torch.randn(B, n, dv, device="cuda", generator=g).bfloat16()
+    do = torch.randn(B, n, dv, device="cuda", generator=g).bfloat16()
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    o_ref, _ = fa.flash_attention_fwd_plain(q, k, v)
+    fwd_err = (o - o_ref).abs().max().item()
+    check(fwd_err <= KERNEL_TOL * o_ref.abs().max().item(),
+          f"flash_attn_fwd at N=5625: max err {fwd_err}")
+    del o_ref
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
+    bwd_errs = []
+    for name, a, b_ in zip("qkv", grads, want):
+        err = (a.float() - b_.float()).abs().max().item()
+        bwd_errs.append(err)
+        check(err <= KERNEL_TOL * b_.float().abs().max().item(),
+              f"flash_attn_bwd d{name} at N=5625: max err {err}")
+    del want
+    q4, k4, v4 = (t[:, None].detach().clone().requires_grad_() for t in (q, k, v))
+    out4 = F.scaled_dot_product_attention(q4, k4, v4, scale=1.0)
+    attn = dict(
+        B=B, N=n, M=n, dk=dk, dv=dv, per_forward=2, fwd_max_abs_err=fwd_err,
+        bwd_max_abs_err=max(bwd_errs),
+        fwd_ms=time_ms(lambda: fa.flash_attention_fwd(q, k, v), iters=5),
+        fwd_plain_ms=time_ms(lambda: fa.flash_attention_fwd_plain(q, k, v), iters=2, warmup=1),
+        fwd_library_ms=time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=1.0),
+                               iters=5),
+        bwd_ms=time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do), iters=3),
+        bwd_plain_ms=time_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do),
+                             iters=1, warmup=1),
+        bwd_library_ms=time_ms(lambda: torch.autograd.grad(out4, (q4, k4, v4), do[:, None],
+                                                           retain_graph=True), iters=3))
+    attn["fwd_bound_ms"], attn["fwd_bound_by"] = bound(
+        2 * B * n * n * (dk + dv), nbytes_of(q, k, v, o, lse))
+    attn["bwd_bound_ms"], attn["bwd_bound_by"] = bound(
+        2 * B * n * n * (dk + 2 * dv), nbytes_of(q, k, v, do, o, lse, *grads),
+        2 * B * n * n * 2 * dk)
+    del q, k, v, do, o, lse, grads, q4, k4, v4, out4
+    print(f"attention B={B} N=M={n} dk={dk} dv={dv}: fwd kernel {attn['fwd_ms']:.4f} ms, "
+          f"plain {attn['fwd_plain_ms']:.4f}, sdpa {attn['fwd_library_ms']:.4f}, bound "
+          f"{attn['fwd_bound_ms']:.4f}; bwd kernel {attn['bwd_ms']:.4f} ms, plain "
+          f"{attn['bwd_plain_ms']:.4f}, sdpa {attn['bwd_library_ms']:.4f}, bound "
+          f"{attn['bwd_bound_ms']:.4f}", flush=True)
+
+    H = W = 75
+    C, G, K, Cout = 512, 4, 9, 256
+    x = torch.randn(B, H, W, C, device="cuda", generator=g)
+    off = torch.rand(2, B, H, W, G, K, device="cuda", generator=g) * 6 - 3
+    m = torch.rand(B, H, W, G, K, device="cuda", generator=g)
+    wgt = (torch.rand(K, C, Cout, device="cuda", generator=g) * 2 - 1) / math.sqrt(K * C)
+    bias = torch.randn(Cout, device="cuda", generator=g) * 0.1
+    py, px = dh.sample_coords(off[0], off[1])
+    P = H * W
+    args = (x.bfloat16().contiguous(), py.reshape(B, P, G, K).contiguous(),
+            px.reshape(B, P, G, K).contiguous(), m.reshape(B, P, G, K).contiguous(),
+            wgt.reshape(K, G, C // G, Cout).permute(1, 0, 2, 3).bfloat16().contiguous())
+    gout = torch.randn(B, P, Cout, device="cuda", generator=g)
+    out = dh.deform_conv_fwd(*args, bias)
+    got = dh.deform_conv_bwd(*args, gout)
+    torch.cuda.synchronize()
+    ref = dh.deform_conv_fwd_plain(*args, bias)
+    dcn_fwd_err = (out - ref).abs().max().item()
+    check(dcn_fwd_err <= KERNEL_TOL * ref.abs().max().item(),
+          f"deform_conv_fwd at 75x75: max err {dcn_fwd_err}")
+    del ref
+    want = dh.deform_conv_bwd_plain(*args, gout)
+    dcn_bwd_errs = []
+    for name, a, b_ in zip(("dpy", "dpx", "dm", "dx", "dwg"), got, want):
+        err = (a.float() - b_.float()).abs().max().item()
+        dcn_bwd_errs.append(err)
+        check(err <= KERNEL_TOL * b_.float().abs().max().item(),
+              f"deform_conv_bwd {name} at 75x75: max err {err}")
+    del want
+    ops = 2 * B * P * K * C * Cout
+    dcn = dict(
+        B=B, H=H, W=W, C=C, G=G, K=K, Cout=Cout, fwd_max_abs_err=dcn_fwd_err,
+        bwd_max_abs_err=max(dcn_bwd_errs),
+        fwd_ms=time_ms(lambda: dh.deform_conv_fwd(*args, bias), iters=5),
+        fwd_plain_ms=time_ms(lambda: dh.deform_conv_fwd_plain(*args, bias), iters=2, warmup=1),
+        bwd_ms=time_ms(lambda: dh.deform_conv_bwd(*args, gout), iters=3),
+        bwd_plain_ms=time_ms(lambda: dh.deform_conv_bwd_plain(*args, gout), iters=1, warmup=1),
+        library_ms=None)
+    dcn["fwd_bound_ms"], dcn["fwd_bound_by"] = bound(ops, nbytes_of(*args, bias, out))
+    dcn["bwd_bound_ms"], dcn["bwd_bound_by"] = bound(2 * ops, nbytes_of(*args, gout, *got))
+    print(f"hat DCN B={B} 75x75 {C}->{Cout} G={G}: fwd kernel {dcn['fwd_ms']:.4f} ms, plain "
+          f"{dcn['fwd_plain_ms']:.4f}, bound {dcn['fwd_bound_ms']:.4f}; bwd kernel "
+          f"{dcn['bwd_ms']:.4f} ms, plain {dcn['bwd_plain_ms']:.4f}, bound "
+          f"{dcn['bwd_bound_ms']:.4f}", flush=True)
+    return {"attention_5625": attn, "hat_dcn_75": dcn}
+
+
+def pl_argv(tmp, data, out, *extra):
+    return ["--reference_recipe", "pixellink++", "--synthetic", "True", "--datapath", data,
+            "--num_test_subjects", "4", "--load_data_to_ram", "True",
+            "--batch_size", str(PL_BATCH), "--device", "cuda", "--compute_dtype", "bfloat16",
+            "--seed", str(SEED), "--output", os.path.join(tmp, out), *extra]
+
+
+def _reset_launches():
+    from gssd_torch.ops.kernels import KERNELS
+
+    for k in KERNELS.values():
+        k.launches = 0
+
+
+def _launches():
+    from gssd_torch.ops.kernels import KERNELS
+
+    return {name: k.launches for name, k in KERNELS.items()}
+
+
+@contextlib.contextmanager
+def wide_conv(on=True):
+    """USE_WIDE_CONV_KERNEL set in-process, as a user of the package sets
+    it, for the length of the block."""
+    from gssd_torch.ops import layers
+
+    saved = layers.USE_WIDE_CONV_KERNEL
+    layers.USE_WIDE_CONV_KERNEL = on
+    try:
+        yield
+    finally:
+        layers.USE_WIDE_CONV_KERNEL = saved
+
+
+def pixellink(tmp, data):
+    """PixelLink++ through ``gssd_torch.train_pixellink.main`` with the
+    wide-conv switch on: PL_ITERS train steps (exactly PL_STEP_LAUNCHES
+    each, finite losses); a run with its evaluation and a checkpoint at
+    iteration 1; ``--test --checkpoint 1`` (the AP/IoBB keys in [0, 1],
+    exactly PL_FORWARD_LAUNCHES per batch); then one step with the switch
+    off: no stem_conv launch."""
+    from gssd_torch import train_pixellink
+    from gssd_torch.data import DataSplitter
+    from gssd_torch.eval import ap_iobb
+
+    with wide_conv():
+        _reset_launches()
+        res = train_pixellink.main(pl_argv(tmp, data, "pl_run", "--max_iter", str(PL_ITERS),
+                                           "--speedrun", "100000"))
+        launches = _launches()
+        print(f"pixellink++ training launches over {PL_ITERS} steps: {launches}", flush=True)
+        want = {name: PL_STEP_LAUNCHES.get(name, 0) * PL_ITERS for name in launches}
+        check(launches == want, f"pixellink++: expected {PL_STEP_LAUNCHES} per step, got "
+                                f"{launches}")
+        losses = [r["loss"] for r in res["records"]]
+        check(len(losses) == PL_ITERS and all(math.isfinite(v) for v in losses),
+              f"pixellink++: non-finite or missing losses {losses}")
+        median = res["median_step_ms"]
+        print(f"pixellink++ training: median {median:.2f} ms/step after the first step, "
+              f"{PL_BATCH / median * 1e3:.1f} slices/s at batch {PL_BATCH}; losses {losses}; "
+              f"input wait {[round(r['wait_ms'], 1) for r in res['records']]} ms", flush=True)
+
+        t0 = time.perf_counter()
+        ev = train_pixellink.main(pl_argv(tmp, data, "pl_eval", "--max_iter", "2",
+                                          "--val_every", "1", "--speedrun", "1"))
+        eval_s = time.perf_counter() - t0
+        check([e["iter"] for e in ev["evals"]] == [1] and os.path.exists(ev["weights"]),
+              f"pixellink++: expected an evaluation and a checkpoint at iteration 1, got "
+              f"{ev['evals']}")
+        for split in ("valid", "test"):
+            r = ev["evals"][0][split]
+            check(set(r) == PL_AP_KEYS and all(0.0 <= v <= 1.0 for v in r.values()),
+                  f"pixellink++ {split} AP/IoBB malformed: {r}")
+
+        n_test = len(DataSplitter(data, 1, 4).data_test)
+        n_batches = -(-n_test // 16)
+        # the host decode's share of --test: mask_to_boxes timed where the
+        # evaluation calls it
+        real_decode, decode_s = ap_iobb.mask_to_boxes, []
+
+        def timed_decode(*args, **kwargs):
+            t = time.perf_counter()
+            out = real_decode(*args, **kwargs)
+            decode_s.append(time.perf_counter() - t)
+            return out
+
+        _reset_launches()
+        ap_iobb.mask_to_boxes = timed_decode
+        t0 = time.perf_counter()
+        try:
+            tested = train_pixellink.main(pl_argv(tmp, data, "pl_eval", "--test", "True",
+                                                  "--checkpoint", "1"))["test"]
+        finally:
+            ap_iobb.mask_to_boxes = real_decode
+        test_s = time.perf_counter() - t0
+        launches_test = _launches()
+        check(set(tested) == PL_AP_KEYS and all(0.0 <= v <= 1.0 for v in tested.values()),
+              f"pixellink++ --test AP/IoBB malformed: {tested}")
+        want = {name: PL_FORWARD_LAUNCHES.get(name, 0) * n_batches for name in launches_test}
+        check(launches_test == want, f"pixellink++ --test: expected {PL_FORWARD_LAUNCHES} per "
+                                     f"batch over {n_batches} batches, got {launches_test}")
+        print(f"pixellink++ --test --checkpoint 1: {tested}; {n_test} images in {n_batches} "
+              f"batches, {test_s:.2f} s in all ({1e3 * test_s / n_test:.1f} ms/image, model "
+              f"build included), of which the host decode {sum(decode_s):.2f} s "
+              f"({1e3 * sum(decode_s) / len(decode_s):.1f} ms/image); the evaluation run took "
+              f"{eval_s:.2f} s", flush=True)
+
+    _reset_launches()
+    off = train_pixellink.main(pl_argv(tmp, data, "pl_off", "--max_iter", "1",
+                                       "--speedrun", "100000"))
+    launches_off = _launches()
+    check(launches_off["stem_conv_fwd"] == launches_off["stem_conv_bwd"] == 0
+          and launches_off["flash_attn_fwd"] == 16,
+          f"pixellink++ with the switch off: expected no stem_conv launch, got {launches_off}")
+    print(f"pixellink++ with the switch off (cuDNN stem): launches {launches_off}; "
+          f"{off['records'][0]['ms']:.1f} ms for its one step", flush=True)
+    return {"launches": launches, "records": res["records"], "median_step_ms": median,
+            "evaluation": ev["evals"][0], "eval_run_s": eval_s, "test": tested,
+            "test_s": test_s, "test_decode_s": sum(decode_s), "test_images": n_test,
+            "test_launches": launches_test,
+            "switch_off_launches": launches_off}
+
+
+def seeded_pixellink(compute_dtype, seed=SEED):
+    """PixelLink++ (4s) with random weights from ``seed`` that make every
+    path contribute, as ``seeded_model`` does for GSSD++."""
+    import torch
+
+    from gssd_torch.models.pixellink import PixelLink
+    from gssd_torch.ops.deform_conv import DCN
+    from gssd_torch.ops.layers import BatchNorm, ConvBNRelu, SelfAttention, SNDense
+    from gssd_torch.train_pixellink import parse_args, pixellink_config
+
+    cfg = pixellink_config(parse_args(["--reference_recipe", "pixellink++"]))
+    model = PixelLink(cfg, compute_dtype=compute_dtype, dcn_impl="hat", seed=seed)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, ConvBNRelu):
+                w = mod.conv.weight
+                w.normal_(0, math.sqrt(2 / w[0].numel()), generator=g)
+                mod.conv.bias.normal_(0, 0.1, generator=g)
+            elif isinstance(mod, BatchNorm):
+                mod.running_mean.normal_(0, 0.1, generator=g)
+                mod.running_var.uniform_(0.5, 1.5, generator=g)
+            elif isinstance(mod, SNDense):
+                u, _, vh = torch.linalg.svd(mod.kernel.t(), full_matrices=False)
+                mod.u.copy_(u[:, 0])
+                mod.v.copy_(vh[0])
+            elif isinstance(mod, SelfAttention):
+                mod.sigma.fill_(0.5)
+            elif isinstance(mod, DCN):
+                w = mod.conv_offset_mask.weight
+                w.normal_(0, 1 / math.sqrt(w[0].numel()), generator=g)
+                mod.conv_offset_mask.bias.normal_(0, 0.1, generator=g)
+    return model
+
+
+def pixellink_batch(data, n, device):
+    """n slices of the synthetic set through the eval transform, with
+    their pixel/link target maps, as a device batch."""
+    import numpy as np
+
+    from gssd_torch.data import BaseTransform, DataSplitter, LesionDataset, collate_pixellink
+    from gssd_torch.data.pixellink_targets import make_pixel_link_targets
+    from gssd_torch.train.trainer import to_device
+
+    ids = DataSplitter(data, 1, 4).data_cv_train[0][:n]
+    ds = LesionDataset(data, ids, transform=BaseTransform(300))
+    items = []
+    for i in range(n):
+        img, boxes, labels = ds[i]
+        t = make_pixel_link_targets(np.asarray(boxes), 300, "4s")
+        t["labels"] = labels
+        items.append((img, boxes, t))
+    return to_device(collate_pixellink(items), device)
+
+
+def pixellink_parity(data):
+    """PixelLink++ with the switch on: one image's pixel and link logits,
+    bf16 on the card (kernels) against f32 on the CPU (plain versions),
+    within E2E_TOL of max |f32|; one train-mode step's loss at batch 2
+    (forward and loss), within TRAIN_LOSS_TOL relative."""
+    import torch
+
+    from gssd_torch.train.steps import pixellink_forward_loss
+
+    batch = {dev: pixellink_batch(data, 2, dev) for dev in ("cpu", "cuda")}
+    outs, losses = {}, {}
+    with wide_conv():
+        for dtype, dev in (("float32", "cpu"), ("bfloat16", "cuda")):
+            model = seeded_pixellink(dtype).to(dev)
+            with torch.inference_mode():
+                out = model.eval()(batch[dev]["image"][:1])
+            outs[dtype] = {k: out[k].float().cpu() for k in ("pixel", "link")}
+            model.train()
+            loss, _ = pixellink_forward_loss(model, batch[dev], model.cfg)
+            losses[dtype] = loss.item()
+            del model
+    errs = {}
+    for name in ("pixel", "link"):
+        ref, got = outs["float32"][name], outs["bfloat16"][name]
+        check(bool(torch.isfinite(got).all()), f"pixellink {name}: non-finite bf16 output")
+        err = (got - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        errs[name] = err / scale
+        print(f"pixellink parity {name}: max |bf16 card - f32 cpu| = {err:.4g}, max |f32| = "
+              f"{scale:.4g}, ratio {err / scale:.4g} (limit {E2E_TOL})", flush=True)
+        check(err <= E2E_TOL * scale, f"pixellink {name}: bf16 card vs f32 cpu {err} > "
+                                      f"{E2E_TOL} * {scale}")
+    rel = abs(losses["bfloat16"] - losses["float32"]) / abs(losses["float32"])
+    print(f"pixellink train loss at batch 2: f32 cpu {losses['float32']:.6g}, bf16 card "
+          f"{losses['bfloat16']:.6g}, rel {rel:.4g} (limit {TRAIN_LOSS_TOL})", flush=True)
+    check(math.isfinite(losses["bfloat16"]) and rel <= TRAIN_LOSS_TOL,
+          f"pixellink train loss bf16 card vs f32 cpu: rel {rel} > {TRAIN_LOSS_TOL}")
+    return {"logits_rel_err": errs, "loss_rel": rel, "losses": losses}
+
+
 def _kernel_numbers(site):
     return {k: site[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms")}
@@ -1038,6 +1524,8 @@ def main() -> int:
         dcn_site = check_dcn()
         dcn_bwd_site = check_dcn_bwd()
         sample_sites = check_sample()
+        stem_sites = check_stem()
+        pl_sites = check_pixellink_sites()
         with tempfile.TemporaryDirectory() as tmp:
             launches, lat, data, weights = serve(tmp)
             parts = breakdown()
@@ -1050,6 +1538,10 @@ def main() -> int:
             pallas_serve_launches, pallas_lat = serve_pallas(tmp, data, weights)
             routes = {impl: train(tmp, impl, iters=ROUTE_ITERS) for impl in ("pallas", "fused")}
             harness = eval_resume_test(tmp)
+            t_pl = time.perf_counter()
+            pl = pixellink(tmp, train_data)
+            pl_parity = pixellink_parity(train_data)
+            pl_s = time.perf_counter() - t_pl
         dcn_grad_cos = dcn_grads()
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
@@ -1133,7 +1625,52 @@ def main() -> int:
                    "(one tap; 9 per step) runs the dA and the dB pass"),
              sites=[sample_sites["dab"]]),
     ]
+    def stem_sum(key):
+        return sum(site[key] for site in stem_sites)
+
+    stem_fwd_bound = bound(stem_sum("ops"), stem_sum("fwd_bytes"))
+    stem_bwd_bound = bound(sum(s["ops"] * (2 if s["need_dx"] else 1) for s in stem_sites),
+                           stem_sum("bwd_bytes"))
+    stem_note = (f"times summed over conv1_1 and conv1_2 of one batch-{PL_BATCH} PixelLink++ "
+                 "step at 300x300 (bf16, 4 groups); library_ms is cuDNN (F.conv2d, "
+                 "aten.convolution_backward), never called by the port; launches from the "
+                 f"PixelLink++ training run ({PL_ITERS} steps)")
+    kernels += [
+        dict(name="stem_conv_fwd", route="cuda", source="gssd_torch/csrc/stem_conv_fwd.cu",
+             replaces="gssd_tpu/ops/pallas/stem_conv.py:64",
+             launches=pl["launches"]["stem_conv_fwd"],
+             max_abs_err=max(s["max_abs_err"] for s in stem_sites),
+             ms=stem_sum("fwd_ms"), plain_ms=stem_sum("fwd_plain_ms"),
+             bound_ms=stem_fwd_bound[0], bound_by=stem_fwd_bound[1],
+             library_ms=stem_sum("fwd_library_ms"), note=stem_note, sites=stem_sites),
+        dict(name="stem_conv_bwd", route="cuda", source="gssd_torch/csrc/stem_conv_bwd.cu",
+             replaces="gssd_tpu/ops/pallas/stem_conv.py:97",
+             launches=pl["launches"]["stem_conv_bwd"],
+             max_abs_err=max(s["max_abs_err"] for s in stem_sites),
+             ms=stem_sum("bwd_ms"), plain_ms=stem_sum("bwd_plain_ms"),
+             bound_ms=stem_bwd_bound[0], bound_by=stem_bwd_bound[1],
+             library_ms=stem_sum("bwd_library_ms"),
+             note=stem_note + "; one launch runs the dx kernel (not at conv1_1), the dW "
+                              "partial sums and their reduction", sites=stem_sites),
+    ]
+    for entry in kernels:
+        if entry["name"].startswith("flash_attn"):
+            entry["pixellink_site"] = pl_sites["attention_5625"]
+        elif entry["name"].startswith("deform_conv"):
+            entry["pixellink_site"] = pl_sites["hat_dcn_75"]
     recs = train_res["records"]
+    print(json.dumps({"pixellink": {"batch": PL_BATCH, "steps": PL_ITERS,
+                                    "ms_per_step": [r["ms"] for r in pl["records"]],
+                                    "input_wait_ms": [r["wait_ms"] for r in pl["records"]],
+                                    "losses": [r["loss"] for r in pl["records"]],
+                                    "median_ms_per_step": pl["median_step_ms"],
+                                    "launches": pl["launches"], "evaluation": pl["evaluation"],
+                                    "test": pl["test"], "test_s": pl["test_s"],
+                                    "test_decode_s": pl["test_decode_s"],
+                                    "test_images": pl["test_images"],
+                                    "test_launches": pl["test_launches"],
+                                    "switch_off_launches": pl["switch_off_launches"],
+                                    "parity": pl_parity, "seconds": pl_s, "power": smi}}))
     print(json.dumps({"routes": {
         impl: {"batch": TRAIN_BATCH, "steps": len(res["records"]),
                "ms_per_step": [r["ms"] for r in res["records"]],

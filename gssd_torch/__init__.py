@@ -4,7 +4,8 @@ hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 The port of ``gssd_tpu`` (JAX on a TPU), which stays the reference this
 package is tested against. It imports neither JAX nor ``gssd_tpu``.
 Serving path: ``python -m gssd_torch.infer``; training:
-``python -m gssd_torch.train``.
+``python -m gssd_torch.train`` (the SSD family) and
+``python -m gssd_torch.train_pixellink`` (PixelLink++).
 """
 
 import torch

@@ -1,4 +1,4 @@
-"""Configuration of the PyTorch port: model, anchor grid and Detect head.
+"""Configuration of the PyTorch port: models, anchor grid and Detect head.
 
 A copy of the parts of ``gssd_tpu/config.py`` the serving and training
 paths need, so that the port runs on a host that has no JAX. Field names and defaults
@@ -139,6 +139,8 @@ class ModelConfig:
     # analytic backward (ops/deform_fused.py); 'xla' the plain 4-corner
     # gather in the compute dtype (the f32 parity reference)
     dcn_impl: str = "hat"
+    # recompute the self-attention blocks in the backward (--remat_attention)
+    remat_attention: bool = False
 
     def __post_init__(self):
         if self.detach_sab and not self.dcn_cat_sab:
@@ -156,6 +158,47 @@ class ModelConfig:
     @property
     def anchor_config(self) -> AnchorConfig:
         return ANCHOR_CONFIGS[self.anchors]
+
+
+@dataclass(frozen=True)
+class PixelLinkConfig:
+    """PixelLink++ model, target and decoder settings
+    (gssd_tpu/config.py:257-287)."""
+
+    version: str = "4s"  # '2s' or '4s'
+    pixel_weight: float = 2.0
+    link_weight: float = 1.0
+    neg_pos_ratio: int = 3
+    min_area: int = 3
+    min_height: int = 1
+    pixel_conf_threshold: float = 0.2
+    link_conf_threshold: float = 0.8
+    vgg_groups: int = 4
+    feature_scale: int = 1
+    dilation: bool = True
+    use_fuseconv: bool = True
+    use_self_attention: bool = False
+    use_self_attention_base: bool = False
+    num_dcn_layers: int = 0
+    groups_dcn: int = 1
+    dcn_cat_sab: bool = False
+    detach_sab: bool = False
+    max_pool_factor: int = 1
+    # recompute every attention block in the backward, as the JAX package
+    # does by default (its reference checkpoints every PixelLink Self_Attn)
+    remat_attention: bool = True
+
+    def __post_init__(self):
+        if self.detach_sab and not self.dcn_cat_sab:
+            raise ValueError("detach_sab requires dcn_cat_sab=True")
+        if self.dcn_cat_sab and not self.use_self_attention_base:
+            raise ValueError("dcn_cat_sab requires use_self_attention_base=True")
+        if self.dcn_cat_sab and self.num_dcn_layers <= 0:
+            raise ValueError("dcn_cat_sab requires num_dcn_layers > 0")
+
+    @property
+    def scale_factor(self) -> int:
+        return 2 if self.version == "2s" else 4
 
 
 @dataclass(frozen=True)

@@ -2,5 +2,6 @@ from gssd_torch.data.splitter import DataSplitter  # noqa: F401
 from gssd_torch.data.dataset import LesionDataset  # noqa: F401
 from gssd_torch.data.transforms import BaseTransform  # noqa: F401
 from gssd_torch.data.synthetic import make_synthetic_dataset  # noqa: F401
-from gssd_torch.data.dataset import BatchLoader, collate, pad_targets  # noqa: F401
+from gssd_torch.data.dataset import (  # noqa: F401
+    BatchLoader, collate, collate_pixellink, pad_targets)
 from gssd_torch.data.augment import SSDAugmentation  # noqa: F401

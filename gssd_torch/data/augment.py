@@ -13,12 +13,19 @@ W, 3] float 0..255 arrays whose geometry is shared across phases:
 PixelJitter truncates the jitter toward zero and keeps the unjittered
 boxes if any box would invert. The resize is the port's torch
 ``resize_phases`` (bilinear, half-pixel centres, no antialiasing).
+
+With ``pixel_link_size`` set (PixelLink training), the third item is
+the dict of ``make_pixel_link_targets`` at that size and
+``pixel_link_version``, with the labels under "labels".
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from typing import Optional
+
+from gssd_torch.data.pixellink_targets import make_pixel_link_targets
 from gssd_torch.data.transforms import PORTAL_PHASE, resize_phases
 
 
@@ -47,6 +54,8 @@ class SSDAugmentation:
         use_normalize: bool = True,
         p_only: bool = False,
         seed: int = 1111,
+        pixel_link_size: Optional[int] = None,
+        pixel_link_version: str = "4s",
     ):
         self.pixeljitter = pixeljitter
         self.ratio = ratio
@@ -55,6 +64,8 @@ class SSDAugmentation:
         self.use_normalize = use_normalize
         self.p_only = p_only
         self.rng = np.random.default_rng(seed)
+        self.pixel_link_size = pixel_link_size
+        self.pixel_link_version = pixel_link_version
 
     # ---- individual ops ----------------------------------------------
 
@@ -165,4 +176,9 @@ class SSDAugmentation:
             assert hi != lo, "all-constant image in Normalize"
             img = (img - lo) / (hi - lo)
         img = resize_phases(np.ascontiguousarray(img), self.size)
+        if self.pixel_link_size is not None:
+            targets = make_pixel_link_targets(boxes, self.pixel_link_size,
+                                              self.pixel_link_version)
+            targets["labels"] = labels
+            return img, boxes.astype(np.float32), targets
         return img, boxes.astype(np.float32), labels

@@ -105,19 +105,35 @@ def collate(items: Sequence[Tuple[np.ndarray, np.ndarray, np.ndarray]],
     }
 
 
+def collate_pixellink(items: Sequence[Tuple[np.ndarray, np.ndarray, dict]],
+                      max_gt: int = 16) -> Dict[str, np.ndarray]:
+    """``collate`` for PixelLink items, whose third element is the target
+    dict of ``make_pixel_link_targets`` plus "labels": adds the stacked
+    maps pixel_mask int32, neg_pixel_mask uint8, pixel_pos_weight f32 and
+    link_mask int32 to the batch."""
+    maps = ("pixel_mask", "neg_pixel_mask", "pixel_pos_weight", "link_mask")
+    batch = collate([(img, boxes, np.asarray(t["labels"])) for img, boxes, t in items], max_gt)
+    for key, dt in zip(maps, (np.int32, np.uint8, np.float32, np.int32)):
+        batch[key] = np.stack([t[key] for _, _, t in items]).astype(dt)
+    return batch
+
+
 class BatchLoader:
     """Shuffling, endlessly repeating batch iterator with one background
     prefetch thread. The order is a seeded ``default_rng`` permutation
-    per epoch. ``close`` stops the thread."""
+    per epoch; ``collate_fn`` stacks the items. ``close`` stops the
+    thread."""
 
     def __init__(self, dataset: LesionDataset, batch_size: int, max_gt: int = 16,
-                 seed: int = 1111, shuffle: bool = True, prefetch: int = 2):
+                 seed: int = 1111, shuffle: bool = True, prefetch: int = 2,
+                 collate_fn: Callable = collate):
         if len(dataset) == 0:
             raise ValueError("BatchLoader over an empty dataset")
         self.dataset = dataset
         self.batch_size = batch_size
         self.max_gt = max_gt
         self.shuffle = shuffle
+        self.collate_fn = collate_fn
         self.rng = np.random.default_rng(seed)
         self._queue: queue_mod.Queue = queue_mod.Queue(maxsize=prefetch)
         self._thread = threading.Thread(target=self._worker, daemon=True)
@@ -134,7 +150,7 @@ class BatchLoader:
         stream = self._index_stream()
         while not self._stop.is_set():
             items = [self.dataset[next(stream)] for _ in range(self.batch_size)]
-            batch = collate(items, self.max_gt)
+            batch = self.collate_fn(items, self.max_gt)
             while not self._stop.is_set():
                 try:
                     self._queue.put(batch, timeout=0.1)

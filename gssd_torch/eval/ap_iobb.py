@@ -11,6 +11,9 @@
 4. precision/recall cumsums -> AP by the 11-point VOC-07 rule or the
    exact area under the curve.
 
+PixelLink models go through ``collect_predictions_pixellink``: logit
+maps decoded into scored boxes on the host (``pixellink_decode``).
+
 The sweep is the JAX package's numpy loop (its C++ sweep has the same
 semantics and is not ported). Unlike the JAX package, the last chunk of
 images is not padded to the batch size: an eager forward has no fixed
@@ -22,6 +25,9 @@ from __future__ import annotations
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from gssd_torch.config import PixelLinkConfig
+from gssd_torch.eval.pixellink_decode import mask_to_boxes
 
 
 def voc_ap(rec: np.ndarray, prec: np.ndarray, use_07_metric: bool = False) -> float:
@@ -174,6 +180,41 @@ def collect_predictions(
     return (np.concatenate(preds) if preds else np.zeros((0, 6))), gt_boxes
 
 
+def collect_predictions_pixellink(
+    forward_fn: Callable,
+    dataset,
+    transform,
+    conf_threshold: float = 0.2,
+    batch_size: int = 16,
+    img_size: int = 300,
+    pl_cfg: Optional[PixelLinkConfig] = None,
+) -> Tuple[np.ndarray, Dict[int, np.ndarray]]:
+    """The PixelLink evaluation path: ``forward_fn`` maps a [B, H, W, 12]
+    batch to (pixel [B, h, w, 2], link [B, h, w, 16]) logit maps, which
+    ``mask_to_boxes`` decodes on the host -> (predictions [N, 6] in the
+    original pixel size, filtered at ``conf_threshold``; gt_boxes)."""
+    pl_cfg = pl_cfg or PixelLinkConfig()
+    preds: List[np.ndarray] = []
+    gt_boxes: Dict[int, np.ndarray] = {}
+    for start, batch, sizes in _stream_batches(dataset, transform, batch_size, gt_boxes):
+        pix, lnk = (np.asarray(t) for t in forward_fn(batch))
+        for bi, (W, H) in enumerate(sizes):
+            scores, boxes = mask_to_boxes(pix[bi], lnk[bi], img_size, pl_cfg)
+            keep = scores > conf_threshold
+            scores, boxes = scores[keep], boxes[keep]
+            if len(scores) == 0:
+                continue
+            out = np.empty((len(scores), 6))
+            out[:, 0] = start + bi
+            out[:, 1] = scores
+            out[:, 2] = boxes[:, 0] * W / img_size
+            out[:, 3] = boxes[:, 1] * H / img_size
+            out[:, 4] = boxes[:, 2] * W / img_size
+            out[:, 5] = boxes[:, 3] * H / img_size
+            preds.append(out)
+    return (np.concatenate(preds) if preds else np.zeros((0, 6))), gt_boxes
+
+
 def run_detection_eval(
     infer_fn,
     dataset,
@@ -184,14 +225,19 @@ def run_detection_eval(
     use_07_metric: bool = False,
     batch_size: int = 16,
     use_pixel_link: bool = False,
+    img_size: int = 300,
+    pl_cfg: Optional[PixelLinkConfig] = None,
     score_sink: Optional[Dict[str, np.ndarray]] = None,
 ) -> Dict[str, float]:
-    """Full sweep -> {'ap30': ..., 'ap50': ..., 'iobb30': ...}."""
+    """Full sweep -> {'ap30': ..., 'ap50': ..., 'iobb30': ...}. With
+    ``use_pixel_link``, ``infer_fn`` returns PixelLink logit maps (see
+    ``collect_predictions_pixellink``) and ``score_sink`` is not filled."""
     if use_pixel_link:
-        raise NotImplementedError(
-            "PixelLink evaluation is not ported to gssd_torch yet (ROADMAP.md, Queue A 13)")
-    preds, gts = collect_predictions(infer_fn, dataset, transform, conf_threshold,
-                                     batch_size, score_sink=score_sink)
+        preds, gts = collect_predictions_pixellink(infer_fn, dataset, transform,
+                                                   conf_threshold, batch_size, img_size, pl_cfg)
+    else:
+        preds, gts = collect_predictions(infer_fn, dataset, transform, conf_threshold,
+                                         batch_size, score_sink=score_sink)
     out = {}
     for t in ap_list:
         out[f"ap{int(round(t * 100))}"] = evaluate_detections(preds, gts, t, "iou",

@@ -168,7 +168,8 @@ class SSD(nn.Module):
         def attn(prefix, t):
             i = counters[prefix]
             counters[prefix] += 1
-            out, scaled, a = getattr(self, f"{prefix}_{i}")(t, return_attn)
+            out, scaled, a = getattr(self, f"{prefix}_{i}")(t, return_attn,
+                                                            remat=cfg.remat_attention)
             if return_attn:
                 aux[prefix].append(a)
             return out, scaled
@@ -177,6 +178,15 @@ class SSD(nn.Module):
             return getattr(self, name)(t) if cfg.use_fuseconv else t
 
         sources: List[torch.Tensor] = []
+        # The JAX SSD runs a bf16 64-channel stem with even sides in its W-pair
+        # packed layout (gssd_tpu/models/ssd.py:143-156, STEM_PACK on by
+        # default), which never reaches the wide-conv gate and has the plain
+        # conv's numbers; vgg_1 and vgg_2 keep the plain conv there, so the
+        # SSD with USE_WIDE_CONV_KERNEL on gives the JAX numbers. The f32 SSD
+        # takes the switch like any ConvBNRelu.
+        packed_stem = (self.dtype == torch.bfloat16 and VGG_STAGE1[:3] == [64, 64, "M"]
+                       and 64 * cfg.feature_scale <= 64
+                       and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0)
         ci = 0
         for v in VGG_STAGE1:
             if v == "M":
@@ -185,7 +195,7 @@ class SSD(nn.Module):
                 x = max_pool(x, 2, 2, ceil_mode=True)
             else:
                 ci += 1
-                x = getattr(self, f"vgg_{ci}")(x)
+                x = getattr(self, f"vgg_{ci}")(x, allow_wide=not (packed_stem and ci <= 2))
 
         attn_g = None
         if cfg.use_self_attention_base:

@@ -7,7 +7,8 @@ on its own into ``gssd_torch/_build/<name>_<source hash>.so``:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o <so> <source>
 
-A changed source gets a new hash and is rebuilt. ``build`` starts one
+A changed source, or a changed shared header (``csrc/*.cuh``), gets a
+new hash and is rebuilt. ``build`` starts one
 nvcc per missing library, all at once, and raises if any fails: there
 is no fallback. The ptxas report (registers, shared memory, spills) is
 kept beside each library as ``<so>.log``.
@@ -22,6 +23,7 @@ through.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -65,8 +67,11 @@ class CudaKernel:
         return os.path.join(CSRC, self.source)
 
     def library_path(self) -> str:
-        with open(self.source_path, "rb") as f:
-            digest = hashlib.sha256(f.read()).hexdigest()[:16]
+        h = hashlib.sha256()
+        for path in [self.source_path] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+            with open(path, "rb") as f:
+                h.update(f.read())
+        digest = h.hexdigest()[:16]
         stem = os.path.splitext(self.source)[0]
         return os.path.join(BUILD_DIR, f"{stem}_{digest}.so")
 

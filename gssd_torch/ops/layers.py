@@ -5,6 +5,14 @@ grouped convs are grouped ``nn.Conv2d`` (the JAX package's
 block-diagonal, pair-mode and W-pair packed lowerings compute the same
 terms and are not ported). Parameters stay f32 and are cast to the
 compute dtype (the dtype of the activations) at each call, as flax does.
+
+``USE_WIDE_CONV_KERNEL`` is the counterpart of the JAX package's
+``USE_PALLAS_WIDE_CONV`` (off by default there and here; a module
+constant in both, set in-process): with it on, ``ConvBNRelu`` sends the
+stem-class sites (3x3 / stride 1 / same, >= 5000 output pixels, at most
+64 channels in and out) through the stem conv kernels
+(``ops/kernels/stem_conv.py``), whose rounding differs from the plain
+grouped conv's.
 """
 
 from __future__ import annotations
@@ -14,8 +22,17 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from gssd_torch.ops.kernels.flash_attn import flash_attention, flash_eligible
+from gssd_torch.ops.kernels.stem_conv import stem_conv
+
+# the wide-conv switch (gssd_tpu/ops/layers.py:279 USE_PALLAS_WIDE_CONV),
+# read at every call
+USE_WIDE_CONV_KERNEL = False
+# the least output pixels of a wide-conv site (gssd_tpu/ops/layers.py
+# DENSE_GROUPS_MIN_HW)
+WIDE_CONV_MIN_HW = 5000
 
 
 def xavier_uniform_(w: torch.Tensor, generator: Optional[torch.Generator]):
@@ -73,7 +90,12 @@ class BatchNorm(nn.BatchNorm2d):
 
 class ConvBNRelu(nn.Module):
     """Grouped conv + optional BatchNorm (in f32, cast back to the
-    compute dtype; see ``BatchNorm``) + optional ReLU."""
+    compute dtype; see ``BatchNorm``) + optional ReLU.
+
+    With ``USE_WIDE_CONV_KERNEL`` on, the conv of a site that passes the
+    JAX package's gate (gssd_tpu/ops/layers.py:490-495, without its
+    TPU-backend test) runs through ``stem_conv``; ``allow_wide=False``
+    keeps a site on the plain conv (the SSD's packed stem)."""
 
     def __init__(self, in_channels: int, features: int, kernel: int = 3,
                  stride: int = 1, padding: int = 0, dilation: int = 1,
@@ -87,10 +109,21 @@ class ConvBNRelu(nn.Module):
         self.bn = BatchNorm(features) if use_bn else None
         self.relu = relu
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def wide(self, x: torch.Tensor) -> bool:
+        """Whether the wide-conv switch takes this call."""
         c = self.conv
-        x = F.conv2d(x, c.weight.to(x.dtype), c.bias.to(x.dtype), c.stride,
-                     c.padding, c.dilation, c.groups)
+        h, w = x.shape[2], x.shape[3]
+        return (USE_WIDE_CONV_KERNEL and c.kernel_size == (3, 3) and c.stride == (1, 1)
+                and c.dilation == (1, 1) and c.padding == (1, 1) and h * w >= WIDE_CONV_MIN_HW
+                and c.in_channels <= 64 and c.out_channels <= 64 and h > 4)
+
+    def forward(self, x: torch.Tensor, allow_wide: bool = True) -> torch.Tensor:
+        c = self.conv
+        if allow_wide and self.wide(x):
+            x = stem_conv(x, c.weight, c.bias, c.groups)
+        else:
+            x = F.conv2d(x, c.weight.to(x.dtype), c.bias.to(x.dtype), c.stride,
+                         c.padding, c.dilation, c.groups)
         if self.bn is not None:
             x = self.bn(x.float()).to(x.dtype)
         return F.relu(x) if self.relu else x
@@ -134,18 +167,25 @@ class SNDense(nn.Module):
         self.register_buffer("u", u / (u.norm() + self.eps))
         self.register_buffer("v", v / (v.norm() + self.eps))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        u, v = self.u, self.v
-        if self.training:
-            with torch.no_grad():
-                w = self.kernel.t()
-                v = w.t() @ u
-                v = v / (v.norm() + self.eps)
-                u = w @ v
-                u = u / (u.norm() + self.eps)
-                # the buffers get copies: the graph below reads u and v
-                self.u.copy_(u)
-                self.v.copy_(v)
+    @torch.no_grad()
+    def power_iteration(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One power-iteration step from the stored vectors; stores the
+        new u, v and returns copies of them."""
+        w = self.kernel.t()
+        v = w.t() @ self.u
+        v = v / (v.norm() + self.eps)
+        u = w @ v
+        u = u / (u.norm() + self.eps)
+        # the buffers get copies: the graph below reads u and v
+        self.u.copy_(u)
+        self.v.copy_(v)
+        return u, v
+
+    def forward(self, x: torch.Tensor, update: Optional[bool] = None) -> torch.Tensor:
+        """``update`` (default: train mode) runs ``power_iteration`` first;
+        without it sigma comes from the stored vectors."""
+        update = self.training if update is None else update
+        u, v = self.power_iteration() if update else (self.u, self.v)
         sigma = torch.dot(u, self.kernel.t() @ v)
         w_sn = (self.kernel / sigma).to(x.dtype)
         return x @ w_sn + self.bias.to(x.dtype)
@@ -160,6 +200,14 @@ class SelfAttention(nn.Module):
     (x + sigma * attn_g, sigma * attn_g, attn) where the attention map
     ``attn`` [B, N, M] is built only when ``return_attn`` is set (else
     None). bf16 activations go through the fused flash kernel.
+
+    ``remat`` (flax's ``nn.remat``): while gradients are recorded, the
+    block runs under ``torch.utils.checkpoint`` and is recomputed in the
+    backward instead of keeping its activations. The train-mode power
+    iterations of its four SNDense run once, before the checkpointed
+    part, which reads the stored vectors, so the recompute forms sigma
+    from the same u, v as the forward and the buffers are written once,
+    as flax commits the ``spectral`` update once.
     """
 
     def __init__(self, channels: int, max_pool_factor: int = 1,
@@ -173,15 +221,24 @@ class SelfAttention(nn.Module):
         self.out = SNDense(c // 2, c, generator)
         self.sigma = nn.Parameter(torch.zeros(1))
 
-    def forward(self, x: torch.Tensor, return_attn: bool = False
+    def forward(self, x: torch.Tensor, return_attn: bool = False, remat: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+        if not (remat and torch.is_grad_enabled()):
+            return self._attend(x, return_attn, self.training)
+        if self.training:
+            for mod in (self.theta, self.phi, self.g, self.out):
+                mod.power_iteration()
+        return checkpoint(self._attend, x, return_attn, False, use_reentrant=False)
+
+    def _attend(self, x: torch.Tensor, return_attn: bool, update: bool
                 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
         b, c, h, w = x.shape
         pool = max(h // self.max_pool_factor, 1)
         tokens = x.flatten(2).transpose(1, 2)  # [B, N, C]
-        q = self.theta(tokens)
+        q = self.theta(tokens, update)
 
         def pooled(mod):
-            t = mod(tokens).transpose(1, 2).reshape(b, -1, h, w)
+            t = mod(tokens, update).transpose(1, 2).reshape(b, -1, h, w)
             return adaptive_avg_pool(t, pool).flatten(2).transpose(1, 2)
 
         k, v = pooled(self.phi), pooled(self.g)  # [B, M, C/8], [B, M, C/2]
@@ -193,6 +250,6 @@ class SelfAttention(nn.Module):
             attn_g = flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
         else:
             attn_g = torch.matmul(attn, v)
-        attn_g = self.out(attn_g).transpose(1, 2).reshape(b, c, h, w)
+        attn_g = self.out(attn_g, update).transpose(1, 2).reshape(b, c, h, w)
         scaled = self.sigma.to(x.dtype) * attn_g
         return x + scaled, scaled, attn

@@ -9,6 +9,9 @@ keys, leaves as numpy arrays) onto the port's ``state_dict`` names:
   ``loc_i``/``conf_i``) -> ``.weight`` OIHW;
 - ``BatchNorm_0`` ``scale``/``bias`` and ``mean``/``var`` ->
   ``bn.weight``/``bn.bias`` and ``bn.running_mean``/``bn.running_var``;
+  so do PixelLink's ``bn_fuse_<i>`` BatchNorms, under their own name;
+- PixelLink's 1x1 convs (``fuse_<i>``, ``out<i>_1/2``, ``final_1/2``)
+  ``kernel`` HWIO -> ``.weight`` OIHW;
 - SNDense ``kernel`` [in, out], ``bias`` and ``spectral`` ``u``/``v``
   keep their names; so do attention ``sigma``, DCN ``weight`` [K, C,
   Cout] / ``bias`` and ``l2norm/weight``.
@@ -40,8 +43,9 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, Any]:
 
 
 def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """flax variables of ``gssd_tpu.models.SSD`` -> state_dict of
-    ``gssd_torch.models.SSD`` (f32 tensors on the CPU)."""
+    """flax variables of ``gssd_tpu.models.SSD`` or ``PixelLink`` ->
+    state_dict of the port's model of the same name (f32 tensors on the
+    CPU)."""
     sd: Dict[str, torch.Tensor] = {}
     for key, val in _flatten(variables).items():
         col, *path, leaf = key.split("/")
@@ -52,7 +56,8 @@ def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
                 name, arr = "weight", arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
             elif leaf == "kernel" and arr.ndim == 2:
                 name = "kernel"  # SNDense keeps the flax [in, out] layout
-            elif leaf == "scale" and mods[-1:] == ["bn"]:
+            elif leaf == "scale" and mods and (mods[-1] == "bn"
+                                               or mods[-1].startswith("bn_fuse_")):
                 name = "weight"
             elif leaf in ("bias", "weight", "sigma"):
                 name = leaf

@@ -9,7 +9,13 @@ separate so that a caller can time them one by one.
 
 A batch is a dict of device tensors: ``image`` [B, H, W, 12] f32,
 ``boxes`` [B, G, 4] point form, ``labels`` [B, G] int, ``valid`` [B, G]
-bool.
+bool; a PixelLink batch also holds the target maps ``pixel_mask``,
+``neg_pixel_mask``, ``pixel_pos_weight`` and ``link_mask``.
+
+The PixelLink steps (``pixellink_train_step``, ``pixellink_eval_step``,
+``make_pixellink_forward``) are those of the JAX package's
+``make_pixellink_train_step`` and friends: the 2:1 weighted pixel and link
+loss in place of MultiBox, the same backward and SGD update.
 """
 
 from __future__ import annotations
@@ -18,8 +24,9 @@ from typing import Callable, Dict, List, Tuple
 
 import torch
 
-from gssd_torch.config import DetectConfig, LossConfig, OptimConfig
+from gssd_torch.config import DetectConfig, LossConfig, OptimConfig, PixelLinkConfig
 from gssd_torch.ops.losses import multibox_loss
+from gssd_torch.ops.pixellink_loss import pixellink_loss
 from gssd_torch.ops.nms import detect
 from gssd_torch.train.optim import clip_by_global_norm_, global_norm, set_lr
 
@@ -97,3 +104,52 @@ def make_infer_step(model, priors: torch.Tensor, detect_cfg: DetectConfig) -> Ca
             return detect(out["loc"], conf, priors, detect_cfg)
 
     return infer_step
+
+
+PIXELLINK_TARGETS = ("pixel_mask", "neg_pixel_mask", "pixel_pos_weight", "link_mask")
+
+
+def pixellink_forward_loss(model, batch: Dict[str, torch.Tensor], plc: PixelLinkConfig
+                           ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Forward in the model's current mode plus the weighted pixel and
+    link loss -> (loss, {"pixel_loss", "link_loss"})."""
+    out = model(batch["image"])
+    return pixellink_loss(out["pixel"], out["link"], {k: batch[k] for k in PIXELLINK_TARGETS},
+                          pixel_weight=plc.pixel_weight, link_weight=plc.link_weight,
+                          neg_pos_ratio=plc.neg_pos_ratio)
+
+
+def pixellink_train_step(model, optimizer, batch, plc: PixelLinkConfig,
+                         optim_cfg: OptimConfig, step: int) -> Dict[str, torch.Tensor]:
+    """One PixelLink step; returns loss, pixel_loss, link_loss, grad_norm
+    (device scalars) and lr (float)."""
+    model.train()
+    loss, parts = pixellink_forward_loss(model, batch, plc)
+    grads = backward(model, optimizer, loss)
+    norm, lr = update(optimizer, grads, optim_cfg, step)
+    return {"loss": loss.detach(), **{k: v.detach() for k, v in parts.items()},
+            "grad_norm": norm, "lr": lr}
+
+
+def pixellink_eval_step(model, batch, plc: PixelLinkConfig) -> Dict[str, torch.Tensor]:
+    """Validation loss: eval-mode forward plus the same weighted loss."""
+    model.eval()
+    with torch.no_grad():
+        loss, parts = pixellink_forward_loss(model, batch, plc)
+    return {"loss": loss, **parts}
+
+
+def make_pixellink_forward(model, device) -> Callable:
+    """Eval-mode forward: a [B, H, W, 12] float batch (numpy or tensor)
+    -> (pixel [B, h, w, 2], link [B, h, w, 16]) f32 logits on the host,
+    for ``mask_to_boxes``."""
+
+    def forward(images):
+        if not torch.is_tensor(images):
+            images = torch.from_numpy(images)
+        model.eval()
+        with torch.inference_mode():
+            out = model(images.to(device))
+            return out["pixel"].cpu().numpy(), out["link"].cpu().numpy()
+
+    return forward

@@ -15,6 +15,10 @@ the updated weights, synchronised) and the time spent waiting for the
 batch. Logs go to ``<output>/logs/<model_name>/`` (tab-separated text;
 TensorBoard too where it imports).
 
+``prepare`` (device, data split, logs) and ``run`` (the loop,
+evaluation, checkpoints, resume, test mode) are shared with the
+PixelLink++ trainer, ``gssd_torch.train_pixellink``.
+
 Runs on the GPU (``--device cuda``, the default) and refuses to start
 without one unless ``--device cpu`` is given. Cross-validation folds,
 the multi-process loader, device augmentation and ``--visualize`` are
@@ -28,11 +32,12 @@ Example (GSSD++ on synthetic data):
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
 import time
-from typing import Any, Dict
+from typing import Any, Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -78,6 +83,8 @@ def build_parser():
                    choices=["bfloat16", "float32"])
     p.add_argument("--dcn_impl", default="hat",
                    choices=["xla", "pallas", "fused", "hat"])
+    p.add_argument("--remat_attention", default=False, type=str2bool,
+                   help="recompute the attention blocks in the backward")
     # optimization (defaults: the published recipe)
     p.add_argument("--batch_size", default=32, type=int)
     p.add_argument("--lr", "--learning-rate", default=1e-3, type=float)
@@ -137,7 +144,7 @@ def parse_args(argv=None):
 def _refuse(args) -> None:
     todo = {
         "--cross_validation > 1": args.cross_validation > 1,
-        "--aug_method device*": args.aug_method.startswith("device"),
+        "--aug_method device*": getattr(args, "aug_method", "host").startswith("device"),
         "--num_workers > 1 (the multi-process loader)": args.num_workers > 1,
         "--visualize": args.visualize,
     }
@@ -145,7 +152,7 @@ def _refuse(args) -> None:
     if asked:
         raise NotImplementedError(
             f"{', '.join(asked)}: not ported to gssd_torch yet (see ROADMAP.md, "
-            "Queue A); use the JAX trainer train.py")
+            "Queue A); use the JAX trainer")
     if args.test and args.checkpoint is None:
         raise ValueError("--test requires --checkpoint")
 
@@ -164,33 +171,37 @@ def model_config(args) -> ModelConfig:
         num_dcn_layers=args.num_dcn_layers, groups_dcn=args.groups_dcn,
         dcn_cat_sab=args.dcn_cat_sab, detach_sab=args.detach_sab,
         max_pool_factor=args.max_pool_factor, compute_dtype=args.compute_dtype,
-        dcn_impl=args.dcn_impl)
+        dcn_impl=args.dcn_impl, remat_attention=args.remat_attention)
 
 
 def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
 
-def main(argv=None) -> Dict[str, Any]:
-    """Train (or, with --test, evaluate a checkpoint). Returns {"records":
-    one dict per iteration, "valid": the validation losses, "evals": per
-    evaluation the iteration, the valid and test AP/IoBB and the
-    checkpoint, "median_step_ms": median ms/step after the first step,
-    "weights": the last checkpoint written (None if none), "step": SGD
-    steps taken in all, "model", "optimizer"}; with --test, {"test": the
-    AP/IoBB of the checkpoint}."""
-    args = parse_args(argv)
+@dataclasses.dataclass
+class Setup:
+    """What every trainer of the port builds before its model: the device,
+    the logger, the data split and the evaluation sets."""
+
+    device: torch.device
+    logger: Any
+    splitter: Any
+    base_tf: Any
+    valid_set: Any
+    test_set: Any
+    ckpt_dir: str
+    ap_list: List[float]
+    iobb_list: List[float]
+
+
+def prepare(args) -> Setup:
+    """Refuse what is not ported, resolve the device (no card, no run
+    unless --device cpu), generate the synthetic set if asked, open the
+    logs and split the data (one fold)."""
     _refuse(args)
     device = resolve_device(args.device)
-
-    from gssd_torch.data import (BaseTransform, BatchLoader, DataSplitter,
-                                 LesionDataset, SSDAugmentation, make_synthetic_dataset)
-    from gssd_torch.eval import run_detection_eval
-    from gssd_torch.models import build_model
-    from gssd_torch.train.checkpoint import (checkpoint_path, load_weights_partial,
-                                             restore_checkpoint, save_checkpoint)
-    from gssd_torch.train.optim import make_optimizer
-    from gssd_torch.train.steps import eval_step, make_infer_step, train_step
+    from gssd_torch.data import (BaseTransform, DataSplitter, LesionDataset,
+                                 make_synthetic_dataset)
     from gssd_torch.utils.logging import MetricsLogger
 
     if args.synthetic and not args.datapath:
@@ -198,66 +209,62 @@ def main(argv=None) -> Dict[str, Any]:
     if args.synthetic and not os.path.exists(os.path.join(args.datapath, "metadata.txt")):
         print(f"generating synthetic dataset at {args.datapath}")
         make_synthetic_dataset(args.datapath)
-
-    ap_list, iobb_list = _floats(args.ap_list), _floats(args.iobb_list)
     logger = MetricsLogger(os.path.join(args.output, "logs", args.model_name))
     logger.log_args(vars(args))
-
-    model, priors = build_model(model_config(args), device="cpu", seed=args.seed)
-    model = model.to(device)
-    priors_t = torch.tensor(priors, device=device)
-    loss_cfg = LossConfig(num_classes=args.num_classes, overlap_thresh=args.jaccard_threshold,
-                          neg_pos_ratio=args.ohnm_neg_ratio, max_gt_boxes=args.max_gt)
-    optim_cfg = OptimConfig(lr=args.lr, momentum=args.momentum,
-                            weight_decay=args.weight_decay, gamma=args.gamma,
-                            stepvalues=tuple(args.stepvalues), clip=args.clip,
-                            modify_dcn_lr=args.modify_dcn_lr)
-    optimizer = make_optimizer(model, optim_cfg)
-    infer_step = make_infer_step(model, priors_t, DetectConfig(num_classes=args.num_classes))
-
     splitter = DataSplitter(args.datapath, args.cross_validation, args.num_test_subjects)
-    base_tf = BaseTransform(args.ssd_dim, args.means, args.p_only, args.use_normalize)
-    test_set = LesionDataset(args.datapath, splitter.data_test)
-    valid_set = LesionDataset(args.datapath, splitter.data_cv_eval[0])
-    ckpt_dir = os.path.join(args.output, "checkpoints")
+    return Setup(device, logger, splitter,
+                 BaseTransform(args.ssd_dim, args.means, args.p_only, args.use_normalize),
+                 LesionDataset(args.datapath, splitter.data_cv_eval[0]),
+                 LesionDataset(args.datapath, splitter.data_test),
+                 os.path.join(args.output, "checkpoints"),
+                 _floats(args.ap_list), _floats(args.iobb_list))
 
-    def eval_ap(dataset, tag, iteration):
-        sink: Dict[str, np.ndarray] = {}
-        res = run_detection_eval(
-            lambda batch: infer_step(batch).cpu().numpy(), dataset, base_tf, ap_list,
-            iobb_list, args.confidence_threshold, args.use_07_metric, args.eval_batch,
-            score_sink=sink)
-        logger.log_scalars(tag, iteration, res, file="test")
-        logger.log_histogram(f"{tag}/scores_raw", iteration, sink["raw"])
-        logger.log_histogram(f"{tag}/scores_filtered", iteration, sink["filtered"])
-        return res
 
+def run(args, setup: Setup, model, optimizer, train_fn: Callable, valid_fn: Callable,
+        evaluate: Callable, train_tf, valid_tf, collate_fn: Callable,
+        parts: Tuple[Tuple[str, str], ...]) -> Dict[str, Any]:
+    """The loop every trainer of the port shares, or with --test the
+    evaluation of a checkpoint.
+
+    ``train_fn(batch, step)`` takes one SGD step and returns its metrics
+    (device scalars, "lr" a float); ``valid_fn(batch)`` the validation
+    losses; ``evaluate(dataset, tag, iteration)`` the AP/IoBB dict, logged;
+    ``train_tf`` and ``valid_tf`` are the transforms of the training and
+    validation-loss loaders, ``collate_fn`` stacks their items; ``parts``
+    names the loss parts to print as (label, key)."""
+    from gssd_torch.data import BatchLoader, LesionDataset
+    from gssd_torch.train.checkpoint import (checkpoint_path, load_weights_partial,
+                                             restore_checkpoint, save_checkpoint)
+
+    device, logger, ckpt_dir = setup.device, setup.logger, setup.ckpt_dir
     if args.test:
         load_weights_partial(model, checkpoint_path(ckpt_dir, args.model_name,
                                                     args.checkpoint, 0))
-        res = eval_ap(test_set, "test_ap_cv0", args.checkpoint)
+        res = evaluate(setup.test_set, "test_ap_cv0", args.checkpoint)
         print(f"[fold 0] {res}")
         print("test mean over folds:", json.dumps(res), flush=True)
         logger.close()
         return {"test": res}
 
-    step, start_iter = 0, args.start_iter
+    step, start_iter = 0, getattr(args, "start_iter", 0)
     if args.resume is not None:
         step = restore_checkpoint(model, optimizer, ckpt_dir, args.model_name, args.resume, 0)
         start_iter = args.resume
         print(f"resumed from iteration {args.resume} (step {step})")
 
-    aug = SSDAugmentation(pixeljitter=args.gt_pixel_jitter, ratio=args.expand_ratio,
-                          size=args.ssd_dim, mean=args.means,
-                          use_normalize=args.use_normalize, p_only=args.p_only,
-                          seed=args.seed)
-    train_set = LesionDataset(args.datapath, splitter.data_cv_train[0], transform=aug,
+    train_set = LesionDataset(args.datapath, setup.splitter.data_cv_train[0], transform=train_tf,
                               load_to_ram=args.load_data_to_ram)
-    loaders = [BatchLoader(train_set, args.batch_size, args.max_gt, seed=args.seed),
-               BatchLoader(LesionDataset(args.datapath, splitter.data_cv_eval[0],
-                                         transform=base_tf),
-                           args.batch_size, args.max_gt, seed=args.seed + 100)]
+    loaders = [BatchLoader(train_set, args.batch_size, args.max_gt, seed=args.seed,
+                           collate_fn=collate_fn),
+               BatchLoader(LesionDataset(args.datapath, setup.splitter.data_cv_eval[0],
+                                         transform=valid_tf),
+                           args.batch_size, args.max_gt, seed=args.seed + 100,
+                           collate_fn=collate_fn)]
     loader, valid_loader = map(iter, loaders)
+
+    def split(rec):
+        return " ".join(f"{label}={rec[key]:.4f}" for label, key in parts)
+
     records, valid, evals = [], [], []
     try:
         for it in range(start_iter, args.max_iter):
@@ -266,7 +273,7 @@ def main(argv=None) -> Dict[str, Any]:
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             t1 = time.perf_counter()
-            m = train_step(model, optimizer, priors_t, batch, loss_cfg, optim_cfg, step)
+            m = train_fn(batch, step)
             step += 1
             rec = {"iter": it, **{k: (v if isinstance(v, float) else float(v.item()))
                                   for k, v in m.items()}}
@@ -275,23 +282,21 @@ def main(argv=None) -> Dict[str, Any]:
             rec["ms"] = (time.perf_counter() - t1) * 1e3
             rec["wait_ms"] = (t1 - t0) * 1e3
             records.append(rec)
-            print(f"iter {it}: loss={rec['loss']:.4f} (l={rec['loss_l']:.4f} "
-                  f"c={rec['loss_c']:.4f}) lr={rec['lr']:.2e} {rec['ms']:.1f} ms/step "
-                  f"input_wait={rec['wait_ms']:.1f} ms", flush=True)
-            if args.log_iters and it % 10 == 0:
-                logger.log_scalars("loss", it, {k: rec[k] for k in ("loss", "loss_l", "loss_c",
-                                                                     "lr", "grad_norm")})
+            print(f"iter {it}: loss={rec['loss']:.4f} ({split(rec)}) lr={rec['lr']:.2e} "
+                  f"{rec['ms']:.1f} ms/step input_wait={rec['wait_ms']:.1f} ms", flush=True)
+            if getattr(args, "log_iters", True) and it % 10 == 0:
+                keys = ("loss", *(key for _, key in parts), "lr", "grad_norm")
+                logger.log_scalars("loss", it, {k: rec[k] for k in keys})
 
             last = it == args.max_iter - 1
             if ((it % args.val_every == 0 and it > start_iter) or last) and it >= args.speedrun:
-                vm = eval_step(model, priors_t, to_device(next(valid_loader), device), loss_cfg)
+                vm = valid_fn(to_device(next(valid_loader), device))
                 vrec = {k: float(v.item()) for k, v in vm.items()}
                 valid.append({"iter": it, **vrec})
                 logger.log_scalars("eval_loss", it, vrec, file="valid")
-                print(f"iter {it} valid: loss={vrec['loss']:.4f} (l={vrec['loss_l']:.4f} "
-                      f"c={vrec['loss_c']:.4f})", flush=True)
-                res_v = eval_ap(valid_set, "eval_ap_cv0", it)
-                res_t = eval_ap(test_set, "test_ap_cv0", it)
+                print(f"iter {it} valid: loss={vrec['loss']:.4f} ({split(vrec)})", flush=True)
+                res_v = evaluate(setup.valid_set, "eval_ap_cv0", it)
+                res_t = evaluate(setup.test_set, "test_ap_cv0", it)
                 path = save_checkpoint(model, optimizer, step, ckpt_dir, args.model_name, it, 0)
                 logger.log_scalars("eval_ap", it, res_v, file="valid")
                 logger.log_scalars("test_ap", it, res_t, file="test")
@@ -312,3 +317,55 @@ def main(argv=None) -> Dict[str, Any]:
     return {"records": records, "valid": valid, "evals": evals, "median_step_ms": median,
             "weights": evals[-1]["checkpoint"] if evals else None, "step": step,
             "model": model, "optimizer": optimizer}
+
+
+def main(argv=None) -> Dict[str, Any]:
+    """Train (or, with --test, evaluate a checkpoint). Returns {"records":
+    one dict per iteration, "valid": the validation losses, "evals": per
+    evaluation the iteration, the valid and test AP/IoBB and the
+    checkpoint, "median_step_ms": median ms/step after the first step,
+    "weights": the last checkpoint written (None if none), "step": SGD
+    steps taken in all, "model", "optimizer"}; with --test, {"test": the
+    AP/IoBB of the checkpoint}."""
+    args = parse_args(argv)
+    setup = prepare(args)
+
+    from gssd_torch.data import SSDAugmentation, collate
+    from gssd_torch.eval import run_detection_eval
+    from gssd_torch.models import build_model
+    from gssd_torch.train.optim import make_optimizer
+    from gssd_torch.train.steps import eval_step, make_infer_step, train_step
+
+    device, logger = setup.device, setup.logger
+    model, priors = build_model(model_config(args), device="cpu", seed=args.seed)
+    model = model.to(device)
+    priors_t = torch.tensor(priors, device=device)
+    loss_cfg = LossConfig(num_classes=args.num_classes, overlap_thresh=args.jaccard_threshold,
+                          neg_pos_ratio=args.ohnm_neg_ratio, max_gt_boxes=args.max_gt)
+    optim_cfg = OptimConfig(lr=args.lr, momentum=args.momentum,
+                            weight_decay=args.weight_decay, gamma=args.gamma,
+                            stepvalues=tuple(args.stepvalues), clip=args.clip,
+                            modify_dcn_lr=args.modify_dcn_lr)
+    optimizer = make_optimizer(model, optim_cfg)
+    infer_step = make_infer_step(model, priors_t, DetectConfig(num_classes=args.num_classes))
+
+    def evaluate(dataset, tag, iteration):
+        sink: Dict[str, np.ndarray] = {}
+        res = run_detection_eval(
+            lambda batch: infer_step(batch).cpu().numpy(), dataset, setup.base_tf,
+            setup.ap_list, setup.iobb_list, args.confidence_threshold, args.use_07_metric,
+            args.eval_batch, score_sink=sink)
+        logger.log_scalars(tag, iteration, res, file="test")
+        logger.log_histogram(f"{tag}/scores_raw", iteration, sink["raw"])
+        logger.log_histogram(f"{tag}/scores_filtered", iteration, sink["filtered"])
+        return res
+
+    aug = SSDAugmentation(pixeljitter=args.gt_pixel_jitter, ratio=args.expand_ratio,
+                          size=args.ssd_dim, mean=args.means,
+                          use_normalize=args.use_normalize, p_only=args.p_only,
+                          seed=args.seed)
+    return run(args, setup, model, optimizer,
+               lambda batch, step: train_step(model, optimizer, priors_t, batch, loss_cfg,
+                                              optim_cfg, step),
+               lambda batch: eval_step(model, priors_t, batch, loss_cfg),
+               evaluate, aug, setup.base_tf, collate, (("l", "loss_l"), ("c", "loss_c")))

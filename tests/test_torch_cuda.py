@@ -12,6 +12,7 @@ import torch
 from gssd_torch.ops.kernels import deform_hat as dh
 from gssd_torch.ops.kernels import deform_sample as ds
 from gssd_torch.ops.kernels import flash_attn as fa
+from gssd_torch.ops.kernels import stem_conv as sc
 
 pytestmark = pytest.mark.cuda
 
@@ -192,3 +193,70 @@ def test_dcn_routes_go_through_the_sample_kernels(gen, impl):
     want = [9, 9, 9] if impl == "pallas" else [0, 9, 0]
     assert [k.launches - n for k, n in zip(kernels, before)] == want
     assert all(torch.isfinite(t.grad).all() for t in (x, oy, ox, mk, w, b))
+
+
+# chip_smoke.py's limits for the stem kernels: bf16 outputs within one
+# ulp of the plain version (at the element's magnitude, or at max / 256
+# for smaller ones: near-cancelling sums carry their large terms' f32
+# order noise), with at most STEM_DIFF_SHARE of the elements differing
+# (the same roundings, f32 sums in another order); f32 outputs and dW
+# within STEM_DW_TOL of max |plain|
+STEM_ULP_MAX = 1
+STEM_DIFF_SHARE = 2e-4
+STEM_DW_TOL = 2e-5
+
+
+def _bf16_ulp_err(got, want):
+    g, w = got.float(), want.float()
+    scale = torch.maximum(w.abs(), w.abs().max() / 256).clamp(min=1e-30)
+    return (g - w).abs() / torch.exp2(torch.floor(torch.log2(scale)) - 7)
+
+
+@pytest.mark.parametrize("B,Cin,Cout,G,H,W,dtype", [
+    (2, 12, 24, 4, 23, 37, torch.bfloat16),    # ragged tiles, 6 channels a group out
+    (1, 64, 64, 1, 9, 70, torch.bfloat16),     # one group of 64: channel chunks
+    (2, 8, 16, 2, 33, 65, torch.float32),      # an f32 model: f32 weights and outputs
+    (16, 64, 64, 4, 300, 300, torch.bfloat16),  # conv1_2 of PixelLink++ at batch 16
+])
+def test_stem_conv_kernels_match_plain(gen, monkeypatch, B, Cin, Cout, G, H, W, dtype):
+    # the plain versions are f32 cuDNN convs: full f32, as chip_smoke.py sets it
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    x = torch.rand(B, Cin, H, W, device="cuda", generator=gen).to(dtype)
+    w = torch.randn(Cout, Cin // G, 3, 3, device="cuda", generator=gen) / (3 * Cin / G) ** 0.5
+    b = torch.randn(Cout, device="cuda", generator=gen) * 0.5
+    g = torch.randn(B, Cout, H, W, device="cuda", generator=gen).to(dtype)
+    before = (sc.FWD_KERNEL.launches, sc.BWD_KERNEL.launches)
+    y = sc.stem_conv_fwd(x, w.to(dtype), b, G)
+    dx, dw = sc.stem_conv_bwd(x, w, g, G)
+    _, dw_only = sc.stem_conv_bwd(x, w, g, G, need_dx=False)
+    torch.cuda.synchronize()
+    assert (sc.FWD_KERNEL.launches, sc.BWD_KERNEL.launches) == (before[0] + 1, before[1] + 2)
+    yp = sc.stem_conv_fwd_plain(x, w.to(dtype), b, G)
+    dxp, dwp = sc.stem_conv_bwd_plain(x, w, g, G)
+    # the share limit was read at 144 summed terms (conv1_2: 16 channels x 9
+    # taps); the order noise, and with it the share of flipped roundings,
+    # grows with the number of terms
+    limit = STEM_DIFF_SHARE * max(1.0, 9 * Cin / G / 144)
+    for name, got, want in (("y", y, yp), ("dx", dx, dxp)):
+        assert got.dtype == want.dtype == dtype and got.shape == want.shape
+        if dtype == torch.bfloat16:
+            ulp, share = _bf16_ulp_err(got, want).max(), (got != want).float().mean()
+            assert ulp <= STEM_ULP_MAX and share <= limit, (name, ulp.item(), share.item())
+        else:
+            assert _rel_err(got, want) <= STEM_DW_TOL, (name, _rel_err(got, want))
+    assert dw.dtype == torch.float32 and torch.equal(dw, dw_only)
+    assert _rel_err(dw, dwp) <= STEM_DW_TOL, _rel_err(dw, dwp)
+
+
+def test_stem_conv_wrappers_reject_bad_inputs(gen):
+    x = torch.rand(1, 12, 16, 16, device="cuda", generator=gen).bfloat16()
+    w = torch.randn(16, 3, 3, 3, device="cuda", generator=gen).bfloat16()
+    b = torch.zeros(16, device="cuda")
+    with pytest.raises(TypeError):
+        sc.stem_conv_fwd(x, w.float(), b, 4)
+    with pytest.raises(ValueError):
+        sc.stem_conv_fwd(x.transpose(2, 3), w, b, 4)
+    odd = torch.empty(x.numel() + 1, dtype=x.dtype, device="cuda")[1:].view(x.shape)
+    odd.copy_(x)  # contiguous, 2 bytes off alignment
+    with pytest.raises(ValueError, match="aligned"):
+        sc.stem_conv_fwd(odd, w, b, 4)

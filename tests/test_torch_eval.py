@@ -93,6 +93,39 @@ def test_run_detection_eval_matches_jax(tmp_path):
     assert any(v > 0 for v in got.values())
     for key in ("raw", "filtered"):
         np.testing.assert_array_equal(got_sink[key], want_sink[key])
-    with pytest.raises(NotImplementedError, match="PixelLink"):
-        teval.run_detection_eval(stub, LesionDataset(data, ids), BaseTransform(64),
-                                 use_pixel_link=True)
+
+    # the PixelLink path: logit maps decoded on the host, as gssd_tpu does
+    # (the maps hold one rectangle per image, so the boxes agree exactly)
+    maps = []
+    for k in range(7):
+        pix = np.full((16, 16, 2), [4.0, -4.0])
+        lnk = np.tile([4.0, -4.0], (16, 16, 8))
+        y, x = 2 + k, 3 + (k % 4)
+        pix[y:y + 6, x:x + 5] = [-4.0, 4.0 - 0.3 * k]
+        lnk[y:y + 6, x:x + 5] = np.tile([-4.0, 4.0], 8)
+        maps.append((pix.astype(np.float32), lnk.astype(np.float32)))
+
+    def forward(batch):
+        pix, lnk = [], []
+        for img in batch:
+            if img.any():
+                p, q = maps[len(calls)]
+                calls.append(True)
+            else:
+                p, q = maps[0]
+            pix.append(p)
+            lnk.append(q)
+        return np.stack(pix), np.stack(lnk)
+
+    results = []
+    for ds_cls, tf_cls, mod in ((JaxLesionDataset, JaxBaseTransform, jeval),
+                                (LesionDataset, BaseTransform, teval)):
+        calls.clear()
+        results.append(mod.run_detection_eval(
+            forward, ds_cls(data, ids), tf_cls(64), (0.3, 0.5), (0.3,), 0.2, False, 3,
+            use_pixel_link=True, img_size=64))
+        assert len(calls) == 7
+    want, got = results
+    assert set(got) == {"ap30", "ap50", "iobb30"}
+    for key in want:
+        assert got[key] == pytest.approx(want[key], abs=1e-12), key

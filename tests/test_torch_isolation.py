@@ -44,7 +44,10 @@ def test_imports_with_jax_blocked():
         "import gssd_torch.ops.matcher, gssd_torch.data.augment\n"
         "import gssd_torch.eval, gssd_torch.eval.ap_iobb, gssd_torch.train.checkpoint\n"
         "import gssd_torch.utils.logging, gssd_torch.ops.deform_fused\n"
-        "import gssd_torch.ops.kernels.deform_sample\n"
+        "import gssd_torch.ops.kernels.deform_sample, gssd_torch.ops.kernels.stem_conv\n"
+        "import gssd_torch.train_pixellink, gssd_torch.models.pixellink\n"
+        "import gssd_torch.eval.pixellink_decode, gssd_torch.ops.pixellink_loss\n"
+        "import gssd_torch.data.pixellink_targets\n"
         "loaded = [m for m in sys.modules if m.split('.')[0] in "
         f"{BLOCKED!r} and sys.modules[m] is not None]\n"
         "assert not loaded, loaded\n"
@@ -68,15 +71,23 @@ def test_default_device_refuses_cpu(monkeypatch, tmp_path):
         build_model(ModelConfig())
 
 
-def test_trainer_module_refuses_without_card(tmp_path):
-    # python -m gssd_torch.train defaults to --device cuda: no card, no run
+def _refuses_without_card(module, out):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
-    res = subprocess.run([sys.executable, "-m", "gssd_torch.train", "--max_iter", "1",
-                          "--output", str(tmp_path)], cwd=ROOT, env=env,
+    res = subprocess.run([sys.executable, "-m", module, "--max_iter", "1",
+                          "--output", str(out)], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode != 0
     assert "CUDA is not available" in res.stderr
-    assert not list(tmp_path.iterdir())  # nothing generated or trained
+    assert not list(out.iterdir())  # nothing generated or trained
+
+
+def test_trainer_module_refuses_without_card(tmp_path):
+    # python -m gssd_torch.train defaults to --device cuda: no card, no run
+    _refuses_without_card("gssd_torch.train", tmp_path)
+
+
+def test_pixellink_trainer_module_refuses_without_card(tmp_path):
+    _refuses_without_card("gssd_torch.train_pixellink", tmp_path)
 
 
 def test_chip_smoke_refuses_without_card(tmp_path):

@@ -153,3 +153,33 @@ def test_trainer_refuses_what_is_not_ported(flag):
 
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         main(["--device", "cpu", *flag])
+
+
+def test_remat_attention_step_equals_plain_step():
+    """--remat_attention recomputes each attention block in the backward;
+    its spectral power iterations run once, before the checkpointed part.
+    One full-width GSSD++ step (f32, batch 1) with it on and off gives
+    the same loss, gradients, BN statistics and u/v, bit for bit."""
+    from gssd_torch.train.trainer import model_config, parse_args
+
+    assert model_config(parse_args(["--remat_attention", "True"])).remat_attention
+    assert not model_config(parse_args([])).remat_attention
+    batch = {k: torch.from_numpy(v) for k, v in _batch(np.random.default_rng(8)).items()}
+    runs = []
+    for remat in (True, False):
+        model, priors = build_model(ModelConfig(**GSSD_PP, remat_attention=remat),
+                                    device="cpu", seed=3)
+        with torch.no_grad():  # sigma != 0: the attention reaches the loss
+            for name, p in model.named_parameters():
+                if name.endswith("sigma"):
+                    p.fill_(0.5)
+        opt = make_optimizer(model, OptimConfig(**OPTIM))
+        m = train_step(model, opt, torch.from_numpy(priors), batch, LossConfig(),
+                       OptimConfig(**OPTIM), 0)
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        runs.append((m, grads, model.state_dict()))
+    (m_on, g_on, sd_on), (m_off, g_off, sd_off) = runs
+    assert float(m_on["loss"]) == float(m_off["loss"])
+    assert all(torch.equal(g_on[n], g_off[n]) for n in g_on)
+    assert any(g_on[n].abs().max() > 0 for n in g_on if n.startswith("attn"))
+    assert all(torch.equal(sd_on[n], sd_off[n]) for n in sd_on)
