@@ -14,10 +14,16 @@ In order, failing (exit code 1) at the first phase that goes wrong:
 3. holds each forward kernel against its plain PyTorch version on the
    card at every serving shape, batch 8, and each backward kernel at
    every training shape, batch 32: max |kernel - plain| must stay within
-   KERNEL_TOL * max |plain| for every output; times kernel, plain version
-   and (attention only) ``F.scaled_dot_product_attention`` forward or
-   backward as a yardstick the port never calls, and computes each call's
-   bound from the H100 data sheet;
+   KERNEL_TOL * max |plain| for every output; the attention kernels also
+   keep their rounding contract (``gssd_torch/ops/kernels/flash_contract.py``):
+   mean |kernel - plain| / mean |plain| per output within its limit on
+   contract inputs, while a planted online-softmax forward, bf16-dS
+   backward and two-part dS split, in plain PyTorch on the card, must
+   read above it; times kernel, plain version and (attention only)
+   ``F.scaled_dot_product_attention`` forward or backward as a yardstick
+   the port never calls, and computes each call's bound from the H100
+   data sheet (attention: the largest of its bytes, its tensor products
+   and one exp per logit at the MUFU rate);
 4. serves synthetic 512x512 slices through ``gssd_torch.infer.main`` at
    ``--reference_recipe gssd++ --eval_batch 8 --device cuda
    --compute_dtype bfloat16`` with seeded random weights, counting kernel
@@ -64,8 +70,10 @@ In order, failing (exit code 1) at the first phase that goes wrong:
    300x300, bf16): y and dx within STEM_ULP_MAX ulp with at most
    STEM_DIFF_SHARE of the elements differing, dW within STEM_DW_TOL; a
    planted double rounding must fail; times them beside cuDNN;
-15. holds the attention and hat DCN kernels at PixelLink++'s 75x75 shapes
-   (N = 5625; 512 -> 256 channels) against their plain versions, timed;
+15. holds the attention kernels at PixelLink++'s four site shapes (N =
+   5625, 1444, 361; batch 16), with the checks of phase 3, and the hat
+   DCN at 75x75 (512 -> 256 channels) against their plain versions,
+   timed;
 16. with ``USE_WIDE_CONV_KERNEL`` set in-process, trains PixelLink++
    through ``gssd_torch.train_pixellink.main`` at ``--reference_recipe
    pixellink++ --synthetic True --batch_size 16 --device cuda
@@ -132,6 +140,11 @@ AP_KEYS = {"ap30", "ap50", "ap70", "iobb30", "iobb50", "iobb70"}
 PEAK_BF16_OPS = 989e12
 PEAK_F32_OPS = 67e12
 PEAK_BYTES = 3.35e12
+# MUFU ex2 results a second: 16 a clock per SM (the CUDA C++ Programming
+# Guide's arithmetic-instruction throughput table, compute capability
+# 9.0: base-2 exponential) x 132 SMs x 1.83 GHz, the clock at which the
+# 989 TFLOP/s above is 4096 bf16 operations a clock per SM
+PEAK_EX2 = 16 * 132 * 1.83e9
 # (N = M tokens, dk, dv, launches per forward) of the 12 attention sites
 ATTN_SITES = [(1444, 64, 256, 2), (361, 128, 512, 2), (100, 64, 256, 2),
               (25, 32, 128, 2), (9, 32, 128, 2), (1, 32, 128, 2)]
@@ -175,66 +188,133 @@ def nbytes_of(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def check_flash():
+def attn_work(B, n, m, dk, dv, backward):
+    """What the attention function needs, whatever the design: (tensor
+    operations, exps). Forward: QK^T and PV; backward: QK^T, dP = dO V^T
+    and dV, plus dQ and dK, whose f32-exact products count as three bf16
+    passes each; one exp per logit."""
+    logits = B * n * m
+    if backward:
+        return 2 * logits * (dk + 2 * dv) + 3 * 2 * logits * 2 * dk, logits
+    return 2 * logits * (dk + dv), logits
+
+
+def attn_bound(ops, exps, nbytes):
+    """(least ms, "bytes" or "operations", the term that bounds): the
+    largest of the bytes at the HBM rate, the tensor products at the bf16
+    rate and the exps at the MUFU rate."""
+    terms = {"bytes": nbytes / PEAK_BYTES, "tensor": ops / PEAK_BF16_OPS, "exp": exps / PEAK_EX2}
+    worst = max(terms, key=terms.get)
+    return 1e3 * terms[worst], ("bytes" if worst == "bytes" else "operations"), worst
+
+
+def attn_inputs(g, B, n, dk, dv):
+    """Seeded bf16 q, k [B, n, dk] and v, dO [B, n, dv] on the card."""
+    import torch
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=g).bfloat16()
+
+    return randn(B, n, dk), randn(B, n, dk), randn(B, n, dv), randn(B, n, dv)
+
+
+def contract_fwd(q, k, v):
+    """The forward kernel's rounding contract at one site: mean error
+    over mean value against the plain version on contract inputs (logits
+    exact in any order), and the same reading of a planted online-softmax
+    forward in plain PyTorch, which must exceed the limit."""
+    from gssd_torch.ops.kernels import flash_attn as fa
+    from gssd_torch.ops.kernels import flash_contract as fc
+
+    qc, kc, vc = fc.contract_inputs(q, k, v)
+    got, _ = fa.flash_attention_fwd(qc, kc, vc)
+    want, _ = fa.flash_attention_fwd_plain(qc, kc, vc)
+    err, limit = fc.mean_rel_err(got, want), fc.mean_limit("o", want)
+    planted = fc.mean_rel_err(fc.fwd_online_softmax(qc, kc, vc)[0], want)
+    return dict(mean_rel_err=err, mean_limit=limit, planted_online_softmax=planted)
+
+
+def contract_bwd(q, k, v, do):
+    """The backward kernel's contract at one site (dq, dk, dv), and the
+    readings of a planted bf16-dS and a planted two-part-split backward."""
+    from gssd_torch.ops.kernels import flash_attn as fa
+    from gssd_torch.ops.kernels import flash_contract as fc
+
+    qc, kc, vc, doc = fc.contract_inputs(q, k, v, do)
+    m = kc.shape[1]
+    o, lse = fa.flash_attention_fwd_plain(qc, kc, vc)
+    want = fa.flash_attention_bwd_plain(qc, kc, vc, o, lse, doc)
+    got = fa.flash_attention_bwd(qc, kc, vc, o, lse, doc)
+    errs, limits = fc.bwd_mean_errs(got, want, m), fc.bwd_mean_limits(want, m)
+    del got
+    planted = {name: fc.bwd_mean_errs(fc.bwd_split(qc, kc, vc, o, lse, doc, parts), want, m)
+               for name, parts in (("bf16_ds", 1), ("two_part_split", 2))}
+    return dict(mean_rel_errs=errs, mean_limits=limits, planted=planted)
+
+
+# a planted two-part dS split moves dq and dk by ~2e-6 of their mean: it
+# must read above the limit where the reductions are long enough for it
+# to stand out of the bf16 outputs' rounding (N >= 100; at N = 9 and 25
+# it reads 0.5-2e-6, PERF.md)
+SPLIT_FAULT_MIN_N = 100
+
+
+def check_contract(site, label, m):
+    """Every output within its mean limit; every planted fault above it
+    (for dq or dk, which consume dS) wherever the softmax is not
+    constant (m > 1), the two-part split from SPLIT_FAULT_MIN_N keys."""
+    if "mean_limit" in site:
+        check(site["mean_rel_err"] <= site["mean_limit"],
+              f"{label}: mean err {site['mean_rel_err']:.3g} > {site['mean_limit']:.3g}")
+        check(m == 1 or site["planted_online_softmax"] > site["mean_limit"],
+              f"{label}: a planted online softmax reads {site['planted_online_softmax']:.3g}, "
+              f"within the limit {site['mean_limit']:.3g}")
+    else:
+        for name, err, lim in zip(("dq", "dk", "dv"), site["mean_rel_errs"], site["mean_limits"]):
+            check(err <= lim, f"{label} {name}: mean err {err:.3g} > {lim:.3g}")
+        for fault, errs in site["planted"].items():
+            if m == 1 or (fault == "two_part_split" and m < SPLIT_FAULT_MIN_N):
+                continue
+            check(any(e > lim for e, lim in zip(errs[:2], site["mean_limits"][:2])),
+                  f"{label}: a planted {fault} reads {errs}, within {site['mean_limits']}")
+
+
+def attn_site(g, B, n, dk, dv, count, backward, iters=10, plain_iters=5):
+    """One attention site: the kernel against its plain version (max
+    error within KERNEL_TOL of max, per output; with one key the softmax
+    is constant and dq, dk are 0 in exact arithmetic, so all three are
+    held to the largest max), its contract (``check_contract``), timed
+    beside the plain version and SDPA (forward, or its backward through
+    autograd), with the bound of the function and PR 4's bound of the
+    design."""
     import torch
     import torch.nn.functional as F
 
     from gssd_torch.ops.kernels import flash_attn as fa
 
-    g = torch.Generator(device="cuda").manual_seed(SEED)
-    sites = []
-    for n, dk, dv, count in ATTN_SITES:
-        q, k = (torch.randn(BATCH, n, dk, device="cuda", generator=g).bfloat16()
-                for _ in range(2))
-        v = torch.randn(BATCH, n, dv, device="cuda", generator=g).bfloat16()
-        o, lse = fa.flash_attention_fwd(q, k, v)
-        torch.cuda.synchronize()
+    q, k, v, do = attn_inputs(g, B, n, dk, dv)
+    label = f"flash_attn_{'bwd' if backward else 'fwd'} B={B} N={n} dk={dk} dv={dv}"
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    q4, k4, v4 = (t[:, None].detach().clone().requires_grad_(backward) for t in (q, k, v))
+    ops, exps = attn_work(B, n, n, dk, dv, backward)
+    if not backward:
         o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v)
         err = (o - o_ref).abs().max().item()
         scale = o_ref.abs().max().item()
         lse_err = (lse - lse_ref).abs().max().item()
         check(math.isfinite(err) and err <= KERNEL_TOL * scale,
-              f"flash_attn_fwd at N={n} dk={dk} dv={dv}: max err {err} > {KERNEL_TOL} * {scale}")
+              f"{label}: max err {err} > {KERNEL_TOL} * {scale}")
         check(lse_err <= 1e-4 * max(lse_ref.abs().max().item(), 1.0),
-              f"flash_attn_fwd lse at N={n}: max err {lse_err}")
-        q4, k4, v4 = q[:, None], k[:, None], v[:, None]
-        ops = 2 * BATCH * n * n * (dk + dv)
-        nbytes = BATCH * (2 * (n * dk + n * dk + n * dv) + 4 * n * dv + 4 * n)
-        b_ms, b_by = bound(ops, nbytes)
-        site = dict(
-            N=n, M=n, dk=dk, dv=dv, per_forward=count, max_abs_err=err,
-            rel_err=err / scale, lse_err=lse_err,
-            ms=time_ms(lambda: fa.flash_attention_fwd(q, k, v)),
-            plain_ms=time_ms(lambda: fa.flash_attention_fwd_plain(q, k, v)),
-            library_ms=time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=1.0)),
-            bound_ms=b_ms, bound_by=b_by, ops=ops, bytes=nbytes)
-        sites.append(site)
-        print(f"flash_attn_fwd B={BATCH} N=M={n} dk={dk} dv={dv}: err {err:.3g} "
-              f"(rel {err / scale:.3g}), lse err {lse_err:.3g}, kernel {site['ms']:.4f} ms, "
-              f"plain {site['plain_ms']:.4f} ms, sdpa {site['library_ms']:.4f} ms, "
-              f"bound {1e3 * b_ms:.2f} us ({b_by})", flush=True)
-    return sites
-
-
-def check_flash_bwd():
-    """flash_attn_bwd against its plain version at the 12 training sites
-    (batch 32); each of dq, dk, dv within KERNEL_TOL of its own max,
-    except where one key makes the softmax constant (M = 1): there dq and
-    dk are 0 in exact arithmetic and the scale is the largest of the
-    three gradients."""
-    import torch
-    import torch.nn.functional as F
-
-    from gssd_torch.ops.kernels import flash_attn as fa
-
-    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    B = TRAIN_BATCH
-    sites = []
-    for n, dk, dv, count in ATTN_SITES:
-        q, k = (torch.randn(B, n, dk, device="cuda", generator=g).bfloat16() for _ in range(2))
-        v = torch.randn(B, n, dv, device="cuda", generator=g).bfloat16()
-        do = torch.randn(B, n, dv, device="cuda", generator=g).bfloat16()
-        o, lse = fa.flash_attention_fwd(q, k, v)
+              f"{label}: lse max err {lse_err}")
+        del o_ref, lse_ref
+        nbytes = nbytes_of(q, k, v, o, lse)
+        site = dict(max_abs_err=err, rel_err=err / scale, lse_err=lse_err, **contract_fwd(q, k, v))
+        run = lambda: fa.flash_attention_fwd(q, k, v)
+        plain = lambda: fa.flash_attention_fwd_plain(q, k, v)
+        library = lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=1.0)
+        old_bound = bound(ops, nbytes)[0]
+    else:
         got = fa.flash_attention_bwd(q, k, v, o, lse, do)
         torch.cuda.synchronize()
         want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
@@ -246,33 +326,60 @@ def check_flash_bwd():
             errs.append(err)
             rels.append(err / scale)
             check(math.isfinite(err) and err <= KERNEL_TOL * scale,
-                  f"flash_attn_bwd d{name} at N={n} dk={dk} dv={dv}: max err {err} > "
-                  f"{KERNEL_TOL} * {scale}")
-        q4, k4, v4 = (t[:, None].detach().clone().requires_grad_() for t in (q, k, v))
-        out4 = F.scaled_dot_product_attention(q4, k4, v4, scale=1.0)
-        do4 = do[:, None]
-        # operations by type: the logits recompute and the two dv-deep
-        # products on the tensor cores, dQ and dK as f32 FMA
-        ops = 2 * B * n * n * (dk + 2 * dv)
-        f32_ops = 2 * B * n * n * 2 * dk
+                  f"{label} d{name}: max err {err} > {KERNEL_TOL} * {scale}")
+        del want
         nbytes = nbytes_of(q, k, v, do, o, lse, *got)
-        b_ms, b_by = bound(ops, nbytes, f32_ops)
-        site = dict(
-            N=n, M=n, dk=dk, dv=dv, per_step=count, max_abs_err=max(errs),
-            rel_err=max(rels),
-            fwd_ms=time_ms(lambda: fa.flash_attention_fwd(q, k, v), iters=10),
-            ms=time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do), iters=10),
-            plain_ms=time_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do),
-                             iters=5),
-            library_ms=time_ms(lambda: torch.autograd.grad(out4, (q4, k4, v4), do4,
-                                                           retain_graph=True), iters=10),
-            bound_ms=b_ms, bound_by=b_by, ops=ops, f32_ops=f32_ops, bytes=nbytes)
-        sites.append(site)
-        print(f"flash_attn_bwd B={B} N=M={n} dk={dk} dv={dv}: rel err "
-              f"{max(rels):.3g}, kernel {site['ms']:.4f} ms, plain {site['plain_ms']:.4f} ms, "
-              f"sdpa bwd {site['library_ms']:.4f} ms, bound {1e3 * b_ms:.2f} us ({b_by}); "
-              f"forward kernel at this batch {site['fwd_ms']:.4f} ms", flush=True)
-    return sites
+        del got
+        site = dict(max_abs_err=max(errs), rel_err=max(rels), **contract_bwd(q, k, v, do))
+        out4 = F.scaled_dot_product_attention(q4, k4, v4, scale=1.0)
+        run = lambda: fa.flash_attention_bwd(q, k, v, o, lse, do)
+        plain = lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
+        library = lambda: torch.autograd.grad(out4, (q4, k4, v4), do[:, None], retain_graph=True)
+        old_bound = bound(2 * B * n * n * (dk + 2 * dv), nbytes, 2 * B * n * n * 2 * dk)[0]
+    check_contract(site, label, n)
+    b_ms, b_by, b_term = attn_bound(ops, exps, nbytes)
+    site.update(B=B, N=n, M=n, dk=dk, dv=dv, count=count, ms=time_ms(run, iters=iters),
+                plain_ms=time_ms(plain, iters=plain_iters, warmup=1),
+                library_ms=time_ms(library, iters=iters), bound_ms=b_ms, bound_by=b_by,
+                bound_term=b_term, old_bound_ms=old_bound, ops=ops, exps=exps, bytes=nbytes)
+    if backward:
+        # the forward at this batch too, beside SDPA's forward and its bound
+        fwd_ops, _ = attn_work(B, n, n, dk, dv, False)
+        fwd_bytes = nbytes_of(q, k, v, o, lse)
+        site.update(fwd_ms=time_ms(lambda: fa.flash_attention_fwd(q, k, v), iters=iters),
+                    fwd_library_ms=time_ms(
+                        lambda: F.scaled_dot_product_attention(q4.detach(), k4.detach(),
+                                                               v4.detach(), scale=1.0),
+                        iters=iters),
+                    fwd_bound_ms=attn_bound(fwd_ops, exps, fwd_bytes)[0],
+                    fwd_old_bound_ms=bound(fwd_ops, fwd_bytes)[0], fwd_ops=fwd_ops,
+                    fwd_bytes=fwd_bytes)
+    mean = site.get("mean_rel_err", site.get("mean_rel_errs"))
+    print(f"{label}: max rel err {site['rel_err']:.3g}, contract mean err {mean}, kernel "
+          f"{site['ms']:.4f} ms, plain {site['plain_ms']:.4f} ms, sdpa {site['library_ms']:.4f} "
+          f"ms, bound {site['bound_ms']:.4f} ms ({b_term}; PR 4's {old_bound:.4f})"
+          + (f"; forward at this batch {site['fwd_ms']:.4f} ms, sdpa {site['fwd_library_ms']:.4f}"
+             if backward else ""), flush=True)
+    return site
+
+
+def check_flash():
+    """flash_attn_fwd at the 12 serving sites (batch 8): ``attn_site``."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    return [dict(attn_site(g, BATCH, n, dk, dv, count, False), per_forward=count)
+            for n, dk, dv, count in ATTN_SITES]
+
+
+def check_flash_bwd():
+    """flash_attn_bwd at the 12 training sites (batch 32): ``attn_site``."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    return [dict(attn_site(g, TRAIN_BATCH, n, dk, dv, count, True, plain_iters=3),
+                 per_step=count)
+            for n, dk, dv, count in ATTN_SITES]
 
 
 def dcn_inputs(batch=BATCH):
@@ -367,9 +474,14 @@ def check_dcn_bwd():
     f32_ops = 6 * (C // G) * n_in
     nbytes = nbytes_of(*args, *got)
     b_ms, b_by = bound(ops, nbytes, f32_ops)
+    # the forward at this batch: its bound as check_dcn's (operations of
+    # the products; bytes of the inputs and the f32 output)
+    fwd_bound = bound(2 * B * P * K * C * Cout,
+                      nbytes_of(x, py, px, m, wg, bias) + B * P * Cout * 4)[0]
     site = dict(
         B=B, **DCN_SITE, max_abs_err=max(errs), rel_err=max(rels),
         fwd_ms=time_ms(lambda: dh.deform_conv_fwd(x, py, px, m, wg, bias), iters=5),
+        fwd_bound_ms=fwd_bound,
         ms=time_ms(lambda: dh.deform_conv_bwd(*args), iters=5),
         plain_ms=time_ms(lambda: dh.deform_conv_bwd_plain(*args), iters=2, warmup=1),
         library_ms=None, bound_ms=b_ms, bound_by=b_by, ops=ops, f32_ops=f32_ops,
@@ -1019,6 +1131,9 @@ def train_parity(data, f32_device="cpu", device="cuda"):
 # (name, Cin, Cout) of the two stem sites, 4 groups, at 300 x 300
 STEM_SITES = [("conv1_1", 12, 64), ("conv1_2", 64, 64)]
 PL_BATCH = 16  # the pixellink++ recipe's batch
+# (N = M tokens, dk, dv, launches per forward) of PixelLink++ (4s)'s 8
+# attention sites at 300 x 300
+PL_ATTN_SITES = [(5625, 32, 128, 2), (1444, 64, 256, 2), (361, 64, 256, 2), (361, 128, 512, 2)]
 PL_ITERS = 3
 # the stem kernels against their plain versions (both on the card): the
 # same roundings, f32 sums in another order, so a bf16 output can flip by
@@ -1157,63 +1272,23 @@ def check_stem():
 
 
 def check_pixellink_sites():
-    """The attention and hat DCN kernels at the shapes only PixelLink++
-    gives them (batch 16): attention at the 75 x 75 sites (N = M = 5625,
-    dk 32, dv 128), forward and backward, and the hat DCN at 75 x 75
-    (512 -> 256 channels, 4 groups), forward and backward; each output
-    within KERNEL_TOL of its plain version's max; timed beside SDPA."""
+    """The attention and hat DCN kernels at PixelLink++'s shapes (batch
+    16): attention at its four site shapes (``attn_site``: N = M = 5625,
+    1444 and 361), forward and backward, and the hat DCN at 75 x 75 (512
+    -> 256 channels, 4 groups), forward and backward, within KERNEL_TOL of
+    its plain version's max."""
     import torch
-    import torch.nn.functional as F
 
     from gssd_torch.ops.kernels import deform_hat as dh
-    from gssd_torch.ops.kernels import flash_attn as fa
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 6)
-    B, n, dk, dv = PL_BATCH, 5625, 32, 128
-    q, k = (torch.randn(B, n, dk, device="cuda", generator=g).bfloat16() for _ in range(2))
-    v = torch.randn(B, n, dv, device="cuda", generator=g).bfloat16()
-    do = torch.randn(B, n, dv, device="cuda", generator=g).bfloat16()
-    o, lse = fa.flash_attention_fwd(q, k, v)
-    grads = fa.flash_attention_bwd(q, k, v, o, lse, do)
-    torch.cuda.synchronize()
-    o_ref, _ = fa.flash_attention_fwd_plain(q, k, v)
-    fwd_err = (o - o_ref).abs().max().item()
-    check(fwd_err <= KERNEL_TOL * o_ref.abs().max().item(),
-          f"flash_attn_fwd at N=5625: max err {fwd_err}")
-    del o_ref
-    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
-    bwd_errs = []
-    for name, a, b_ in zip("qkv", grads, want):
-        err = (a.float() - b_.float()).abs().max().item()
-        bwd_errs.append(err)
-        check(err <= KERNEL_TOL * b_.float().abs().max().item(),
-              f"flash_attn_bwd d{name} at N=5625: max err {err}")
-    del want
-    q4, k4, v4 = (t[:, None].detach().clone().requires_grad_() for t in (q, k, v))
-    out4 = F.scaled_dot_product_attention(q4, k4, v4, scale=1.0)
-    attn = dict(
-        B=B, N=n, M=n, dk=dk, dv=dv, per_forward=2, fwd_max_abs_err=fwd_err,
-        bwd_max_abs_err=max(bwd_errs),
-        fwd_ms=time_ms(lambda: fa.flash_attention_fwd(q, k, v), iters=5),
-        fwd_plain_ms=time_ms(lambda: fa.flash_attention_fwd_plain(q, k, v), iters=2, warmup=1),
-        fwd_library_ms=time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=1.0),
-                               iters=5),
-        bwd_ms=time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do), iters=3),
-        bwd_plain_ms=time_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do),
-                             iters=1, warmup=1),
-        bwd_library_ms=time_ms(lambda: torch.autograd.grad(out4, (q4, k4, v4), do[:, None],
-                                                           retain_graph=True), iters=3))
-    attn["fwd_bound_ms"], attn["fwd_bound_by"] = bound(
-        2 * B * n * n * (dk + dv), nbytes_of(q, k, v, o, lse))
-    attn["bwd_bound_ms"], attn["bwd_bound_by"] = bound(
-        2 * B * n * n * (dk + 2 * dv), nbytes_of(q, k, v, do, o, lse, *grads),
-        2 * B * n * n * 2 * dk)
-    del q, k, v, do, o, lse, grads, q4, k4, v4, out4
-    print(f"attention B={B} N=M={n} dk={dk} dv={dv}: fwd kernel {attn['fwd_ms']:.4f} ms, "
-          f"plain {attn['fwd_plain_ms']:.4f}, sdpa {attn['fwd_library_ms']:.4f}, bound "
-          f"{attn['fwd_bound_ms']:.4f}; bwd kernel {attn['bwd_ms']:.4f} ms, plain "
-          f"{attn['bwd_plain_ms']:.4f}, sdpa {attn['bwd_library_ms']:.4f}, bound "
-          f"{attn['bwd_bound_ms']:.4f}", flush=True)
+    B = PL_BATCH
+    attn = []
+    for n, dk, dv, count in PL_ATTN_SITES:
+        fwd = attn_site(g, B, n, dk, dv, count, False, iters=5, plain_iters=2)
+        bwd = attn_site(g, B, n, dk, dv, count, True, iters=3, plain_iters=1)
+        attn.append(dict(fwd=fwd, bwd=bwd, N=n, M=n, dk=dk, dv=dv, per_forward=count))
+        torch.cuda.empty_cache()
 
     H = W = 75
     C, G, K, Cout = 512, 4, 9, 256
@@ -1259,7 +1334,7 @@ def check_pixellink_sites():
           f"{dcn['fwd_plain_ms']:.4f}, bound {dcn['fwd_bound_ms']:.4f}; bwd kernel "
           f"{dcn['bwd_ms']:.4f} ms, plain {dcn['bwd_plain_ms']:.4f}, bound "
           f"{dcn['bwd_bound_ms']:.4f}", flush=True)
-    return {"attention_5625": attn, "hat_dcn_75": dcn}
+    return {"attention": attn, "hat_dcn_75": dcn}
 
 
 def pl_argv(tmp, data, out, *extra):
@@ -1553,9 +1628,10 @@ def main() -> int:
     def per_step(key):
         return per_forward(key, attn_bwd_sites, "per_step")
 
-    flash_bound, flash_by = bound(per_forward("ops"), per_forward("bytes"))
-    flash_bwd_bound, flash_bwd_by = bound(per_step("ops"), per_step("bytes"),
-                                          per_step("f32_ops"))
+    flash_bound, flash_by, _ = attn_bound(per_forward("ops"), per_forward("exps"),
+                                          per_forward("bytes"))
+    flash_bwd_bound, flash_bwd_by, _ = attn_bound(per_step("ops"), per_step("exps"),
+                                                  per_step("bytes"))
     kernels = [
         dict(name="flash_attn_fwd", route="cuda", source="gssd_torch/csrc/flash_attn_fwd.cu",
              replaces="gssd_tpu/ops/pallas/flash_attn.py:64",
@@ -1565,14 +1641,19 @@ def main() -> int:
              bound_ms=flash_bound, bound_by=flash_by,
              library_ms=per_forward("library_ms"),
              note=f"times summed over the 12 serving sites of one batch-{BATCH} forward",
-             ms_train_batch=per_step("fwd_ms"), sites=attn_sites),
+             ms_train_batch=per_step("fwd_ms"),
+             library_ms_train_batch=per_step("fwd_library_ms"),
+             bound_ms_train_batch=attn_bound(per_step("fwd_ops"), per_step("exps"),
+                                             per_step("fwd_bytes"))[0],
+             sites=attn_sites),
         dict(name="deform_conv_fwd", route="cuda", source="gssd_torch/csrc/deform_conv_fwd.cu",
              replaces="gssd_tpu/ops/pallas/deform_hat.py:314",
              launches=launches["deform_conv_fwd"], max_abs_err=dcn_site["max_abs_err"],
              ms=dcn_site["ms"], plain_ms=dcn_site["plain_ms"], bound_ms=dcn_site["bound_ms"],
              bound_by=dcn_site["bound_by"], library_ms=None,
              note=f"one batch-{BATCH} call at the 38x38 serving site",
-             ms_train_batch=dcn_bwd_site["fwd_ms"], sites=[dcn_site]),
+             ms_train_batch=dcn_bwd_site["fwd_ms"],
+             bound_ms_train_batch=dcn_bwd_site["fwd_bound_ms"], sites=[dcn_site]),
         dict(name="flash_attn_bwd", route="cuda", source="gssd_torch/csrc/flash_attn_bwd.cu",
              replaces="gssd_tpu/ops/pallas/flash_attn.py:74",
              launches=train_launches["flash_attn_bwd"],
@@ -1655,7 +1736,7 @@ def main() -> int:
     ]
     for entry in kernels:
         if entry["name"].startswith("flash_attn"):
-            entry["pixellink_site"] = pl_sites["attention_5625"]
+            entry["pixellink_sites"] = pl_sites["attention"]
         elif entry["name"].startswith("deform_conv"):
             entry["pixellink_site"] = pl_sites["hat_dcn_75"]
     recs = train_res["records"]

@@ -2,193 +2,184 @@
 //   o = softmax(q k^T) v,   lse = logsumexp(q k^T)   per image.
 //
 // Replaces gssd_tpu/ops/pallas/flash_attn.py _fwd_kernel (the Pallas TPU
-// kernel). Same arithmetic: f32 logits with no 1/sqrt(dk) scale, f32
-// row max and sum, P = exp(s - lse) normalised in f32 and THEN rounded
-// to bf16, P.V with f32 accumulation, f32 output plus the row lse.
+// kernel). Same arithmetic: f32 logits with no 1/sqrt(dk) scale, the
+// exact two-pass softmax (row max and sum first, then P = exp(s - lse)
+// normalised in f32 and THEN rounded to bf16), P.V with f32 sums, f32
+// output plus the row lse. An online softmax would round the
+// unnormalised P and is another function at the bf16 level.
 //
-// What bounds it here: at the serving sites the product work
-// 2*N*M*(dk+dv) is about 300-500 operations per byte of q/k/v/o, so the
-// ideal kernel is tensor-core bound. The TPU kernel keeps a whole
-// [TN, M] f32 logits block in VMEM; at M = 1444 that is 370 KB for 64
-// rows, more than the 227 KB of shared memory a block may use. This
-// kernel instead takes two passes over the keys in 64-key tiles:
-//   pass 1 computes each row's max and sum of exp (online, per thread
-//          over its own columns, combined across the 4 threads that
-//          share a row at the end),
-//   pass 2 recomputes the logits, forms normalised bf16 P and
-//          accumulates P.V.
-// The second QK^T costs dk/(dk+dv) = 20% extra work at dk = dv/4 and
-// keeps "normalise, then round" exact, which an online softmax would not.
+// What bounds it here: 2*N*M*(dk + dv) tensor-core operations and one
+// exp per logit per pass, against a few MB of q/k/v/o. At the 75x75
+// PixelLink++ site (dk 32) the two exps per logit on the MUFU unit
+// (16 a clock per SM) cost as much as the products.
 //
-// A block owns 64 query rows (16 per warp) and up to 128 value columns,
-// so the f32 accumulator stays at 64 registers a thread even at dv = 512
-// (fc7 sites): wider dv is split over blockIdx.y. Products are
-// mma.sync m16n8k16 bf16 with ldmatrix operands; the logits never leave
-// registers, because the accumulator layout of Q.K^T is the operand
-// layout P needs for P.V. K and V tiles are double-buffered with
-// cp.async, so the next tile loads while this one is multiplied.
-// wgmma/TMA are left for a later change. Ragged key tiles mask their
-// columns to -inf (P = 0), ragged query tiles are zero-filled and never
-// stored, so M = 1, 9, 25 work.
+// Design (one block = 128 query rows of one image and up to 256 value
+// columns; 3 warpgroups):
+// - warpgroup 2 is the producer: one thread streams Q once and then the
+//   key tiles by TMA into a ring of shared-memory stages, each guarded by
+//   a "full" and an "empty" mbarrier; it gives its registers to the
+//   consumers (setmaxnreg);
+// - warpgroups 0 and 1 own 64 query rows each. Pass 1 walks the K tiles
+//   (64 keys): S = Q K^T by wgmma (both operands in shared memory), and a
+//   per-thread running max and sum of exp; pass 2 walks K and V again:
+//   S again, P = exp2((s - lse) * log2 e) (one MUFU ex2 per logit) packed
+//   to bf16 straight from the accumulator registers, which are the
+//   A-operand layout, and O += P V by wgmma with V read from shared memory
+//   in its row-major [M, dv] layout (MN-major B, the transpose bit).
+// - Swizzle by dk: 64-byte rows at dk 32, 128-byte rows at dk 64, two
+//   64-column boxes at dk 128; other dk take the next of these widths
+//   and TMA fills the extra columns with zeros, as it fills key rows past
+//   M (masked to -inf in the last tile only) and query rows past N.
+// - dv <= 128 is one 128-column accumulator, dv <= 256 one of 256 (128
+//   registers a thread); wider dv (the fc7 sites, 512) splits over
+//   blockIdx.y, each slice recomputing S and P.
 
-#include <cuda_bf16.h>
-#include <cuda_pipeline.h>
-#include <cuda_runtime.h>
+#include "flash_sm90.cuh"
+
 #include <math.h>
-#include <stdint.h>
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
+using namespace sm90;
 
-constexpr int TN = 64;       // query rows per block
-constexpr int TM = 64;       // keys per tile
-constexpr int WARPS = 4;     // 16 query rows per warp
-constexpr int THREADS = WARPS * 32;
-constexpr int MAX_DK = 128;
-constexpr int PAD = 8;       // bf16 padding per smem row: conflict-free ldmatrix
+constexpr int BM = 128;           // query rows per block
+constexpr int TM = 64;            // keys per tile
+constexpr int THREADS = 384;      // 2 consumer warpgroups + the producer
+constexpr int MAX_STAGES = 4;
+constexpr int SMEM_LIMIT = 232448;
+constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+struct Smem {
+    int q_bytes, k_bytes, v_bytes, stages, total;
+};
+
+template <int DK, int DVT>
+__host__ __device__ Smem smem_plan(int stages) {
+    Smem s;
+    s.q_bytes = BM * DK * 2;
+    s.k_bytes = TM * DK * 2;
+    s.v_bytes = TM * DVT * 2;
+    s.stages = stages;
+    s.total = 1024 + s.q_bytes + stages * (s.k_bytes + s.v_bytes) + 256;
+    return s;
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-    const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(a));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
-    const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(a));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-    return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// rows [row0, row0 + rows) x cols [col0, col0 + width) of a row-major
-// [nvalid, ld] bf16 matrix into smem [rows][width + PAD] with cp.async;
-// rows past nvalid are zero. width and col0 are multiples of 8.
-__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src, int row0, int rows,
-                                                int nvalid, int ld, int col0, int width) {
-    const int vpr = width / 8;
-    const int lds = width + PAD;
-    for (int i = threadIdx.x; i < rows * vpr; i += THREADS) {
-        const int r = i / vpr;
-        const int c = (i - r * vpr) * 8;
-        bf16* d = dst + r * lds + c;
-        if (row0 + r < nvalid)
-            __pipeline_memcpy_async(d, src + (size_t)(row0 + r) * ld + col0 + c, 16);
-        else
-            *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
-    }
-}
-
-// s[j] (8 n-tiles of 8 keys) = the warp's 16 query rows . k_tile^T.
-// Accumulator layout: s[j][0..1] row g, keys j*8 + 2*tig + {0,1};
-// s[j][2..3] the same keys of row g + 8 (g = lane / 4, tig = lane % 4).
-__device__ __forceinline__ void tile_logits(float (&s)[TM / 8][4],
-                                            const uint32_t (&qf)[MAX_DK / 16][4],
-                                            const bf16* kt, int dk, int lane) {
-    const int ldk = dk + PAD;
-#pragma unroll
-    for (int j = 0; j < TM / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
-    // ldmatrix x4 over keys (j .. j+1 tiles) x dims (kk*16 + {0, 8})
-    const int mi = lane >> 3, r = lane & 7;
-#pragma unroll
-    for (int kk = 0; kk < MAX_DK / 16; ++kk) {
-        if (kk * 16 < dk) {
-#pragma unroll
-            for (int j = 0; j < TM / 8; j += 2) {
-                uint32_t b[4];
-                ldmatrix_x4(b, kt + ((j + (mi >> 1)) * 8 + r) * ldk + kk * 16 + (mi & 1) * 8);
-                mma_bf16(s[j], qf[kk], b[0], b[1]);
-                mma_bf16(s[j + 1], qf[kk], b[2], b[3]);
-            }
-        }
-    }
-}
-
-template <int DVT>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, float* __restrict__ o,
-                 float* __restrict__ lse, int N, int M, int dk, int dv) {
-    constexpr int LDV = DVT + PAD;
-    extern __shared__ __align__(128) unsigned char smem[];
-    const int ldk = dk + PAD;
-    bf16* qs = reinterpret_cast<bf16*>(smem);  // [TN][ldk]
-    bf16* ks = qs + TN * ldk;                  // [2][TM][ldk]
-    bf16* vs = ks + 2 * TM * ldk;              // [2][TM][LDV]
+template <int DK, int DVT>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv, float* __restrict__ o,
+               float* __restrict__ lse, int N, int M, int dv, int stages) {
+    extern __shared__ unsigned char smem_raw[];
+    const Smem plan = smem_plan<DK, DVT>(stages);
+    unsigned char* base = reinterpret_cast<unsigned char*>(
+        (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+    unsigned char* qs = base;
+    unsigned char* ring = qs + plan.q_bytes;
+    const int stage_bytes = plan.k_bytes + plan.v_bytes;
+    uint64_t* bars = reinterpret_cast<uint64_t*>(ring + stages * stage_bytes);
+    uint64_t* full = bars;
+    uint64_t* empty = bars + MAX_STAGES;
+    uint64_t* qbar = bars + 2 * MAX_STAGES;
 
     const int b = blockIdx.z;
-    const int n0 = blockIdx.x * TN;
+    const int n0 = blockIdx.x * BM;
     const int c0 = blockIdx.y * DVT;
-    const int warp = threadIdx.x / 32;
-    const int lane = threadIdx.x % 32;
-    const int g = lane >> 2, tig = lane & 3;
-    const bf16* qb = q + (size_t)b * N * dk;
-    const bf16* kb = k + (size_t)b * M * dk;
-    const bf16* vb = v + (size_t)b * M * dv;
-    const int ntiles = (M + TM - 1) / TM;
+    const int T = (M + TM - 1) / TM;
+    const int wg = threadIdx.x / 128;
 
-    // Q (A operand) fragments of the warp's 16 rows, kept in registers
-    load_tile_async(qs, qb, n0, TN, N, dk, 0, dk);
-    load_tile_async(ks, kb, 0, TM, M, dk, 0, dk);
-    __pipeline_commit();
-    __pipeline_wait_prior(0);
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < stages; ++s) {
+            mbar_init(&full[s], 1);
+            mbar_init(&empty[s], 256);
+        }
+        mbar_init(qbar, 1);
+        mbar_fence_init();
+    }
     __syncthreads();
-    uint32_t qf[MAX_DK / 16][4];
-    {
-        const int mi = lane >> 3, r = lane & 7;
-#pragma unroll
-        for (int kk = 0; kk < MAX_DK / 16; ++kk)
-            if (kk * 16 < dk)
-                ldmatrix_x4(qf[kk], qs + (warp * 16 + (mi & 1) * 8 + r) * ldk + kk * 16 +
-                                        (mi >> 1) * 8);
+
+    if (wg == 2) {
+        // ---- producer ----
+        reg_dealloc<24>();
+        if (threadIdx.x == 256) {
+            mbar_expect_tx(qbar, plan.q_bytes);
+            for (int bx = 0; bx < Tile<DK>::NB; ++bx)
+                tma_load_3d(qs + bx * BM * Tile<DK>::RB, &tq, qbar, bx * Tile<DK>::BW, n0, b);
+            for (int it = 0; it < 2 * T; ++it) {
+                const int st = it % stages;
+                const bool pass2 = it >= T;
+                const int m0 = (pass2 ? it - T : it) * TM;
+                mbar_wait(&empty[st], ((it / stages) & 1) ^ 1);
+                unsigned char* ks = ring + st * stage_bytes;
+                mbar_expect_tx(&full[st], plan.k_bytes + (pass2 ? plan.v_bytes : 0));
+                for (int bx = 0; bx < Tile<DK>::NB; ++bx)
+                    tma_load_3d(ks + bx * TM * Tile<DK>::RB, &tk, &full[st],
+                                bx * Tile<DK>::BW, m0, b);
+                if (pass2)
+                    for (int bx = 0; bx < DVT / 64; ++bx)
+                        tma_load_3d(ks + plan.k_bytes + bx * TM * 128, &tv, &full[st],
+                                    c0 + bx * 64, m0, b);
+            }
+        }
+        return;
     }
 
-    // pass 1: per-thread max / sum of exp over its own columns of rows
-    // g (h = 0) and g + 8 (h = 1)
+    // ---- consumers: warpgroup wg owns query rows n0 + 64 wg .. + 64 ----
+    reg_alloc<240>();
+    const int t = threadIdx.x % 128;
+    const int lane = t % 32;
+    const int r = 16 * (t / 32) + lane / 4;  // rows r and r + 8 of the warpgroup
+    const int q2 = 2 * (lane % 4);          // first of the thread's two columns per chunk
+    const uint32_t qs_a = smem_u32(qs);
+    const uint32_t ring_a = smem_u32(ring);
+    const int ragged = M - (T - 1) * TM;  // valid keys of the last tile
+
+    auto logits = [&](float (&s)[32], int st) {
+        const uint32_t ks_a = ring_a + st * stage_bytes;
+        fence_regs(s);
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < DK / 16; ++j)
+            wgmma_ss<TM, 0, 0>(s, Tile<DK>::kmajor(qs_a, BM, 64 * wg, j),
+                               Tile<DK>::kmajor(ks_a, TM, 0, j), j > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+    };
+    auto mask_last = [&](float (&s)[32], int tile) {
+        if (tile == T - 1 && ragged < TM) {
+#pragma unroll
+            for (int i = 0; i < 32; ++i)
+                if (8 * (i / 4) + q2 + (i % 2) >= ragged) s[i] = -INFINITY;
+        }
+    };
+
+    mbar_wait(qbar, 0);
+
+    // pass 1: per-thread max and sum of exp over its own columns of rows
+    // r (h = 0) and r + 8 (h = 1)
     float m_r[2] = {-INFINITY, -INFINITY}, l_r[2] = {0.0f, 0.0f};
-    for (int t = 0; t < ntiles; ++t) {
-        if (t + 1 < ntiles) load_tile_async(ks + ((t + 1) & 1) * TM * ldk, kb, (t + 1) * TM, TM, M, dk, 0, dk);
-        __pipeline_commit();
-        __pipeline_wait_prior(1);
-        __syncthreads();
-        float s[TM / 8][4];
-        tile_logits(s, qf, ks + (t & 1) * TM * ldk, dk, lane);
-        const int m0 = t * TM;
+    for (int it = 0; it < T; ++it) {
+        const int st = it % stages;
+        mbar_wait(&full[st], (it / stages) & 1);
+        float s[32];
+        logits(s, st);
+        mbar_arrive(&empty[st]);
+        mask_last(s, it);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
             float mx = -INFINITY;
 #pragma unroll
-            for (int j = 0; j < TM / 8; ++j)
-#pragma unroll
-                for (int e = 0; e < 2; ++e)
-                    if (m0 + j * 8 + 2 * tig + e < M) mx = fmaxf(mx, s[j][2 * h + e]);
+            for (int c = 0; c < 8; ++c) mx = fmaxf(mx, fmaxf(s[4 * c + 2 * h], s[4 * c + 2 * h + 1]));
             const float m_new = fmaxf(m_r[h], mx);
             if (m_new == -INFINITY) continue;  // no valid column of this row yet
             float sum = 0.0f;
 #pragma unroll
-            for (int j = 0; j < TM / 8; ++j)
-#pragma unroll
-                for (int e = 0; e < 2; ++e)
-                    if (m0 + j * 8 + 2 * tig + e < M) sum += expf(s[j][2 * h + e] - m_new);
-            l_r[h] = l_r[h] * expf(m_r[h] - m_new) + sum;
+            for (int c = 0; c < 8; ++c)
+                sum += ex2((s[4 * c + 2 * h] - m_new) * LOG2E) +
+                       ex2((s[4 * c + 2 * h + 1] - m_new) * LOG2E);
+            l_r[h] = l_r[h] * ex2((m_r[h] - m_new) * LOG2E) + sum;
             m_r[h] = m_new;
         }
-        __syncthreads();  // this K buffer is refilled two tiles on
     }
     float row_lse[2];
 #pragma unroll
@@ -196,90 +187,101 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         float m = m_r[h];
         m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
         m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
-        float l = l_r[h] * expf(m_r[h] - m);  // 0 for a thread with no valid column
+        float l = m_r[h] == -INFINITY ? 0.0f : l_r[h] * ex2((m_r[h] - m) * LOG2E);
         l += __shfl_xor_sync(0xffffffffu, l, 1);
         l += __shfl_xor_sync(0xffffffffu, l, 2);
         row_lse[h] = m + logf(l);
     }
-    if (blockIdx.y == 0 && tig == 0) {
+    if (blockIdx.y == 0 && q2 == 0) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-            const int n = n0 + warp * 16 + g + 8 * h;
+            const int n = n0 + 64 * wg + r + 8 * h;
             if (n < N) lse[(size_t)b * N + n] = row_lse[h];
         }
     }
 
-    // pass 2: normalised bf16 P straight from the logit registers, P.V
-    float acc[DVT / 8][4];
+    // pass 2: normalised bf16 P from the logit registers, O += P V
+    float acc[DVT / 2];
 #pragma unroll
-    for (int f = 0; f < DVT / 8; ++f) acc[f][0] = acc[f][1] = acc[f][2] = acc[f][3] = 0.0f;
-    load_tile_async(ks, kb, 0, TM, M, dk, 0, dk);
-    load_tile_async(vs, vb, 0, TM, M, dv, c0, DVT);
-    __pipeline_commit();
-    for (int t = 0; t < ntiles; ++t) {
-        if (t + 1 < ntiles) {
-            const int nb = (t + 1) & 1;
-            load_tile_async(ks + nb * TM * ldk, kb, (t + 1) * TM, TM, M, dk, 0, dk);
-            load_tile_async(vs + nb * TM * LDV, vb, (t + 1) * TM, TM, M, dv, c0, DVT);
+    for (int i = 0; i < DVT / 2; ++i) acc[i] = 0.0f;
+    for (int it = T; it < 2 * T; ++it) {
+        const int st = it % stages;
+        mbar_wait(&full[st], (it / stages) & 1);
+        float s[32];
+        logits(s, st);
+        mask_last(s, it - T);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) s[i] = ex2((s[i] - row_lse[(i / 2) % 2]) * LOG2E);
+        uint32_t pa[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) acc_to_frag(pa[kk], s, kk);
+        const uint32_t vs_a = ring_a + st * stage_bytes + plan.k_bytes;
+        // the tile's P V into a fresh accumulator added to the running
+        // one in f32 where registers allow (DVT 128): a wgmma chain's own
+        // rounding drifts over hundreds of k-steps (N = 5625)
+        float tmp[DVT == 128 ? DVT / 2 : 1];
+        float (&dst)[DVT / 2] = *reinterpret_cast<float (*)[DVT / 2]>(DVT == 128 ? tmp : acc);
+        fence_regs(acc);
+        fence_regs(dst);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+            // V rows 16 kk .. + 16 (the reduction), DVT columns in 64-column boxes
+            const uint64_t db = make_desc(vs_a + kk * 16 * 128, TM * 128, 1024, 1);
+            wgmma_rs<DVT, 1>(dst, pa[kk], db, DVT == 128 ? kk > 0 : 1);
         }
-        __pipeline_commit();
-        __pipeline_wait_prior(1);
-        __syncthreads();
-        float s[TM / 8][4];
-        tile_logits(s, qf, ks + (t & 1) * TM * ldk, dk, lane);
-        const bf16* vt = vs + (t & 1) * TM * LDV;
-        const int m0 = t * TM;
-        const int mi = lane >> 3, r = lane & 7;
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dst);
+        mbar_arrive(&empty[st]);
+        if constexpr (DVT == 128) {
 #pragma unroll
-        for (int kk = 0; kk < TM / 16; ++kk) {
-            // A operand of keys kk*16 .. +15 = logit tiles 2kk and 2kk+1
-            uint32_t pa[4];
-#pragma unroll
-            for (int half = 0; half < 2; ++half) {
-                const int j = 2 * kk + half;
-                const int col = m0 + j * 8 + 2 * tig;
-                float p[4];
-#pragma unroll
-                for (int e = 0; e < 4; ++e)
-                    p[e] = (col + (e & 1) < M) ? expf(s[j][e] - row_lse[e >> 1]) : 0.0f;
-                pa[2 * half] = pack_bf16(p[0], p[1]);      // row g
-                pa[2 * half + 1] = pack_bf16(p[2], p[3]);  // row g + 8
-            }
-#pragma unroll
-            for (int f = 0; f < DVT / 8; f += 2) {
-                // B operands of value-column tiles f, f+1 from row-major V
-                uint32_t bv[4];
-                ldmatrix_x4_trans(bv, vt + (kk * 16 + (mi & 1) * 8 + r) * LDV + (f + (mi >> 1)) * 8);
-                mma_bf16(acc[f], pa, bv[0], bv[1]);
-                mma_bf16(acc[f + 1], pa, bv[2], bv[3]);
-            }
+            for (int i = 0; i < DVT / 2; ++i) acc[i] += tmp[i];
         }
-        __syncthreads();  // this K/V buffer is refilled two tiles on
+        fence_regs(acc);
     }
 
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-        const int n = n0 + warp * 16 + g + 8 * h;
-        if (n < N) {
-            float* orow = o + ((size_t)b * N + n) * dv + c0 + 2 * tig;
+        const int n = n0 + 64 * wg + r + 8 * h;
+        if (n >= N) continue;
+        float* orow = o + ((size_t)b * N + n) * dv + c0;
 #pragma unroll
-            for (int f = 0; f < DVT / 8; ++f)
-                *reinterpret_cast<float2*>(orow + f * 8) = make_float2(acc[f][2 * h], acc[f][2 * h + 1]);
+        for (int c = 0; c < DVT / 8; ++c) {
+            const int col = 8 * c + q2;
+            if (c0 + col < dv)
+                *reinterpret_cast<float2*>(orow + col) =
+                    make_float2(acc[4 * c + 2 * h], acc[4 * c + 2 * h + 1]);
         }
     }
 }
 
-template <int DVT>
-cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, float* o, float* lse,
-                   int B, int N, int M, int dk, int dv, cudaStream_t stream) {
-    const size_t smem = ((size_t)(TN + 2 * TM) * (dk + PAD) + (size_t)2 * TM * (DVT + PAD)) *
-                        sizeof(bf16);
-    cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<DVT>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <int DK, int DVT>
+cudaError_t launch(const void* q, const void* k, const void* v, float* o, float* lse, int B,
+                   int N, int M, int dk, int dv, cudaStream_t stream) {
+    int stages = MAX_STAGES;
+    while (stages > 2 && smem_plan<DK, DVT>(stages).total > SMEM_LIMIT) --stages;
+    const int smem = smem_plan<DK, DVT>(stages).total;
+    if (smem > SMEM_LIMIT) return cudaErrorInvalidValue;
+    CUtensorMap tq, tk, tv;
+    const int bw = Tile<DK>::BW;
+    if (!sm90_host::tensor_map_cached(&tq, q, B, N, dk, BM, bw) ||
+        !sm90_host::tensor_map_cached(&tk, k, B, M, dk, TM, bw) ||
+        !sm90_host::tensor_map_cached(&tv, v, B, M, dv, TM, 64))
+        return cudaErrorInvalidValue;
+    cudaError_t err = cudaFuncSetAttribute(flash_fwd_sm90<DK, DVT>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    const dim3 grid((N + TN - 1) / TN, dv / DVT, B);
-    flash_fwd_kernel<DVT><<<grid, THREADS, smem, stream>>>(q, k, v, o, lse, N, M, dk, dv);
+    const dim3 grid((N + BM - 1) / BM, (dv + DVT - 1) / DVT, B);
+    flash_fwd_sm90<DK, DVT><<<grid, THREADS, smem, stream>>>(tq, tk, tv, o, lse, N, M, dv, stages);
     return cudaGetLastError();
+}
+
+template <int DK>
+cudaError_t launch_dk(const void* q, const void* k, const void* v, float* o, float* lse, int B,
+                      int N, int M, int dk, int dv, cudaStream_t s) {
+    return dv <= 128 ? launch<DK, 128>(q, k, v, o, lse, B, N, M, dk, dv, s)
+                     : launch<DK, 256>(q, k, v, o, lse, B, N, M, dk, dv, s);
 }
 
 }  // namespace
@@ -289,19 +291,15 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, float* o, float*
 // Returns the CUDA error code of the launch (0 on success).
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                               int B, int N, int M, int dk, int dv, void* stream) {
-    if (B < 1 || N < 1 || M < 1 || dk % 16 || dk > MAX_DK || dk < 16 || dv % 16 || dv < 16)
+    if (B < 1 || N < 1 || M < 1 || dk % 16 || dk > 128 || dk < 16 || dv % 16 || dv < 16)
         return (int)cudaErrorInvalidValue;
-    const bf16* qq = static_cast<const bf16*>(q);
-    const bf16* kk = static_cast<const bf16*>(k);
-    const bf16* vv = static_cast<const bf16*>(v);
     float* oo = static_cast<float*>(o);
     float* ll = static_cast<float*>(lse);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     cudaError_t err;
-    if (dv % 128 == 0) err = launch<128>(qq, kk, vv, oo, ll, B, N, M, dk, dv, s);
-    else if (dv % 64 == 0) err = launch<64>(qq, kk, vv, oo, ll, B, N, M, dk, dv, s);
-    else if (dv % 32 == 0) err = launch<32>(qq, kk, vv, oo, ll, B, N, M, dk, dv, s);
-    else err = launch<16>(qq, kk, vv, oo, ll, B, N, M, dk, dv, s);
+    if (dk <= 32) err = launch_dk<32>(q, k, v, oo, ll, B, N, M, dk, dv, s);
+    else if (dk <= 64) err = launch_dk<64>(q, k, v, oo, ll, B, N, M, dk, dv, s);
+    else err = launch_dk<128>(q, k, v, oo, ll, B, N, M, dk, dv, s);
     return (int)err;
 }
 

@@ -10,7 +10,8 @@
 3. the label map is upscaled to the image size by nearest neighbour and
    the score map bilinearly, with OpenCV's conventions (``cv2.resize``
    INTER_NEAREST: source index floor(d * src / dst); INTER_LINEAR:
-   half-pixel centres, edge rows repeated);
+   half-pixel centres, edge rows repeated, rounded as the IPP path of
+   x86 OpenCV builds rounds it);
 4. per component: the minimum-area rectangle of its outer contour
    (``cv2.minAreaRect(cv2.findContours(..., RETR_CCOMP)[0][0])``), the
    side and area filters, its corner points (``cv2.boxPoints``) truncated
@@ -21,14 +22,13 @@ Step 4 without OpenCV: an upscaled component is one 8-connected piece
 (nearest-neighbour upscaling keeps diagonal contacts), so the first
 contour OpenCV returns for it is its outer border, whose convex hull is
 the hull of the component's pixels: the hull of each row's first and
-last pixel. ``min_area_rect`` is OpenCV's rotating calipers over that
-hull, in f32, with OpenCV's order of hull vertices (clockwise in y-up
-coordinates from the component's first pixel in raster order) and its
-rule for equal areas (the last one found wins). Its f32 rounding is not
-OpenCV's bit for bit: the centre can differ in the last bits and, among
-rectangles of equal area, another one can be chosen, so a truncated
-corner, and with it a box edge, can move by a pixel (ROADMAP.md, Queue
-C; ``tests/test_torch_pixellink.py``).
+last pixel. ``_hull`` lists those vertices in the order the border
+visits them; ``min_area_rect`` is OpenCV 5.0's ``minAreaRect`` bit for
+bit (its ``convexHull``, the rotating calipers in f32 and the double
+epilogue), so for every component whose border visits each hull vertex
+once, as it does at any upscaling factor of 2 or more, the rectangle
+is OpenCV's (``tests/test_torch_decode_rect.py`` holds it against cv2
+on random contours).
 """
 
 from __future__ import annotations
@@ -92,34 +92,58 @@ def resize_nearest(a: np.ndarray, size: int) -> np.ndarray:
 
 
 def _linear_taps(n: int, size: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """OpenCV's INTER_LINEAR source taps for one axis: (i0, i1, frac f32)."""
-    scale = 1.0 / (size / n)
-    f = ((np.arange(size) + 0.5) * scale - 0.5).astype(_F)
+    """INTER_LINEAR source taps for one axis: (i0, i1, frac), the
+    fraction taken in double and rounded once to f32."""
+    f = (np.arange(size) + 0.5) * (n / size) - 0.5
     i0 = np.floor(f).astype(np.int64)
-    f = (f - i0.astype(_F)).astype(_F)
+    f = f - i0
     low = i0 < 0
     f[low], i0[low] = 0, 0
     high = i0 >= n - 1
     f[high], i0[high] = 0, n - 1
-    return i0, np.minimum(i0 + 1, n - 1), f
+    return i0, np.minimum(i0 + 1, n - 1), f.astype(_F)
+
+
+def _fma_f32(x: np.ndarray, y: np.ndarray, z: np.ndarray) -> np.ndarray:
+    """x * y + z of f32 arrays with one rounding to f32, as a fused
+    multiply-add: the product is exact in f64, the sum's f64 rounding
+    error is recovered (two-sum) and decides the f32 rounding where the
+    f64 sum falls on a tie between two f32 values."""
+    p = x.astype(np.float64) * y.astype(np.float64)
+    zd = z.astype(np.float64)
+    s = p + zd
+    bp = s - zd
+    err = (p - bp) + (zd - (s - bp))
+    r = s.astype(_F)
+    other = np.nextafter(r, np.where(s > r, np.inf, -np.inf).astype(_F))
+    tie = (s != r) & ((r.astype(np.float64) + other.astype(np.float64)) * 0.5 == s) & (err != 0)
+    toward = (other > r) == (err > 0)
+    return np.where(tie & toward, other, r)
 
 
 def resize_linear(a: np.ndarray, size: int) -> np.ndarray:
     """``cv2.resize(a, (size, size), interpolation=INTER_LINEAR)`` of an
-    f32 map: rows first, then columns, in f32."""
+    f32 map as x86 OpenCV builds compute it (through IPP): rows first,
+    then columns, each pass ``s0 + (s1 - s0) * frac`` as one f32
+    fused multiply-add."""
     a = np.asarray(a, _F)
     h, w = a.shape
     x0, x1, fx = _linear_taps(w, size)
     y0, y1, fy = _linear_taps(h, size)
-    rows = a[:, x0] * (_F(1) - fx) + a[:, x1] * fx
-    return (rows[y0] * (_F(1) - fy)[:, None] + rows[y1] * fy[:, None]).astype(_F)
+
+    def lerp(s0, s1, f):
+        return _fma_f32(s1 - s0, np.broadcast_to(f, s0.shape), s0)
+
+    rows = lerp(a[:, x0], a[:, x1], fx[None, :])
+    return lerp(rows[y0], rows[y1], fy[:, None])
 
 
 def _hull(pts: np.ndarray) -> np.ndarray:
     """Convex hull [k, 2] f32 of integer points [n, 2] (x, y) without
-    collinear vertices, in OpenCV's minAreaRect order: from the first
-    point in raster order (least y, then least x), clockwise in y-up
-    coordinates (down the left side first, on the image)."""
+    collinear vertices, in the order in which the outer contour of
+    their component visits them: from the first point in raster order
+    (least y, then least x), down the left side first on the image,
+    as ``cv2.findContours`` traces an outer border."""
     p = sorted(set(map(tuple, pts.tolist())))
     if len(p) <= 2:
         return np.asarray(p, _F).reshape(-1, 2)
@@ -142,20 +166,133 @@ def _hull(pts: np.ndarray) -> np.ndarray:
     return np.asarray(ring[start:] + ring[:start], _F)
 
 
-def min_area_rect(hull: np.ndarray) -> Tuple[Tuple[float, float], Tuple[float, float], float]:
-    """``cv2.minAreaRect`` of a hull from ``_hull``: ((cx, cy), (w, h),
-    angle in degrees), by OpenCV's rotating calipers in f32."""
+def _sign(v) -> int:
+    return (v > 0) - (v < 0)
+
+
+def _sklansky(p, start: int, end: int, stack: List[int], nsign: int, sign2: int) -> int:
+    """OpenCV's ``Sklansky_``: one quarter of the hull of the sorted
+    points ``p`` from index ``start`` to ``end``, into ``stack``;
+    returns the number of hull points."""
+    incr = 1 if end > start else -1
+    pprev, pcur = start, start + incr
+    pnext = pcur + incr
+    if start == end or p[start] == p[end]:
+        stack[0] = start
+        return 1
+    stack[0:3] = [pprev, pcur, pnext]
+    size = 3
+    end += incr
+    while pnext != end:
+        by = p[pnext][1] - p[pcur][1]
+        if _sign(by) != nsign:
+            ax = p[pcur][0] - p[pprev][0]
+            bx = p[pnext][0] - p[pcur][0]
+            ay = p[pcur][1] - p[pprev][1]
+            if _sign(ay * bx - ax * by) == sign2 and (ax != 0 or ay != 0):
+                pprev, pcur = pcur, pnext
+                pnext += incr
+                stack[size] = pnext
+                size += 1
+            elif pprev == start:
+                pcur = pnext
+                stack[1] = pcur
+                pnext += incr
+                stack[2] = pnext
+            else:
+                stack[size - 2] = pnext
+                pcur = pprev
+                pprev = stack[size - 4]
+                size -= 1
+        else:
+            pnext += incr
+            stack[size - 1] = pnext
+    return size - 1
+
+
+def convex_hull(points: np.ndarray) -> np.ndarray:
+    """``cv2.convexHull(points, clockwise=False)`` of integer points
+    [n, 2] (x, y): OpenCV's Sklansky scan over the points sorted by (x,
+    y, input index), then its cyclic shift that makes the hull's input
+    indices ascend or descend where they can. The order of the input
+    points decides where the hull starts."""
+    data = [tuple(q) for q in np.asarray(points).reshape(-1, 2).tolist()]
+    total = len(data)
+    ptr = sorted(range(total), key=lambda i: (data[i][0], data[i][1], i))
+    p = [data[i] for i in ptr]
+    miny = maxy = 0
+    for i in range(1, total):
+        if p[miny][1] > p[i][1]:
+            miny = i
+        if p[maxy][1] < p[i][1]:
+            maxy = i
+    if p[0] == p[-1]:
+        return np.asarray([data[0]], _F)
+    # upper half (clockwise=False takes the right-hand scan first)
+    tl, tr = [0] * (total + 2), [0] * (total + 2)
+    ntl = _sklansky(p, 0, maxy, tl, -1, 1)
+    ntr = _sklansky(p, total - 1, maxy, tr, -1, -1)
+    tl, tr, ntl, ntr = tr, tl, ntr, ntl
+    idx = [ptr[tl[i]] for i in range(ntl - 1)] + [ptr[tr[i]] for i in range(ntr - 1, 0, -1)]
+    stop = tr[1] if ntr > 2 else (tl[ntl - 2] if ntl > 2 else -1)
+    # lower half
+    bl, br = [0] * (total + 2), [0] * (total + 2)
+    nbl = _sklansky(p, 0, miny, bl, 1, -1)
+    nbr = _sklansky(p, total - 1, miny, br, 1, 1)
+    if stop >= 0:
+        check = bl[1] if nbl > 2 else (br[2] if nbl + nbr > 3 else -1)
+        if check == stop or (check >= 0 and p[check] == p[stop]):
+            # all points on one line: the lower half mirrors the upper
+            nbl, nbr = min(nbl, 2), min(nbr, 2)
+    idx += [ptr[bl[i]] for i in range(nbl - 1)] + [ptr[br[i]] for i in range(nbr - 1, 0, -1)]
+    n = len(idx)
+    if n >= 3:
+        lo = hi = lt = 0
+        for i in range(1, n):
+            lt += idx[i - 1] < idx[i]
+            if 1 < lt <= i - 2:
+                break
+            if idx[i] < idx[lo]:
+                lo = i
+            if idx[i] > idx[hi]:
+                hi = i
+        if abs(hi - lo) in (1, n - 1) and (lt <= 1 or lt >= n - 2):
+            ascending = (hi + 1) % n == lo
+            i0 = lo if ascending else hi
+            shifted = idx[i0:] + idx[:i0]
+            if i0 > 0 and all((a < b) == ascending for a, b in zip(shifted, shifted[1:])):
+                idx = shifted
+    return np.asarray([data[i] for i in idx], _F).reshape(-1, 2)
+
+
+def _normalized(size: Tuple[float, float], degrees: float):
+    """OpenCV 5's rectangle convention: the angle in [-90, 0), turned by
+    steps of 90 degrees in double, each step swapping width and height."""
+    w, h = size
+    while degrees >= 0:
+        degrees, w, h = degrees - 90, h, w
+    while degrees < -90:
+        degrees, w, h = degrees + 90, h, w
+    return (float(w), float(h)), float(_F(degrees))
+
+
+def min_area_rect(points: np.ndarray) -> Tuple[Tuple[float, float], Tuple[float, float], float]:
+    """``cv2.minAreaRect`` (OpenCV 5.0) of integer points [n, 2] (x,
+    y), bit for bit: ((cx, cy), (w, h), angle in degrees). The hull is
+    ``convex_hull``'s; the rotating calipers run in f32 as OpenCV's do,
+    choosing the next edge by the sign of a cross product; centre, size
+    and the angle's double epilogue are OpenCV's."""
+    hull = convex_hull(points)
     n = len(hull)
     if n == 1:
-        return (float(hull[0, 0]), float(hull[0, 1])), (0.0, 0.0), 0.0
+        return (float(hull[0, 0]), float(hull[0, 1])), *_normalized((0.0, 0.0), 0.0)
     if n == 2:
         cx = float((hull[0, 0] + hull[1, 0]) * _F(0.5))
         cy = float((hull[0, 1] + hull[1, 1]) * _F(0.5))
         dx = float(hull[1, 0]) - float(hull[0, 0])
         dy = float(hull[1, 1]) - float(hull[0, 1])
-        ang = float(_F(math.atan2(dy, dx)))
-        return (cx, cy), (float(_F(math.sqrt(dx * dx + dy * dy))), 0.0), \
-            float(_F(ang * 180 / math.pi))
+        size = (float(_F(math.sqrt(dx * dx + dy * dy))), 0.0)
+        return (cx, cy), *_normalized(size, math.atan2(dy, dx) * 180 / math.pi)
     pts = [(_F(x), _F(y)) for x, y in hull]
     vect, inv_len = [], []
     left = bottom = right = top = 0
@@ -172,7 +309,7 @@ def min_area_rect(hull: np.ndarray) -> Tuple[Tuple[float, float], Tuple[float, f
         if py < bottom_y:
             bottom_y, bottom = py, i
         qx, qy = pts[(i + 1) % n]
-        dx, dy = float(qx) - float(px), float(qy) - float(py)
+        dx, dy = float(qx - px), float(qy - py)
         vect.append((_F(dx), _F(dy)))
         inv_len.append(_F(1.0 / math.sqrt(dx * dx + dy * dy)))
     orientation = _F(0)
@@ -189,16 +326,16 @@ def min_area_rect(hull: np.ndarray) -> Tuple[Tuple[float, float], Tuple[float, f
     minarea = _F(np.finfo(_F).max)
     best = None
     for _ in range(n):
-        dp = (base_a * vect[seq[0]][0] + base_b * vect[seq[0]][1],
-              -base_b * vect[seq[1]][0] + base_a * vect[seq[1]][1],
-              -base_a * vect[seq[2]][0] - base_b * vect[seq[2]][1],
-              base_b * vect[seq[3]][0] - base_a * vect[seq[3]][1])
-        maxcos = dp[0] * inv_len[seq[0]]
+        # each caliper's edge turned into the frame of the first one;
+        # the edge that is furthest clockwise leads
+        rot = (vect[seq[0]],
+               (vect[seq[1]][1], -vect[seq[1]][0]),
+               (-vect[seq[2]][0], -vect[seq[2]][1]),
+               (-vect[seq[3]][1], vect[seq[3]][0]))
         main = 0
         for i in range(1, 4):
-            c = dp[i] * inv_len[seq[i]]
-            if c > maxcos:
-                main, maxcos = i, c
+            if rot[i][1] * rot[main][0] - rot[i][0] * rot[main][1] < 0:
+                main = i
         pi = seq[main]
         lead_x = vect[pi][0] * inv_len[pi]
         lead_y = vect[pi][1] * inv_len[pi]
@@ -228,22 +365,22 @@ def min_area_rect(hull: np.ndarray) -> Tuple[Tuple[float, float], Tuple[float, f
     cy = py + (o1[1] + o2[1]) * _F(0.5)
     w = _F(math.sqrt(float(o1[0]) ** 2 + float(o1[1]) ** 2))
     h = _F(math.sqrt(float(o2[0]) ** 2 + float(o2[1]) ** 2))
-    ang = _F(math.atan2(float(o1[1]), float(o1[0])))
-    return (float(cx), float(cy)), (float(w), float(h)), float(_F(float(ang) * 180 / math.pi))
+    degrees = math.atan2(float(o1[1]), float(o1[0])) * 180 / math.pi
+    return (float(cx), float(cy)), *_normalized((float(w), float(h)), degrees)
 
 
 def box_points(center, size, angle) -> np.ndarray:
-    """``cv2.boxPoints``: the 4 corners [4, 2] f32 of a rotated rect."""
+    """``cv2.boxPoints`` (OpenCV 5.0): the 4 corners [4, 2] f32 of a
+    rotated rect, each one centre +- the two half sides in f32."""
     cx, cy = _F(center[0]), _F(center[1])
     w, h = _F(size[0]), _F(size[1])
-    rad = angle * math.pi / 180.0
+    rad = float(_F(angle)) * math.pi / 180.0
     b = _F(math.cos(rad)) * _F(0.5)
     a = _F(math.sin(rad)) * _F(0.5)
-    p0 = (cx - a * h - b * w, cy + b * h - a * w)
-    p1 = (cx + a * h - b * w, cy - b * h - a * w)
-    p2 = (_F(2) * cx - p0[0], _F(2) * cy - p0[1])
-    p3 = (_F(2) * cx - p1[0], _F(2) * cy - p1[1])
-    return np.asarray([p0, p1, p2, p3], _F)
+    return np.asarray([(cx - a * h - b * w, cy + b * h - a * w),
+                       (cx + a * h - b * w, cy - b * h - a * w),
+                       (cx + a * h + b * w, cy - b * h + a * w),
+                       (cx - a * h + b * w, cy + b * h + a * w)], _F)
 
 
 def _components_of(labels_up: np.ndarray):

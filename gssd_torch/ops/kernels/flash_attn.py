@@ -15,7 +15,8 @@ Forward: unscaled f32 logits, f32 softmax, P normalised in f32 and
 rounded to bf16, P.V accumulated in f32. Backward: D = rowsum(dO * O),
 P = exp(S - lse) in f32, dV = bf16(P)^T dO, dP = dO V^T, dS = P * (dP -
 D) in f32, dQ = dS K and dK = dS^T Q as f32 products; the gradients are
-rounded to bf16.
+rounded to bf16. ``flash_contract`` states this rounding contract and
+the mean-error check that holds the kernels to it.
 """
 
 from __future__ import annotations
@@ -34,7 +35,6 @@ MAX_M = 8192
 KERNEL = CudaKernel(
     "flash_attn_fwd.cu", "flash_attn_fwd",
     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5)
-# one launch = the dV kernel and the dK/dQ kernel, back to back
 BWD_KERNEL = CudaKernel(
     "flash_attn_bwd.cu", "flash_attn_bwd",
     [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5)

@@ -12,6 +12,7 @@ import torch
 from gssd_torch.ops.kernels import deform_hat as dh
 from gssd_torch.ops.kernels import deform_sample as ds
 from gssd_torch.ops.kernels import flash_attn as fa
+from gssd_torch.ops.kernels import flash_contract as fc
 from gssd_torch.ops.kernels import stem_conv as sc
 
 pytestmark = pytest.mark.cuda
@@ -25,7 +26,12 @@ def gen():
 
 
 @pytest.mark.parametrize("B,N,M,dk,dv", [
-    (2, 70, 9, 16, 48), (1, 1, 1, 32, 16), (3, 130, 130, 128, 512), (2, 64, 200, 64, 96)])
+    (2, 70, 9, 16, 48), (1, 1, 1, 32, 16), (3, 130, 130, 128, 512), (2, 64, 200, 64, 96),
+    # the new design's edges: ragged 128-row and 64-key tiles at the 75x75
+    # site, N and M off both, dv 512 (two column slices), dk 128, N < 64
+    # with M > N
+    (2, 5625, 5625, 32, 128), (2, 130, 70, 64, 256), (2, 200, 200, 128, 512),
+    (2, 100, 100, 128, 256), (2, 30, 100, 32, 128)])
 def test_flash_kernel_matches_plain(gen, B, N, M, dk, dv):
     q = torch.randn(B, N, dk, device="cuda", generator=gen).bfloat16()
     k = torch.randn(B, M, dk, device="cuda", generator=gen).bfloat16()
@@ -38,6 +44,13 @@ def test_flash_kernel_matches_plain(gen, B, N, M, dk, dv):
     # a bf16 rounding of P can flip between the two summation orders
     assert (o - o_ref).abs().max() <= 1e-2 * o_ref.abs().max()
     assert (lse - lse_ref).abs().max() <= 1e-4 * lse_ref.abs().max().clamp(min=1)
+    # the rounding contract, on inputs whose logits are exact in any order
+    qc, kc, vc = fc.contract_inputs(q, k, v)
+    oc, _ = fa.flash_attention_fwd(qc, kc, vc)
+    torch.cuda.synchronize()
+    assert fa.KERNEL.launches == before + 2
+    oc_ref, _ = fa.flash_attention_fwd_plain(qc, kc, vc)
+    assert fc.mean_rel_err(oc, oc_ref) <= fc.mean_limit("o", oc_ref)
 
 
 @pytest.mark.parametrize("B,H,W,C,G,Cout,stride", [
@@ -77,7 +90,12 @@ def _rel_err(got, want):
 
 @pytest.mark.parametrize("B,N,M,dk,dv", [
     (2, 70, 9, 16, 48), (1, 1, 1, 32, 16), (2, 200, 200, 128, 512), (3, 9, 200, 48, 96),
-    (1, 130, 1, 64, 256)])
+    (1, 130, 1, 64, 256),
+    # the new design's edges: ragged 128-key and 64-query tiles at the
+    # 75x75 site, N and M off both, dv 512 (two walks), dk 128, N < 64
+    # with M > N
+    (2, 5625, 5625, 32, 128), (2, 130, 70, 64, 256), (3, 130, 130, 128, 512),
+    (2, 100, 100, 128, 256), (2, 30, 100, 32, 128)])
 def test_flash_bwd_kernel_matches_plain(gen, B, N, M, dk, dv):
     q = torch.randn(B, N, dk, device="cuda", generator=gen).bfloat16()
     k = torch.randn(B, M, dk, device="cuda", generator=gen).bfloat16()
@@ -98,6 +116,16 @@ def test_flash_bwd_kernel_matches_plain(gen, B, N, M, dk, dv):
         # move a bf16 rounding of P or of the result by one step
         err = (a.float() - b.float()).abs().max().item()
         assert err <= 1e-2 * scale, (name, err, scale)
+    # the rounding contract, on inputs whose logits and dP are exact in
+    # any order: f32 dS into dq and dk, per output
+    qc, kc, vc, doc = fc.contract_inputs(q, k, v, do)
+    oc, lsec = fa.flash_attention_fwd_plain(qc, kc, vc)
+    gotc = fa.flash_attention_bwd(qc, kc, vc, oc, lsec, doc)
+    torch.cuda.synchronize()
+    assert fa.BWD_KERNEL.launches == before + 2
+    wantc = fa.flash_attention_bwd_plain(qc, kc, vc, oc, lsec, doc)
+    errs, limits = fc.bwd_mean_errs(gotc, wantc, M), fc.bwd_mean_limits(wantc, M)
+    assert all(e <= lim for e, lim in zip(errs, limits)), (errs, limits)
 
 
 @pytest.mark.parametrize("B,H,W,C,G,Cout", [
