@@ -49,6 +49,9 @@ In order, failing (exit code 1) at the first phase that goes wrong:
 9. holds the three deform_sample kernels against their plain versions at
    the 38x38 DCN site (fwd at batch 8 and 32, dx and dA/dB at batch 32),
    within SAMPLE_TOL, and times them beside one ``torch.einsum`` each;
+   the dx kernel, which adds only the terms inside each hat row's
+   non-zero range, must give the dense order's sum bit for bit (one p at
+   a time, ascending), and its bound counts the terms this data needs;
 10. serves through ``gssd_torch.infer.main --dcn_impl pallas``: 9
    ``deform_sample_fwd`` and 12 ``flash_attn_fwd`` launches per forward,
    no ``deform_conv_fwd``;
@@ -81,10 +84,18 @@ In order, failing (exit code 1) at the first phase that goes wrong:
    and 1 + 1 DCN launches per step, finite losses, ms/step), runs its
    evaluation and checkpoint, then ``--test True --checkpoint`` (the
    AP/IoBB keys in [0, 1]; 2 stem, 8 attention, 1 DCN launches per
-   batch); one step with the switch off launches no stem kernel;
+   batch); then as many steps with the switch off, which launch no stem
+   kernel (both medians printed);
 17. PixelLink++ bf16 on the card (kernels) against f32 on the CPU (plain
    versions): logits within E2E_TOL, a train-mode loss at batch 2 within
-   TRAIN_LOSS_TOL.
+   TRAIN_LOSS_TOL;
+18. repeatability: each of the nine kernel boundaries twice on the same
+   inputs at its training shape must give the same bits; then, in a
+   child process with CUBLAS_WORKSPACE_CONFIG=:4096:8 and
+   ``torch.use_deterministic_algorithms(True)``, one ``hat`` GSSD++
+   training step at batch DET_BATCH twice from the same state and batch:
+   every parameter's gradient the same bits (the same without the mode is
+   reported, and the step timed both ways).
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or outside a
@@ -521,6 +532,32 @@ def sample_inputs(batch):
     return a, b, x, gout
 
 
+def hat_extent(rows):
+    """Cells from the first to the last non-zero of each hat row (0 for
+    an all-zero row): [..., P, n] -> [..., P]."""
+    import torch
+
+    nz = rows != 0
+    idx = torch.arange(rows.shape[-1], device=rows.device)
+    first = torch.where(nz, idx, rows.shape[-1]).amin(-1)
+    last = torch.where(nz, idx, -1).amax(-1)
+    return (last - first + 1).clamp(min=0)
+
+
+def dense_order_dx(af, bf, gf):
+    """The sampler dx in the dense order, one p at a time in ascending p,
+    each term A * (B * g) (exact in f32) added once: the sum the dense
+    kernel formed, bit for bit."""
+    import torch
+
+    N, G, P, H = af.shape
+    out = torch.zeros(N, G, H, bf.shape[-1], gf.shape[-1], dtype=torch.float32,
+                      device=af.device)
+    for p in range(P):
+        out += af[:, :, p, :, None, None] * (bf[:, :, p, None, :, None] * gf[:, :, p, None, None])
+    return out
+
+
 def check_sample():
     """The three deform_sample kernels against their plain versions at the
     38x38 site: fwd at batch 8 and 32, dx and dA/dB at batch 32; each
@@ -563,14 +600,23 @@ def check_sample():
     torch.cuda.synchronize()
     err, rel = compare("deform_sample_dx", [dx], [ds.abx_dx_plain(a, b, gout)])
     af, bf, gf = a.float(), b.float(), gout.float()
-    b_ms, b_by = bound(0, nbytes_of(a, b, gout, dx), f32_ops=2 * n_mac)
+    dense = dense_order_dx(af, bf, gf)
+    check(torch.equal(dx, dense), "deform_sample_dx: not the dense order's sum bit for bit "
+                                  f"(max diff {(dx - dense).abs().max().item()})")
+    del dense
+    # the work this data needs: 3 f32 operations (B * g, then A * E added)
+    # a channel for each (qy, qx) inside both hat rows' non-zero ranges
+    terms = int((hat_extent(a) * hat_extent(b)).sum().item()) * (s["C"] // s["G"])
+    b_ms, b_by = bound(0, nbytes_of(a, b, gout, dx), f32_ops=3 * terms)
     sites["dx"] = dict(
-        B=TRAIN_BATCH, **s, max_abs_err=err, rel_err=rel,
-        ms=time_ms(lambda: ds.abx_dx(a, b, gout), iters=5),
+        B=TRAIN_BATCH, **s, max_abs_err=err, rel_err=rel, dense_order_bit_equal=True,
+        ms=time_ms(lambda: ds.abx_dx(a, b, gout), iters=10),
         plain_ms=time_ms(lambda: ds.abx_dx_plain(a, b, gout), iters=3, warmup=1),
         library_ms=time_ms(lambda: torch.einsum("ngph,ngpw,ngpc->nghwc", af, bf, gf),
                            iters=3, warmup=1),
-        bound_ms=b_ms, bound_by=b_by, f32_ops=2 * n_mac)
+        bound_ms=b_ms, bound_by=b_by, f32_ops=3 * terms,
+        dense_bound_ms=bound(0, nbytes_of(a, b, gout, dx), f32_ops=2 * n_mac)[0],
+        dense_f32_ops=2 * n_mac)
     del af, bf, gf
     da, db = ds.abx_dab(x, gout, a, b)
     torch.cuda.synchronize()
@@ -587,6 +633,9 @@ def check_sample():
         plain_ms=time_ms(lambda: ds.abx_dab_plain(x, gout, a, b), iters=3, warmup=1),
         library_ms=time_ms(library_dab, iters=3, warmup=1),
         bound_ms=b_ms, bound_by=b_by, ops=4 * n_mac)
+    print(f"deform_sample_dx: the dense order's sum bit for bit; bound for the terms this "
+          f"data needs {sites['dx']['bound_ms']:.4f} ms ({sites['dx']['bound_by']}), for the "
+          f"dense contraction {sites['dx']['dense_bound_ms']:.4f} ms", flush=True)
     for name, site in sites.items():
         print(f"deform_sample_{name} B={site['B']} 38x38 Cg={s['C'] // s['G']}: rel err "
               f"{site['rel_err']:.3g}, kernel {site['ms']:.4f} ms, plain {site['plain_ms']:.4f} "
@@ -1134,7 +1183,7 @@ PL_BATCH = 16  # the pixellink++ recipe's batch
 # (N = M tokens, dk, dv, launches per forward) of PixelLink++ (4s)'s 8
 # attention sites at 300 x 300
 PL_ATTN_SITES = [(5625, 32, 128, 2), (1444, 64, 256, 2), (361, 64, 256, 2), (361, 128, 512, 2)]
-PL_ITERS = 3
+PL_ITERS = 5
 # the stem kernels against their plain versions (both on the card): the
 # same roundings, f32 sums in another order, so a bf16 output can flip by
 # one ulp where its f32 sum lies near a rounding boundary. Every element
@@ -1444,20 +1493,24 @@ def pixellink(tmp, data):
               f"({1e3 * sum(decode_s) / len(decode_s):.1f} ms/image); the evaluation run took "
               f"{eval_s:.2f} s", flush=True)
 
+    # the switch off over as many steps as the switch-on run, so that the
+    # two medians compare like with like
     _reset_launches()
-    off = train_pixellink.main(pl_argv(tmp, data, "pl_off", "--max_iter", "1",
+    off = train_pixellink.main(pl_argv(tmp, data, "pl_off", "--max_iter", str(PL_ITERS),
                                        "--speedrun", "100000"))
     launches_off = _launches()
     check(launches_off["stem_conv_fwd"] == launches_off["stem_conv_bwd"] == 0
-          and launches_off["flash_attn_fwd"] == 16,
+          and launches_off["flash_attn_fwd"] == PL_STEP_LAUNCHES["flash_attn_fwd"] * PL_ITERS,
           f"pixellink++ with the switch off: expected no stem_conv launch, got {launches_off}")
-    print(f"pixellink++ with the switch off (cuDNN stem): launches {launches_off}; "
-          f"{off['records'][0]['ms']:.1f} ms for its one step", flush=True)
+    median_off = off["median_step_ms"]
+    print(f"pixellink++ with the switch off (cuDNN stem): launches {launches_off}; median "
+          f"{median_off:.2f} ms/step after the first step over {PL_ITERS} steps (switch on: "
+          f"{median:.2f}); steps {[round(r['ms'], 1) for r in off['records']]} ms", flush=True)
     return {"launches": launches, "records": res["records"], "median_step_ms": median,
             "evaluation": ev["evals"][0], "eval_run_s": eval_s, "test": tested,
             "test_s": test_s, "test_decode_s": sum(decode_s), "test_images": n_test,
-            "test_launches": launches_test,
-            "switch_off_launches": launches_off}
+            "test_launches": launches_test, "switch_off_launches": launches_off,
+            "switch_off_records": off["records"], "switch_off_median_step_ms": median_off}
 
 
 def seeded_pixellink(compute_dtype, seed=SEED):
@@ -1555,6 +1608,150 @@ def pixellink_parity(data):
     return {"logits_rel_err": errs, "loss_rel": rel, "losses": losses}
 
 
+# ---- repeatability: fixed-order sums, a deterministic training step ----
+
+# batch of the repeated whole training step (quick; the sums it exercises
+# are those of batch 32)
+DET_BATCH = 8
+DET_TIMED_STEPS = 5
+
+
+def _same_bits(first, second):
+    """Whether two calls' outputs (a tensor, or a tuple of tensors and
+    Nones) hold the same bits."""
+    import torch
+
+    pairs = zip(first, second) if isinstance(first, tuple) else [(first, second)]
+    return all(a is b is None or (a is not None and b is not None and torch.equal(a, b))
+               for a, b in pairs)
+
+
+def repeat_kernels():
+    """Each of the nine kernel boundaries twice on the same inputs at its
+    training shape (attention at the 12 GSSD++ sites, batch 32; the hat
+    DCN and the sampler at the 38x38 site, batch 32; the stem at
+    PixelLink++'s conv1_1 and conv1_2, batch 16): every output the same
+    bits both times."""
+    import torch
+
+    from gssd_torch.ops.kernels import deform_hat as dh
+    from gssd_torch.ops.kernels import deform_sample as ds
+    from gssd_torch.ops.kernels import flash_attn as fa
+    from gssd_torch.ops.kernels import stem_conv as sc
+
+    calls = {}
+
+    def twice(name, fn, *args):
+        same = _same_bits(fn(*args), fn(*args))
+        check(same, f"{name}: two calls on the same inputs give different bits")
+        calls[name] = calls.get(name, 0) + 1
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    for n, dk, dv, _ in ATTN_SITES:
+        q, k, v, do = attn_inputs(g, TRAIN_BATCH, n, dk, dv)
+        twice("flash_attn_fwd", fa.flash_attention_fwd, q, k, v)
+        o, lse = fa.flash_attention_fwd(q, k, v)
+        twice("flash_attn_bwd", fa.flash_attention_bwd, q, k, v, o, lse, do)
+        del q, k, v, do, o, lse
+    x, py, px, m, wg, bias = dcn_inputs(TRAIN_BATCH)
+    gout = torch.randn(TRAIN_BATCH, py.shape[1], wg.shape[-1], device="cuda", generator=g)
+    twice("deform_conv_fwd", dh.deform_conv_fwd, x, py, px, m, wg, bias)
+    twice("deform_conv_bwd", dh.deform_conv_bwd, x, py, px, m, wg, gout)
+    del x, py, px, m, wg, bias, gout
+    a, b, x, gs = sample_inputs(TRAIN_BATCH)
+    twice("deform_sample_fwd", ds.abx_fwd, a, b, x)
+    twice("deform_sample_dx", ds.abx_dx, a, b, gs)
+    twice("deform_sample_dab", ds.abx_dab, x, gs, a, b)
+    del a, b, x, gs
+    G = 4
+    for name, cin, cout in STEM_SITES:
+        x = torch.rand(PL_BATCH, cin, 300, 300, device="cuda", generator=g).bfloat16()
+        w = torch.randn(cout, cin // G, 3, 3, device="cuda", generator=g) / math.sqrt(9 * cin / G)
+        b = torch.randn(cout, device="cuda", generator=g)
+        gout = torch.randn(PL_BATCH, cout, 300, 300, device="cuda", generator=g).bfloat16()
+        twice("stem_conv_fwd", sc.stem_conv_fwd, x, w.bfloat16(), b, G)
+        twice("stem_conv_bwd", sc.stem_conv_bwd, x, w, gout, G, name != "conv1_1")
+        del x, gout
+    torch.cuda.synchronize()
+    print(f"repeatability: every kernel boundary gave the same bits twice ({calls} shapes)",
+          flush=True)
+    return calls
+
+
+def deterministic_step(data):
+    """The child of ``deterministic_step_check`` (run with
+    CUBLAS_WORKSPACE_CONFIG=:4096:8): under
+    torch.use_deterministic_algorithms(True), one ``hat`` GSSD++ training
+    step (forward, loss, backward) at batch DET_BATCH from seeded weights,
+    twice from the same state (the model's state reloaded: the step
+    updates the BN statistics and the spectral-norm vectors) and the same
+    batch; then the same without the mode; then the whole step with the
+    SGD update timed, DET_TIMED_STEPS times each way. Prints one JSON
+    line: the parameters whose gradients differ between the two runs of
+    each mode, and the median step ms of each mode."""
+    import copy
+
+    import torch
+
+    from gssd_torch.config import LossConfig
+    from gssd_torch.train import make_optimizer
+    from gssd_torch.train.steps import backward, forward_loss, train_step
+
+    model, priors = seeded_model("bfloat16")
+    model = model.to("cuda").train()
+    priors = torch.tensor(priors, device="cuda")
+    state = copy.deepcopy(model.state_dict())
+    batch = fixed_batch(data, DET_BATCH, "cuda")
+    opt, ocfg, lcfg = make_optimizer(model, _optim()), _optim(), LossConfig()
+    names = [n for n, _ in model.named_parameters()]
+
+    def grads():
+        model.load_state_dict(state)
+        loss_l, loss_c, _ = forward_loss(model, priors, batch, lcfg)
+        return [t.clone() for t in backward(model, opt, loss_l + loss_c)]
+
+    def step_ms():
+        times = []
+        for i in range(DET_TIMED_STEPS + 1):
+            model.load_state_dict(state)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train_step(model, opt, priors, batch, lcfg, ocfg, i)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return sorted(times[1:])[DET_TIMED_STEPS // 2]
+
+    out = {}
+    for key, mode in (("with_mode", True), ("without_mode", False)):
+        torch.use_deterministic_algorithms(mode)
+        first, second = grads(), grads()
+        out[key] = dict(
+            differing=[n for n, a, b in zip(names, first, second) if not torch.equal(a, b)],
+            params=len(names), step_ms=step_ms())
+    print(json.dumps(out), flush=True)
+
+
+def deterministic_step_check(data):
+    """Runs ``deterministic_step`` in a child process (python3
+    chip_smoke.py --deterministic-step DATA) with
+    CUBLAS_WORKSPACE_CONFIG=:4096:8: under deterministic algorithms every
+    parameter's gradient must be the same bits in both runs."""
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--deterministic-step",
+                           data], env=env, capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"the deterministic step failed (exit {proc.returncode}):\n"
+                                f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    on, off = res["with_mode"], res["without_mode"]
+    print(f"deterministic step (hat, batch {DET_BATCH}): with "
+          f"torch.use_deterministic_algorithms(True) {len(on['differing'])} of {on['params']} "
+          f"gradients differ between two runs, median step {on['step_ms']:.2f} ms; without "
+          f"the mode {len(off['differing'])} differ ({off['differing'][:6]}), median step "
+          f"{off['step_ms']:.2f} ms", flush=True)
+    check(not on["differing"], f"deterministic step: gradients differ: {on['differing']}")
+    return res
+
+
 def _kernel_numbers(site):
     return {k: site[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms")}
@@ -1576,6 +1773,10 @@ def main() -> int:
     except ImportError as e:
         print(f"FAIL: gssd_torch not found next to chip_smoke.py ({e})", file=sys.stderr)
         return 1
+
+    if sys.argv[1:2] == ["--deterministic-step"]:
+        deterministic_step(sys.argv[2])
+        return 0
 
     t_start = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1617,6 +1818,8 @@ def main() -> int:
             pl = pixellink(tmp, train_data)
             pl_parity = pixellink_parity(train_data)
             pl_s = time.perf_counter() - t_pl
+            repeat_calls = repeat_kernels()
+            det_step = deterministic_step_check(train_data)
         dcn_grad_cos = dcn_grads()
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
@@ -1751,6 +1954,10 @@ def main() -> int:
                                     "test_images": pl["test_images"],
                                     "test_launches": pl["test_launches"],
                                     "switch_off_launches": pl["switch_off_launches"],
+                                    "switch_off_ms_per_step": [
+                                        r["ms"] for r in pl["switch_off_records"]],
+                                    "switch_off_median_ms_per_step":
+                                        pl["switch_off_median_step_ms"],
                                     "parity": pl_parity, "seconds": pl_s, "power": smi}}))
     print(json.dumps({"routes": {
         impl: {"batch": TRAIN_BATCH, "steps": len(res["records"]),
@@ -1760,6 +1967,9 @@ def main() -> int:
         for impl, (lc, res, _) in routes.items()},
         "pallas_serving": {"batch": BATCH, "latency_ms_per_image": pallas_lat},
         "harness": harness, "dcn_grad_cosines": dcn_grad_cos, "power": smi}))
+    print(json.dumps({"repeatability": {"bit_equal_calls": repeat_calls,
+                                        "deterministic_step": det_step, "batch": DET_BATCH,
+                                        "power": smi}}))
     print(json.dumps({"serving": {"batch": BATCH, "latency_ms_per_image": lat,
                                   "breakdown_ms_per_batch": parts,
                                   "parity_rel_err": errs, "power": smi},

@@ -26,20 +26,38 @@
 // (4.4e11 at batch 32, 38x38, C 1024, Cout 512), the corner terms ~3e9:
 // the ideal kernel is tensor-core bound. The TPU kernel avoids gathers
 // with a dense hat matrix over the map; a GPU gathers well. One call
-// runs three kernels on one stream:
+// runs these kernels on one stream:
 //   1. gemm_bf16 (dU): per group, [B*P x Cout] . [Cout x K*Cg] on the
 //      tensor cores (mma.sync, 128 x 128 tiles, cp.async double
 //      buffer), written as bf16 to a scratch [B*P, G, K, Cg];
 //   2. deform_bwd_corners: one warp per (b, p, g, k) gathers its 4
 //      corners of x, forms dS, dm, dpy, dpx and the bf16 sample (to a
-//      second scratch [B*P, G, K, Cg]) and adds its dx terms with f32
-//      atomicAdd into an f32 [B, H, W, C] buffer: the order of those
-//      sums is not deterministic;
-//   3. gemm_bf16 (dW): per group, [K*Cg x B*P] . [B*P x Cout]: each block
+//      second scratch [B*P, G, K, Cg]);
+//   3. dx as a gather, so that each dx element is one thread's f32 sum
+//      in one fixed order, the same on every run (a scatter with atomics
+//      would add in the order the blocks happen to run):
+//      a. bucket_count: every sample (b, p, g, k) with a corner inside
+//         the map is counted (integer atomics) in the bucket of its
+//         top-left corner cell (floor(py), floor(px)) in [-1, H-1] x
+//         [-1, W-1] of its (b, g); bucket_scan turns the counts into
+//         offsets (a block per (b, g)); bucket_fill writes each sample's
+//         flat index into its bucket; bucket_sort sorts each bucket by
+//         flat index, so that the order no longer depends on which
+//         thread placed which entry (insertion sort: ~K entries a bucket;
+//         a bucket holding n samples costs n^2 / 2 steps of its thread);
+//      b. dx_gather: one warp per (b, qy, qx, g), lanes over channel
+//         pairs, visits the cells whose samples can have q as a corner in
+//         the order (qy, qx), (qy, qx - 1), (qy - 1, qx), (qy - 1, qx - 1)
+//         and each cell's samples by flat index, and adds w_q * dU with
+//         the same bf16 w_q = bf16(ay * bx * m) as the corner terms, then
+//         rounds the f32 sum once to bf16. Every term w_q * dU is exact
+//         in f32 (two bf16 factors).
+//   4. gemm_bf16 (dW): per group, [K*Cg x B*P] . [B*P x Cout]: each block
 //      owns a 128 x 128 tile of dW and walks all pixels, so dW needs no
 //      atomics.
 // The scratch buffers cost 2 * B*P*G*K*Cg bf16 (1.7 GB at the training
-// site) and one extra write and read of each.
+// site) and one extra write and read of each; the buckets 4 bytes a
+// sample and 8 a cell.
 
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
@@ -47,8 +65,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_sync.cuh"
+
 namespace {
 
+using namespace mma16816;
 typedef __nv_bfloat16 bf16;
 
 constexpr int BM = 128;
@@ -56,29 +77,6 @@ constexpr int BN = 128;
 constexpr int BK = 32;
 constexpr int PAD = 8;
 constexpr int GEMM_THREADS = 256;  // 8 warps: 2 (m) x 4 (n), 64 x 32 each
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-    const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(a));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
-    const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(a));
-}
 
 // rows [r0, r0 + rows) x cols [c0, c0 + cols) of a row-major matrix with
 // nr valid rows, nc valid columns and leading dimension ld into smem
@@ -205,15 +203,6 @@ gemm_bf16(const bf16* __restrict__ A, const bf16* __restrict__ B, bf16* __restri
     }
 }
 
-__device__ __forceinline__ void atomic_add2(float* p, float a, float b) {
-#if (__CUDACC_VER_MAJOR__ > 12 || (__CUDACC_VER_MAJOR__ == 12 && __CUDACC_VER_MINOR__ >= 4))
-    atomicAdd(reinterpret_cast<float2*>(p), make_float2(a, b));  // sm_90 vector atomic
-#else
-    atomicAdd(p, a);
-    atomicAdd(p + 1, b);
-#endif
-}
-
 constexpr int CORNER_THREADS = 256;
 
 // one warp per (b, p, g, k) = flat index wi of py/px/m [B, P, G, K];
@@ -227,7 +216,6 @@ deform_bwd_corners(const bf16* __restrict__ x,      // [B, H, W, C]
                    float* __restrict__ dpy,         // [B, P, G, K]
                    float* __restrict__ dpx,
                    float* __restrict__ dm,
-                   float* __restrict__ dx,          // [B, H, W, C] f32, zeroed
                    bf16* __restrict__ samp,         // [B, P, G, K, Cg]
                    long total, int H, int W, int C, int G, int K, int P) {
     const long wi = (long)blockIdx.x * (CORNER_THREADS / 32) + threadIdx.x / 32;
@@ -241,7 +229,7 @@ deform_bwd_corners(const bf16* __restrict__ x,      // [B, H, W, C]
     const float y0 = floorf(fy), x0 = floorf(fx);
 
     float s0[4], sw[4], ay[4], bx[4];
-    long base[4];  // element offset of the corner's group channels in x / dx
+    long base[4];  // element offset of the corner's group channels in x
     bool in[4];
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
@@ -270,7 +258,6 @@ deform_bwd_corners(const bf16* __restrict__ x,      // [B, H, W, C]
             dS[q] = fmaf(u0, v0, fmaf(u1, v1, dS[q]));
             a0 = fmaf(sw[q], v0, a0);
             a1 = fmaf(sw[q], v1, a1);
-            atomic_add2(dx + base[q] + c, sw[q] * u0, sw[q] * u1);
         }
         *reinterpret_cast<__nv_bfloat162*>(so + c) = __floats2bfloat162_rn(a0, a1);
     }
@@ -296,6 +283,175 @@ deform_bwd_corners(const bf16* __restrict__ x,      // [B, H, W, C]
     }
 }
 
+// The bucket of sample wi (flat index of py/px/m [B, P, G, K]): its
+// top-left corner cell (floor(py), floor(px)) in [-1, H-1] x [-1, W-1]
+// of its (b, g), or -1 where no corner lies inside the map (NaN too).
+__device__ __forceinline__ int bucket_of(const float* __restrict__ py,
+                                         const float* __restrict__ px, long wi, int H, int W,
+                                         int G, int K, int P) {
+    const float y0 = floorf(py[wi]), x0 = floorf(px[wi]);
+    if (!(y0 >= -1.0f && y0 <= (float)(H - 1) && x0 >= -1.0f && x0 <= (float)(W - 1)))
+        return -1;
+    const int g = (int)((wi / K) % G);
+    const int b = (int)(wi / ((long)G * K * P));
+    return (((b * G + g) * (H + 1)) + (int)y0 + 1) * (W + 1) + (int)x0 + 1;
+}
+
+// counts per cell, and per (b, g) the samples with a cell in seg_total
+__global__ void bucket_count(const float* __restrict__ py, const float* __restrict__ px,
+                             int* __restrict__ count, int* __restrict__ seg_total, long total,
+                             int H, int W, int G, int K, int P) {
+    const long wi = (long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (wi >= total) return;
+    const int c = bucket_of(py, px, wi, H, W, G, K, P);
+    if (c >= 0) atomicAdd(count + c, 1);
+    // one add per (b, g) a warp: neighbouring samples share their (b, g)
+    const int seg = c >= 0 ? c / ((H + 1) * (W + 1)) : -1;
+    const unsigned peers = __match_any_sync(__activemask(), seg);
+    if (seg >= 0 && __ffs(peers) - 1 == (int)(threadIdx.x % 32))
+        atomicAdd(seg_total + seg, __popc(peers));
+}
+
+constexpr int SCAN_THREADS = 512;
+
+// One block per (b, g): offset[i] = sum of count[j < i] over the cells of
+// that (b, g) and all before it (the earlier ones through seg_total);
+// offset[nb] = the sum of all. count is left zeroed, as bucket_fill's
+// cursors.
+__global__ void __launch_bounds__(SCAN_THREADS)
+bucket_scan(int* __restrict__ count, const int* __restrict__ seg_total, int* __restrict__ offset,
+            int cells) {
+    __shared__ int sums[SCAN_THREADS];
+    const int t = threadIdx.x, seg = blockIdx.x;
+    int base = 0;
+    for (int s = t; s < seg; s += SCAN_THREADS) base += seg_total[s];
+    sums[t] = base;
+    __syncthreads();
+    for (int d = SCAN_THREADS / 2; d > 0; d >>= 1) {  // the block's sum of base
+        if (t < d) sums[t] += sums[t + d];
+        __syncthreads();
+    }
+    base = sums[0];
+    __syncthreads();
+    int* cnt = count + (long)seg * cells;
+    int* off = offset + (long)seg * cells;
+    const int chunk = (cells + SCAN_THREADS - 1) / SCAN_THREADS;
+    const int lo = min(cells, t * chunk), hi = min(cells, lo + chunk);
+    int s = 0;
+    for (int i = lo; i < hi; ++i) s += cnt[i];
+    sums[t] = s;
+    __syncthreads();
+    for (int d = 1; d < SCAN_THREADS; d <<= 1) {  // inclusive scan of the chunk sums
+        const int v = t >= d ? sums[t - d] : 0;
+        __syncthreads();
+        sums[t] += v;
+        __syncthreads();
+    }
+    int run = base + sums[t] - s;
+    for (int i = lo; i < hi; ++i) {
+        off[i] = run;
+        run += cnt[i];
+        cnt[i] = 0;
+    }
+    if (seg == gridDim.x - 1 && t == SCAN_THREADS - 1) off[cells] = base + sums[t];
+}
+
+__global__ void bucket_fill(const float* __restrict__ py, const float* __restrict__ px,
+                            const int* __restrict__ offset, int* __restrict__ cursor,
+                            int* __restrict__ entries, long total, int H, int W, int G, int K,
+                            int P) {
+    const long wi = (long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (wi >= total) return;
+    const int c = bucket_of(py, px, wi, H, W, G, K, P);
+    if (c >= 0) entries[offset[c] + atomicAdd(cursor + c, 1)] = (int)wi;
+}
+
+__global__ void bucket_sort(const int* __restrict__ offset, int* __restrict__ entries, int nb) {
+    const int c = blockIdx.x * blockDim.x + threadIdx.x;
+    if (c >= nb) return;
+    int* e = entries + offset[c];
+    const int n = offset[c + 1] - offset[c];
+    for (int i = 1; i < n; ++i) {
+        const int v = e[i];
+        int j = i - 1;
+        while (j >= 0 && e[j] > v) {
+            e[j + 1] = e[j];
+            --j;
+        }
+        e[j + 1] = v;
+    }
+}
+
+constexpr int GATHER_THREADS = 256;
+constexpr int MAX_PAIR_STEPS = 8;  // C/G <= 64 * MAX_PAIR_STEPS
+
+// one warp per (b, qy, qx, g); lane pairs c = 2 * lane + 64 * i
+__global__ void __launch_bounds__(GATHER_THREADS)
+dx_gather(const float* __restrict__ py, const float* __restrict__ px,
+          const float* __restrict__ mk, const bf16* __restrict__ dU,  // [B, P, G, K, Cg]
+          const int* __restrict__ offset, const int* __restrict__ entries,
+          bf16* __restrict__ dx,  // [B, H, W, C]
+          int B, int H, int W, int C, int G) {
+    const long wid = (long)blockIdx.x * (GATHER_THREADS / 32) + threadIdx.x / 32;
+    if (wid >= (long)B * H * W * G) return;
+    const int lane = threadIdx.x % 32;
+    const int Cg = C / G;
+    const int g = (int)(wid % G);
+    const long pix = wid / G;  // (b * H + qy) * W + qx
+    const int qx = (int)(pix % W);
+    const int qy = (int)((pix / W) % H);
+    const int b = (int)(pix / ((long)H * W));
+    const int steps = (Cg + 63) / 64;
+
+    float acc[MAX_PAIR_STEPS][2];
+#pragma unroll
+    for (int i = 0; i < MAX_PAIR_STEPS; ++i) acc[i][0] = acc[i][1] = 0.0f;
+
+#pragma unroll 1
+    for (int q = 0; q < 4; ++q) {
+        const int dy = q >> 1, dxx = q & 1;  // q is corner (dy, dxx) of the cell's samples
+        const int cell = ((b * G + g) * (H + 1) + qy - dy + 1) * (W + 1) + qx - dxx + 1;
+        const int e0 = offset[cell], n = offset[cell + 1] - e0;
+        for (int j0 = 0; j0 < n; j0 += 32) {
+            // each lane fetches one entry and its corner weight
+            int wi_l = 0;
+            float sw_l = 0.0f;
+            if (j0 + lane < n) {
+                wi_l = entries[e0 + j0 + lane];
+                const float fy = py[wi_l], fx = px[wi_l], m = mk[wi_l];
+                const float cy = floorf(fy) + (float)dy;
+                const float cx = floorf(fx) + (float)dxx;
+                const float ay = fmaxf(0.0f, 1.0f - fabsf(fy - cy));
+                const float bx = fmaxf(0.0f, 1.0f - fabsf(fx - cx));
+                sw_l = __bfloat162float(__float2bfloat16(ay * bx * m));
+            }
+            const int cnt = min(32, n - j0);
+#pragma unroll 4
+            for (int j = 0; j < cnt; ++j) {
+                const int wi = __shfl_sync(0xffffffffu, wi_l, j);
+                const float sw = __shfl_sync(0xffffffffu, sw_l, j);
+                const bf16* du = dU + (long)wi * Cg;
+#pragma unroll
+                for (int i = 0; i < MAX_PAIR_STEPS; ++i) {
+                    const int c = 2 * lane + 64 * i;
+                    if (i < steps && c < Cg) {
+                        const __nv_bfloat162 u2 = *reinterpret_cast<const __nv_bfloat162*>(du + c);
+                        acc[i][0] = __fadd_rn(acc[i][0], __fmul_rn(sw, __low2float(u2)));
+                        acc[i][1] = __fadd_rn(acc[i][1], __fmul_rn(sw, __high2float(u2)));
+                    }
+                }
+            }
+        }
+    }
+    bf16* out = dx + pix * C + (long)g * Cg;
+#pragma unroll
+    for (int i = 0; i < MAX_PAIR_STEPS; ++i) {
+        const int c = 2 * lane + 64 * i;
+        if (i < steps && c < Cg)
+            *reinterpret_cast<__nv_bfloat162*>(out + c) = __floats2bfloat162_rn(acc[i][0], acc[i][1]);
+    }
+}
+
 template <bool A_KM, bool B_KN>
 cudaError_t gemm(const bf16* A, const bf16* B, bf16* C, int M, int N, int Kd, long lda, long ldb,
                  long ldc, long a_z, long b_z, long c_z, int batch, cudaStream_t stream) {
@@ -312,39 +468,64 @@ cudaError_t gemm(const bf16* A, const bf16* B, bf16* C, int M, int N, int Kd, lo
 
 // x [B,H,W,C] bf16; py, px, m [B,P,G,K] f32; wg [G,K,C/G,Cout] bf16; gb
 // [B,P,Cout] bf16 (the output gradient rounded to bf16). Outputs: dpy,
-// dpx, dm [B,P,G,K] f32; dx_acc [B,H,W,C] f32, ZEROED by the caller;
-// dwg [G,K,C/G,Cout] bf16. Scratch: du, samp [B,P,G,K,C/G] bf16. All
-// contiguous; C/G even; x, dx_acc 8-byte aligned. Returns the CUDA error
-// code of the three launches (0 on success).
+// dpx, dm [B,P,G,K] f32; dx [B,H,W,C] bf16; dwg [G,K,C/G,Cout] bf16.
+// Scratch: du, samp [B,P,G,K,C/G] bf16; buckets int32 of
+// 2 * B*G*(H+1)*(W+1) + 1 + B*G + B*P*G*K elements. All contiguous; C/G even
+// and <= 512; x, dx 4-byte aligned. Returns the CUDA error code of the
+// launches (0 on success).
 extern "C" int deform_conv_bwd(const void* x, const void* py, const void* px, const void* m,
                                const void* wg, const void* gb, void* dpy, void* dpx, void* dm,
-                               void* dx_acc, void* dwg, void* du, void* samp, int B, int H, int W,
-                               int C, int G, int K, int P, int Cout, void* stream) {
-    if (B < 1 || H < 1 || W < 1 || G < 1 || C % G || (C / G) % 2 || K < 1 || P < 1 || Cout < 1)
+                               void* dx, void* dwg, void* du, void* samp, void* buckets, int B,
+                               int H, int W, int C, int G, int K, int P, int Cout, void* stream) {
+    if (B < 1 || H < 1 || W < 1 || G < 1 || C % G || (C / G) % 2 || C / G > 64 * MAX_PAIR_STEPS ||
+        K < 1 || P < 1 || Cout < 1)
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int Cg = C / G;
     const long KC = (long)K * Cg;
     const long BP = (long)B * P;
-    if (BP > 65535L * BM) return (int)cudaErrorInvalidValue;
+    const long total = BP * G * K;
+    const long nb = (long)B * G * (H + 1) * (W + 1);
+    if (BP > 65535L * BM || total > 0x7fffffffL || nb + 1 > 0x7fffffffL)
+        return (int)cudaErrorInvalidValue;
     const bf16* wgp = static_cast<const bf16*>(wg);
     const bf16* gbp = static_cast<const bf16*>(gb);
+    const float* pyp = static_cast<const float*>(py);
+    const float* pxp = static_cast<const float*>(px);
+    const float* mp = static_cast<const float*>(m);
     bf16* dup = static_cast<bf16*>(du);
     bf16* sp = static_cast<bf16*>(samp);
+    int* count = static_cast<int*>(buckets);
+    int* seg_total = count + nb;
+    int* offset = seg_total + (long)B * G;
+    int* entries = offset + nb + 1;
     // 1. dU[bp, g, kc] = sum_n gb[bp, n] wg[g, kc, n]
     cudaError_t err = gemm<false, false>(gbp, wgp, dup, (int)BP, (int)KC, Cout, Cout, Cout, G * KC,
                                          0, KC * Cout, KC, G, s);
     if (err != cudaSuccess) return (int)err;
-    // 2. the corner terms, dx and the bf16 samples
-    const long total = BP * G * K;
+    // 2. the corner terms and the bf16 samples
     const long blocks = (total + CORNER_THREADS / 32 - 1) / (CORNER_THREADS / 32);
     deform_bwd_corners<<<(unsigned)blocks, CORNER_THREADS, 0, s>>>(
-        static_cast<const bf16*>(x), static_cast<const float*>(py), static_cast<const float*>(px),
-        static_cast<const float*>(m), dup, static_cast<float*>(dpy), static_cast<float*>(dpx),
-        static_cast<float*>(dm), static_cast<float*>(dx_acc), sp, total, H, W, C, G, K, P);
+        static_cast<const bf16*>(x), pyp, pxp, mp, dup, static_cast<float*>(dpy),
+        static_cast<float*>(dpx), static_cast<float*>(dm), sp, total, H, W, C, G, K, P);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    // 3. dW[g, kc, n] = sum_bp samp[bp, g, kc] gb[bp, n]
+    // 3. dx: the samples bucketed by corner cell, then gathered per element
+    err = cudaMemsetAsync(count, 0, (nb + (long)B * G) * sizeof(int), s);
+    if (err != cudaSuccess) return (int)err;
+    const unsigned sample_blocks = (unsigned)((total + 255) / 256);
+    bucket_count<<<sample_blocks, 256, 0, s>>>(pyp, pxp, count, seg_total, total, H, W, G, K, P);
+    bucket_scan<<<B * G, SCAN_THREADS, 0, s>>>(count, seg_total, offset, (H + 1) * (W + 1));
+    bucket_fill<<<sample_blocks, 256, 0, s>>>(pyp, pxp, offset, count, entries, total, H, W, G,
+                                              K, P);
+    bucket_sort<<<(unsigned)((nb + 255) / 256), 256, 0, s>>>(offset, entries, (int)nb);
+    const long warps = (long)B * H * W * G;
+    dx_gather<<<(unsigned)((warps + GATHER_THREADS / 32 - 1) / (GATHER_THREADS / 32)),
+                GATHER_THREADS, 0, s>>>(pyp, pxp, mp, dup, offset, entries,
+                                        static_cast<bf16*>(dx), B, H, W, C, G);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    // 4. dW[g, kc, n] = sum_bp samp[bp, g, kc] gb[bp, n]
     err = gemm<true, true>(sp, gbp, static_cast<bf16*>(dwg), (int)KC, Cout, (int)BP, G * KC, Cout,
                            Cout, KC, 0, KC * Cout, G, s);
     return (int)err;

@@ -5,8 +5,8 @@
 //   dP = dO V^T                       (bf16 products, f32 sums)
 //   dS = P * (dP - D)                 (f32)
 //   dQ = dS K,  dK = dS^T Q           (f32-exact products, f32 sums)
-// dK and dV are written in bf16 by the kernel; dQ is summed in f32 and
-// rounded to bf16 by the caller.
+// dK and dV are written in bf16 by the kernel; dQ is summed in f32 in a
+// fixed order and rounded to bf16 by a second kernel of the same launch.
 //
 // Replaces gssd_tpu/ops/pallas/flash_attn.py _bwd_kernel (the Pallas TPU
 // kernel) with the same arithmetic. dS stays f32 as there (its comment
@@ -37,8 +37,15 @@
 // and the parts go to shared memory (swizzled as TMA would write them)
 // for the transposed product of the tile,
 //   dQ = hi^T K + mid^T K + lo^T K     wgmma with an MN-major A,
-// added into the f32 dQ with atomics (its order of summation over key
-// tiles is not deterministic). dK and dV are summed in registers.
+// stored in f32 as the partial of this warpgroup's 64 keys: a scratch
+// [slots, B, N, dk] with one slot per 64-key tile (slot = 2 * block +
+// warpgroup). dq_reduce, launched behind the kernel on the same stream,
+// adds the slots of every dQ element in slot order and rounds once to
+// bf16. No atomics: the sums are the same bits on every run, whatever
+// the blocks' schedule. The scratch is ceil(M / 64) * B * N * dk f32
+// (1.0 GB at N = M = 5625, dk 32, batch 16; 0.27 GB at the 1444 site,
+// batch 32): one extra write and read of it, ~0.6 ms at 3.35 TB/s at
+// the largest site. dK and dV are summed in registers.
 // dV of up to 256 columns stays in registers beside dK; wider dv (512,
 // the fc7 sites only) takes a second walk over the query tiles for the
 // columns 256 .. 511, which recomputes S^T and P^T (a second exp per
@@ -83,7 +90,7 @@ __global__ void __launch_bounds__(256, 1)
 flash_bwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                const float* __restrict__ lse, const float* __restrict__ delta,
-               float* __restrict__ dq_acc, bf16* __restrict__ dk_out, bf16* __restrict__ dv_out,
+               float* __restrict__ dq_part, bf16* __restrict__ dk_out, bf16* __restrict__ dv_out,
                int N, int M, int dk, int dv, int dvp, int stages) {
     extern __shared__ unsigned char smem_raw[];
     const int nwg = blockDim.x / 128;
@@ -320,15 +327,18 @@ flash_bwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
             wgmma_commit();
             wgmma_wait<0>();
             fence_regs(dq);
+            const size_t slot = (size_t)blockIdx.x * nwg + w;
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
                 const int n = n0 + r + 8 * h;
                 if (n >= N) continue;
-                float* row = dq_acc + ((size_t)b * N + n) * dk;
+                float* row = dq_part + ((slot * gridDim.y + b) * N + n) * dk;
 #pragma unroll
                 for (int c = 0; c < DK / 8; ++c) {
                     const int col = 8 * c + q2;
-                    if (col < dk) red_add_v2(row + col, dq[4 * c + 2 * h], dq[4 * c + 2 * h + 1]);
+                    if (col < dk)
+                        *reinterpret_cast<float2*>(row + col) =
+                            make_float2(dq[4 * c + 2 * h], dq[4 * c + 2 * h + 1]);
                 }
             }
         }
@@ -366,10 +376,29 @@ flash_bwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
     }
 }
 
+// dq[i .. i + 3] = bf16(sum over s < slots of part[s * n + i ..]), s
+// ascending (n = B * N * dk, a multiple of 4)
+__global__ void __launch_bounds__(256)
+dq_reduce(const float* __restrict__ part, bf16* __restrict__ dq, int slots, size_t n) {
+    const size_t i = 4 * ((size_t)blockIdx.x * blockDim.x + threadIdx.x);
+    if (i >= n) return;
+    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int s = 0; s < slots; ++s) {
+        const float4 v = __ldcs(reinterpret_cast<const float4*>(part + s * n + i));
+        acc.x += v.x;
+        acc.y += v.y;
+        acc.z += v.z;
+        acc.w += v.w;
+    }
+    __nv_bfloat162* out = reinterpret_cast<__nv_bfloat162*>(dq + i);
+    out[0] = __floats2bfloat162_rn(acc.x, acc.y);
+    out[1] = __floats2bfloat162_rn(acc.z, acc.w);
+}
+
 template <int DK, int DVC, int SUB>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* dO, const float* lse,
-                   const float* delta, float* dq_acc, bf16* dk_out, bf16* dv_out, int B, int N,
-                   int M, int dk, int dv, cudaStream_t stream) {
+                   const float* delta, float* dq_part, int max_slots, bf16* dq, bf16* dk_out,
+                   bf16* dv_out, int B, int N, int M, int dk, int dv, cudaStream_t stream) {
     const int dvp = (dv + 63) / 64 * 64;
     int nwg = 2, stages = MAX_STAGES;
     while (make_plan<DK>(nwg, stages, dvp).total > SMEM_LIMIT) {
@@ -379,6 +408,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dO, 
     }
     const int smem = make_plan<DK>(nwg, stages, dvp).total;
     const int kt = 64 * nwg;
+    const int slots = (M + kt - 1) / kt * nwg;
+    if (slots > max_slots) return cudaErrorInvalidValue;
     CUtensorMap tq, tk, tv, tdo;
     const int bw = Tile<DK>::BW;
     if (!sm90_host::tensor_map_cached(&tq, q, B, N, dk, QT, bw) ||
@@ -391,45 +422,56 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dO, 
     if (err != cudaSuccess) return err;
     const dim3 grid((M + kt - 1) / kt, B);
     flash_bwd_sm90<DK, DVC, SUB><<<grid, 128 * nwg, smem, stream>>>(
-        tq, tk, tv, tdo, lse, delta, dq_acc, dk_out, dv_out, N, M, dk, dv, dvp, stages);
+        tq, tk, tv, tdo, lse, delta, dq_part, dk_out, dv_out, N, M, dk, dv, dvp, stages);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    const size_t n = (size_t)B * N * dk;
+    dq_reduce<<<(unsigned)((n / 4 + 255) / 256), 256, 0, stream>>>(dq_part, dq, slots, n);
     return cudaGetLastError();
 }
 
 template <int DK>
 cudaError_t launch_dk(const void* q, const void* k, const void* v, const void* dO,
-                      const float* lse, const float* delta, float* dq_acc, bf16* dk_out,
-                      bf16* dv_out, int B, int N, int M, int dk, int dv, cudaStream_t s) {
+                      const float* lse, const float* delta, float* dq_part, int max_slots,
+                      bf16* dq, bf16* dk_out, bf16* dv_out, int B, int N, int M, int dk, int dv,
+                      cudaStream_t s) {
     if (dv <= 128)
-        return launch<DK, 128, 64>(q, k, v, dO, lse, delta, dq_acc, dk_out, dv_out, B, N, M, dk,
-                                   dv, s);
-    return launch<DK, 256, 32>(q, k, v, dO, lse, delta, dq_acc, dk_out, dv_out, B, N, M, dk, dv,
-                               s);
+        return launch<DK, 128, 64>(q, k, v, dO, lse, delta, dq_part, max_slots, dq, dk_out,
+                                   dv_out, B, N, M, dk, dv, s);
+    return launch<DK, 256, 32>(q, k, v, dO, lse, delta, dq_part, max_slots, dq, dk_out, dv_out,
+                               B, N, M, dk, dv, s);
 }
 
 }  // namespace
 
 // q [B,N,dk], k [B,M,dk], v [B,M,dv], dO [B,N,dv] bf16; lse, delta [B,N]
-// f32 (delta = rowsum(f32(dO) * O)); dq_acc [B,N,dk] f32, ZEROED by the
-// caller (atomic sums); dk_out [B,M,dk], dv_out [B,M,dv] bf16. All
-// contiguous and 16-byte aligned; dk in 16..128 and dv in 16..512,
-// multiples of 16. Launches one kernel on `stream` and returns the CUDA
-// error code (0 on success).
+// f32 (delta = rowsum(f32(dO) * O)); dq_part [max_slots,B,N,dk] f32
+// scratch, max_slots >= 2 * ceil(M / 128); dq [B,N,dk], dk_out [B,M,dk],
+// dv_out [B,M,dv] bf16. All contiguous and 16-byte aligned; dk in
+// 16..128 and dv in 16..512, multiples of 16. Launches the kernel and
+// dq_reduce on `stream` and returns the CUDA error code (0 on success).
 extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v, const void* dO,
-                              const void* lse, const void* delta, void* dq_acc, void* dk_out,
-                              void* dv_out, int B, int N, int M, int dk, int dv, void* stream) {
+                              const void* lse, const void* delta, void* dq_part, void* dq,
+                              void* dk_out, void* dv_out, int B, int N, int M, int dk, int dv,
+                              int max_slots, void* stream) {
     if (B < 1 || N < 1 || M < 1 || dk % 16 || dk < 16 || dk > 128 || dv % 16 || dv < 16 ||
         dv > 512)
         return (int)cudaErrorInvalidValue;
     const float* ll = static_cast<const float*>(lse);
     const float* dd = static_cast<const float*>(delta);
-    float* dq = static_cast<float*>(dq_acc);
+    float* dp = static_cast<float*>(dq_part);
+    bf16* dqq = static_cast<bf16*>(dq);
     bf16* dkk = static_cast<bf16*>(dk_out);
     bf16* dvv = static_cast<bf16*>(dv_out);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     cudaError_t err;
-    if (dk <= 32) err = launch_dk<32>(q, k, v, dO, ll, dd, dq, dkk, dvv, B, N, M, dk, dv, s);
-    else if (dk <= 64) err = launch_dk<64>(q, k, v, dO, ll, dd, dq, dkk, dvv, B, N, M, dk, dv, s);
-    else err = launch_dk<128>(q, k, v, dO, ll, dd, dq, dkk, dvv, B, N, M, dk, dv, s);
+    if (dk <= 32)
+        err = launch_dk<32>(q, k, v, dO, ll, dd, dp, max_slots, dqq, dkk, dvv, B, N, M, dk, dv, s);
+    else if (dk <= 64)
+        err = launch_dk<64>(q, k, v, dO, ll, dd, dp, max_slots, dqq, dkk, dvv, B, N, M, dk, dv, s);
+    else
+        err = launch_dk<128>(q, k, v, dO, ll, dd, dp, max_slots, dqq, dkk, dvv, B, N, M, dk, dv,
+                             s);
     return (int)err;
 }
 

@@ -77,11 +77,6 @@ __device__ __forceinline__ bool mbar_test(uint64_t* bar, uint32_t parity) {
     return done != 0;
 }
 
-// *p += (a, b) in device memory, one vector reduction (8-byte aligned p)
-__device__ __forceinline__ void red_add_v2(float* p, float a, float b) {
-    asm volatile("red.global.add.v2.f32 [%0], {%1, %2};\n" ::"l"(p), "f"(a), "f"(b) : "memory");
-}
-
 // ---- TMA ----------------------------------------------------------------
 
 // box at (c0 innermost, c1, c2) of a 3-d tensor map into shared memory;

@@ -6,9 +6,9 @@
 //
 // with the input rounded to bf16 as it enters shared memory, the weights
 // in their own type (bf16 or f32), an f32 accumulator, the f32 bias added
-// to it (when there is one) and one rounding to T at the end. The forward
-// runs it on (x, W, bias); the backward's dx runs it on (g, the flipped
-// and transposed bf16 weights, no bias).
+// to it (when there is one) and one rounding to T at the end: the
+// forward of stem_conv_fwd.cu. (The backward's dx has its own
+// tensor-core kernel in stem_conv_bwd.cu.)
 //
 // The TPU kernel (gssd_tpu/ops/pallas/stem_conv.py) densifies the groups
 // into a block-diagonal [9 Cin, Cout] weight and multiplies im2col patches

@@ -45,6 +45,8 @@ def build_parser():
     p.add_argument("--cross_validation", default=1, type=int)
     p.add_argument("--num_test_subjects", default=10, type=int)
     p.add_argument("--split", default="test", choices=["test", "all"])
+    p.add_argument("--fold", default=0, type=int,
+                   help="the cross-validation fold's checkpoint (not ported yet: only 0)")
     # model
     p.add_argument("--ssd_type", default="gssd", choices=["gssd", "ssd"])
     p.add_argument("--ssd_dim", default=300, type=int)
@@ -161,6 +163,10 @@ def load_weights(model: torch.nn.Module, path: str) -> None:
 
 def main(argv=None) -> Dict[str, Any]:
     args = parse_args(argv)
+    if args.fold != 0:
+        raise NotImplementedError("--fold other than 0: k-fold cross-validation is not ported "
+                                  "to gssd_torch yet (see ROADMAP.md, Queue A); use the JAX "
+                                  "infer.py")
     device = resolve_device(args.device)
 
     from gssd_torch.data import BaseTransform, DataSplitter, LesionDataset

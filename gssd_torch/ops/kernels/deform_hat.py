@@ -26,10 +26,13 @@ from gssd_torch.ops.kernels.build import CudaKernel
 KERNEL = CudaKernel(
     "deform_conv_fwd.cu", "deform_conv_fwd",
     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8)
-# one launch = the dU GEMM, the corner kernel and the dW GEMM, in order
+# one launch = the dU GEMM, the corner kernel, dx (the samples bucketed by
+# corner cell, then one fixed-order gather per element) and the dW GEMM
 BWD_KERNEL = CudaKernel(
     "deform_conv_bwd.cu", "deform_conv_bwd",
-    [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8)
+    [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8)
+# the backward's dx gather holds C/G / 64 channel pairs a lane in registers
+MAX_CG = 512
 
 
 def deform_conv_fwd_plain(x, py, px, m, wg, bias):
@@ -126,6 +129,12 @@ def deform_conv_bwd_plain(x, py, px, m, wg, g):
     (day, dbx = -1 at the floor, +1 above it), dx[q] += bf16(ay*bx*m)*dU,
     samp += bf16(ay*bx*m)*x[q]; dW_k = bf16(samp)^T . bf16(g). dx and dW
     are rounded to bf16."""
+    dpy, dpx, dm, dx, dw = deform_conv_bwd_f32(x, py, px, m, wg, g)
+    return dpy, dpx, dm, dx.to(torch.bfloat16), dw.to(torch.bfloat16)
+
+
+def deform_conv_bwd_f32(x, py, px, m, wg, g):
+    """``deform_conv_bwd_plain`` before dx and dW are rounded to bf16."""
     B, H, W, C = x.shape
     _, P, G, K = py.shape
     Cg = C // G
@@ -160,8 +169,7 @@ def deform_conv_bwd_plain(x, py, px, m, wg, g):
                 dx.scatter_add_(1, idx, sw[..., None] * du)
         samp = samp.to(torch.bfloat16).float()
         dw[:, k] = torch.einsum("bpgc,bpn->gcn", samp, gb)
-    return (dpy, dpx, dm, dx.reshape(B, H, W, C).to(torch.bfloat16),
-            dw.to(torch.bfloat16))
+    return dpy, dpx, dm, dx.reshape(B, H, W, C), dw
 
 
 def deform_conv_bwd(x, py, px, m, wg, g):
@@ -174,19 +182,26 @@ def deform_conv_bwd(x, py, px, m, wg, g):
         return deform_conv_bwd_plain(x, py, px, m, wg, g)
     if any(t.data_ptr() % 16 for t in (x, py, px, m, wg, g)):
         raise ValueError("deform_conv_bwd: inputs must be 16-byte aligned")
+    if C // G > MAX_CG:
+        raise ValueError(f"deform_conv_bwd: the kernel takes C/G <= {MAX_CG}, got {C // G}")
     dev = x.device
     gb = g.to(torch.bfloat16)
     dpy, dpx, dm = (torch.empty(B, P, G, K, dtype=torch.float32, device=dev)
                     for _ in range(3))
-    dx = torch.zeros(B, H, W, C, dtype=torch.float32, device=dev)
+    dx = torch.empty(B, H, W, C, dtype=torch.bfloat16, device=dev)
     dwg = torch.empty(G, K, C // G, Cout, dtype=torch.bfloat16, device=dev)
     du, samp = (torch.empty(B, P, G, K, C // G, dtype=torch.bfloat16, device=dev)
                 for _ in range(2))
+    # dx's buckets: counts and offsets per corner cell, a total per (b, g),
+    # one entry a sample
+    cells = B * G * (H + 1) * (W + 1)
+    buckets = torch.empty(2 * cells + 1 + B * G + B * P * G * K, dtype=torch.int32,
+                          device=dev)
     BWD_KERNEL.launch(torch.cuda.current_stream(dev).cuda_stream,
                       *(t.data_ptr() for t in (x, py, px, m, wg, gb, dpy, dpx, dm, dx,
-                                               dwg, du, samp)),
+                                               dwg, du, samp, buckets)),
                       B, H, W, C, G, K, P, Cout)
-    return dpy, dpx, dm, dx.to(torch.bfloat16), dwg
+    return dpy, dpx, dm, dx, dwg
 
 
 class DeformConvHat(torch.autograd.Function):

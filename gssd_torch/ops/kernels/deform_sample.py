@@ -19,7 +19,9 @@ kernels':
 - fwd: A, B, x in bf16; T = A . x[:, qx] accumulated in f32, times the
   bf16 B in f32, summed over qx in f32 (the caller rounds to x's dtype);
 - dx: A, B, g in bf16; every term A * (B * g) in f32, where it is exact;
-  f32 output;
+  f32 output (the kernel adds only the terms inside each hat row's
+  non-zero range, in ascending p: the dense sum's bits for finite
+  inputs);
 - dab: dA = sum bf16(B * g) . x and dB = sum bf16(A * g) . x with bf16 x
   and f32 accumulation; f32 outputs.
 
@@ -41,9 +43,10 @@ from gssd_torch.ops.kernels.build import CudaKernel
 FWD_KERNEL = CudaKernel(
     "deform_sample_fwd.cu", "deform_sample_fwd",
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5)
+# one launch = the hat rows' non-zero ranges, then dx over them
 DX_KERNEL = CudaKernel(
     "deform_sample_dx.cu", "deform_sample_dx",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5)
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5)
 # one launch = the dA pass and the dB pass of one kernel, back to back
 DAB_KERNEL = CudaKernel(
     "deform_sample_dab.cu", "deform_sample_dab",
@@ -155,8 +158,10 @@ def abx_dx(a, b, g):
     if a.device.type == "cpu":
         return abx_dx_plain(a, b, g)
     out = torch.empty(N, G, H, W, Cg, dtype=torch.float32, device=a.device)
+    # (first, last) non-zero index of each A and B row
+    ranges = torch.empty(N, G, P, 4, dtype=torch.int32, device=a.device)
     DX_KERNEL.launch(_stream(a), a.data_ptr(), b.data_ptr(), g.data_ptr(), out.data_ptr(),
-                     N * G, P, H, W, Cg)
+                     ranges.data_ptr(), N * G, P, H, W, Cg)
     return out
 
 

@@ -35,9 +35,11 @@ MAX_M = 8192
 KERNEL = CudaKernel(
     "flash_attn_fwd.cu", "flash_attn_fwd",
     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5)
+# one launch = the backward kernel, then dq_reduce (the fixed-order sum of
+# the per-key-tile dQ partials)
 BWD_KERNEL = CudaKernel(
     "flash_attn_bwd.cu", "flash_attn_bwd",
-    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5)
+    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6)
 MAX_BWD_DV = 512
 
 
@@ -140,14 +142,16 @@ def flash_attention_bwd(q, k, v, o, lse, do):
         raise ValueError("flash_attention_bwd: inputs must be 16-byte aligned")
     # D = rowsum(f32(dO) * O), as the JAX package computes it outside its kernel
     delta = (do.float() * o).sum(dim=-1)
-    dq = torch.zeros(B, N, dk, dtype=torch.float32, device=q.device)
+    # f32 dQ partials, one slot per 64-key tile (two per block of 128 keys)
+    slots = 2 * -(-M // 128)
+    part = torch.empty(slots, B, N, dk, dtype=torch.float32, device=q.device)
+    dq = torch.empty(B, N, dk, dtype=torch.bfloat16, device=q.device)
     dk_ = torch.empty(B, M, dk, dtype=torch.bfloat16, device=q.device)
     dv_ = torch.empty(B, M, dv, dtype=torch.bfloat16, device=q.device)
     BWD_KERNEL.launch(torch.cuda.current_stream(q.device).cuda_stream,
-                      q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                      lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                      dk_.data_ptr(), dv_.data_ptr(), B, N, M, dk, dv)
-    return dq.to(torch.bfloat16), dk_, dv_
+                      *(t.data_ptr() for t in (q, k, v, do, lse, delta, part, dq, dk_, dv_)),
+                      B, N, M, dk, dv, slots)
+    return dq, dk_, dv_
 
 
 class FlashAttention(torch.autograd.Function):

@@ -22,7 +22,9 @@ conv) on the port's NCHW tensors with grouped weights [Cout, Cin/G, 3,
   in an f32 model); dx is their conv, f32-accumulated and rounded to x's
   dtype, skipped when autograd does not need it; dW is the f32 sum over
   (b, y, x) of bf16 patches times bf16 g and reaches the f32 parameter
-  unrounded; db = sum of f32(g), outside the kernel.
+  unrounded; db = sum of f32(g), outside the kernel. The kernels run both
+  products on the tensor cores (bf16 operands, f32 sums) and sum every
+  output in a fixed order.
 """
 
 from __future__ import annotations
@@ -38,11 +40,14 @@ from gssd_torch.ops.kernels.build import CudaKernel
 FWD_KERNEL = CudaKernel(
     "stem_conv_fwd.cu", "stem_conv_fwd",
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7)
-# one launch = the dx kernel (when asked for), the dW partial sums and
-# their reduction, in order
+# one launch = the dx weights' packing and the dx kernel (when asked for),
+# the dW partial sums and their reduction, in order
 BWD_KERNEL = CudaKernel(
     "stem_conv_bwd.cu", "stem_conv_bwd",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9)
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9)
+# channels a group in and out of the dx kernel (its accumulators and
+# staged weights; ConvBNRelu's wide-conv gate keeps both <= 64)
+MAX_DX_GROUP = 64
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 # dW: rows per pixel tile of the partial-sum kernel, and the number of
@@ -159,14 +164,21 @@ def stem_conv_bwd(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor, groups: int
     _aligned("stem_conv_bwd", x, g, wt)
     dev = x.device
     cgi, cgo = Cin // groups, Cout // groups
+    if need_dx and max(cgi, cgo) > MAX_DX_GROUP:
+        raise ValueError(f"stem_conv_bwd: the dx kernel takes at most {MAX_DX_GROUP} channels "
+                         f"a group, got {cgi} -> {cgo}")
     rows, bands = dw_bands(B, H, groups * _cdiv(cgi, 16) * _cdiv(cgo, 16))
     part = torch.empty(bands * B, Cout, cgi, 9, dtype=torch.float32, device=dev)
     dw = torch.empty(Cout, cgi, 3, 3, dtype=torch.float32, device=dev)
     dx = torch.empty_like(x) if need_dx else None
+    # the dx weights, packed per group as [tap][16-channel chunk][ci][24]
+    # (at most 4 chunks of j and 64 ci)
+    wpack = torch.empty(groups * 9 * 4 * 64 * 24, dtype=torch.bfloat16, device=dev)
     BWD_KERNEL.launch(torch.cuda.current_stream(dev).cuda_stream,
                       x.data_ptr(), g.data_ptr(), wt.data_ptr(),
-                      dx.data_ptr() if need_dx else None, part.data_ptr(), dw.data_ptr(),
-                      B, Cin, Cout, groups, H, W, rows, bands, _DTYPE_CODE[x.dtype])
+                      dx.data_ptr() if need_dx else None, wpack.data_ptr(), part.data_ptr(),
+                      dw.data_ptr(), B, Cin, Cout, groups, H, W, rows, bands,
+                      _DTYPE_CODE[x.dtype])
     return dx, dw
 
 

@@ -113,6 +113,8 @@ def build_parser():
     p.add_argument("--output", default="output", type=str)
     p.add_argument("--model_name", default="gssd", type=str)
     p.add_argument("--log_iters", default=True, type=str2bool)
+    p.add_argument("--profile_dir", default=None, type=str,
+                   help="a trace of steps 20-30 into this directory (not ported yet: refused)")
     # eval
     p.add_argument("--test", default=False, type=str2bool)
     p.add_argument("--checkpoint", default=None, type=int)
@@ -121,6 +123,8 @@ def build_parser():
     p.add_argument("--ap_list", default="0.3,0.5,0.7", type=str)
     p.add_argument("--iobb_list", default="0.3,0.5,0.7", type=str)
     p.add_argument("--visualize", default=False, type=str2bool)
+    p.add_argument("--warmup_eval", default=False, type=str2bool,
+                   help="prepare the evaluation at startup (not ported yet: refused)")
     p.add_argument("--eval_batch", default=16, type=int,
                    help="inference batch of the AP/IoBB evaluation")
     p.add_argument("--reference_recipe", default=None, choices=["gssd", "gssd++"],
@@ -147,6 +151,8 @@ def _refuse(args) -> None:
         "--aug_method device*": getattr(args, "aug_method", "host").startswith("device"),
         "--num_workers > 1 (the multi-process loader)": args.num_workers > 1,
         "--visualize": args.visualize,
+        "--profile_dir": args.profile_dir is not None,
+        "--warmup_eval": args.warmup_eval,
     }
     asked = [name for name, on in todo.items() if on]
     if asked:

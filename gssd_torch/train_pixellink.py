@@ -113,6 +113,8 @@ def build_parser():
     p.add_argument("--seed", default=1115, type=int)
     p.add_argument("--output", default="output", type=str)
     p.add_argument("--model_name", default="pixellink", type=str)
+    p.add_argument("--profile_dir", default=None, type=str,
+                   help="a trace of steps 20-30 into this directory (not ported yet: refused)")
     p.add_argument("--test", default=False, type=str2bool)
     p.add_argument("--checkpoint", default=None, type=int)
     p.add_argument("--confidence_threshold", default=0.01, type=float)
@@ -121,6 +123,8 @@ def build_parser():
     p.add_argument("--iobb_list", default="0.5", type=str)
     p.add_argument("--eval_batch", default=16, type=int,
                    help="inference batch of the AP/IoBB evaluation")
+    p.add_argument("--warmup_eval", default=False, type=str2bool,
+                   help="prepare the evaluation at startup (not ported yet: refused)")
     p.add_argument("--visualize", default=False, type=str2bool)
     p.add_argument("--reference_recipe", default=None, choices=["pixellink", "pixellink++"],
                    help="preset the published training flags; explicit flags still override")

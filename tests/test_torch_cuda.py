@@ -112,8 +112,8 @@ def test_flash_bwd_kernel_matches_plain(gen, B, N, M, dk, dv):
     scale = max(t.float().abs().max().item() for t in want)
     for name, a, b in zip("qkv", got, want):
         assert a.dtype == torch.bfloat16 and a.shape == b.shape
-        # same roundings; f32 sums in another order (atomics for dq) can
-        # move a bf16 rounding of P or of the result by one step
+        # same roundings; f32 sums in another order can move a bf16
+        # rounding of P or of the result by one step
         err = (a.float() - b.float()).abs().max().item()
         assert err <= 1e-2 * scale, (name, err, scale)
     # the rounding contract, on inputs whose logits and dP are exact in
@@ -155,7 +155,7 @@ def test_dcn_bwd_kernel_matches_plain(gen, B, H, W, C, G, Cout):
     want = dh.deform_conv_bwd_plain(x, py, px, m, wg, g)
     for name, a, b in zip(["dpy", "dpx", "dm", "dx", "dwg"], got, want):
         assert a.dtype == b.dtype and a.shape == b.shape
-        # same roundings; dx sums by atomics in no fixed order
+        # same roundings; f32 sums in another order
         assert _rel_err(a, b) <= 1e-2, (name, _rel_err(a, b))
 
 
@@ -221,6 +221,78 @@ def test_dcn_routes_go_through_the_sample_kernels(gen, impl):
     want = [9, 9, 9] if impl == "pallas" else [0, 9, 0]
     assert [k.launches - n for k, n in zip(kernels, before)] == want
     assert all(torch.isfinite(t.grad).all() for t in (x, oy, ox, mk, w, b))
+
+
+def _repeat_case(name, gen):
+    """(a kernel boundary, its inputs) at a ragged shape of each boundary
+    that sums in a fixed order instead of with atomics, or that skips
+    the hat rows' zeros."""
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    if name == "flash_attn_bwd":
+        q, k = randn(2, 700, 32).bfloat16(), randn(2, 700, 32).bfloat16()
+        v, do = randn(2, 700, 128).bfloat16(), randn(2, 700, 128).bfloat16()
+        o, lse = fa.flash_attention_fwd_plain(q, k, v)
+        return fa.flash_attention_bwd, (q, k, v, o, lse, do)
+    if name == "deform_conv_bwd":
+        B, H, W, C, G, K, Cout = 2, 19, 17, 64, 4, 9, 48
+        P = H * W
+        base_y = torch.arange(H, device="cuda").repeat_interleave(W).float() - 1
+        base_x = torch.arange(W, device="cuda").repeat(H).float() - 1
+        tap = torch.arange(K, device="cuda")
+        off = torch.rand(2, B, P, G, K, device="cuda", generator=gen) * 6 - 3
+        off = torch.where(torch.rand(off.shape, device="cuda", generator=gen) < 1 / 3,
+                          off.round(), off)
+        py = (base_y[None, :, None, None] + (tap // 3).float() + off[0]).contiguous()
+        px = (base_x[None, :, None, None] + (tap % 3).float() + off[1]).contiguous()
+        m = torch.rand(B, P, G, K, device="cuda", generator=gen)
+        wg = (randn(G, K, C // G, Cout) * 0.1).bfloat16()
+        x = randn(B, H, W, C).bfloat16()
+        return dh.deform_conv_bwd, (x, py, px, m, wg, randn(B, P, Cout))
+    if name == "deform_sample_dx":
+        N, G, P, H, W, Cg = 2, 2, 300, 19, 17, 72
+        pos = [torch.rand(N, G, P, device="cuda", generator=gen) * (n + 4) - 2 for n in (H, W)]
+        with torch.no_grad():
+            a = (ds.hat_weights(pos[0], H) * torch.rand(N, G, P, 1, device="cuda",
+                                                        generator=gen)).bfloat16()
+            b = ds.hat_weights(pos[1], W).bfloat16()
+        return ds.abx_dx, (a, b, randn(N, G, P, Cg).bfloat16())
+    x = torch.rand(2, 64, 45, 70, device="cuda", generator=gen).bfloat16()
+    w = randn(64, 16, 3, 3) / 12
+    return (lambda *t: sc.stem_conv_bwd(*t, 4)), (x, w, randn(2, 64, 45, 70).bfloat16())
+
+
+@pytest.mark.parametrize("name", ["flash_attn_bwd", "deform_conv_bwd", "deform_sample_dx",
+                                  "stem_conv_bwd"])
+def test_kernels_repeat_bit_equal(gen, name):
+    # the same inputs twice: every output the same bits (no sum whose
+    # order depends on the blocks' schedule)
+    fn, args = _repeat_case(name, gen)
+    first = fn(*args)
+    second = fn(*args)
+    torch.cuda.synchronize()
+    first = first if isinstance(first, tuple) else (first,)
+    second = second if isinstance(second, tuple) else (second,)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b), name
+
+
+def test_sample_dx_is_the_dense_order(gen):
+    # the dx kernel adds only the terms inside each hat row's non-zero
+    # range, in ascending p; every term is exact in f32, so that is the
+    # dense order's sum bit for bit: sum_p A[p, qy] * (B[p, qx] * g[p])
+    # one p at a time. Rows with more than two non-zeros and all-zero
+    # rows (a zero mask) included
+    fn, (a, b, g) = _repeat_case("deform_sample_dx", gen)
+    a[:, :, :5] = torch.rand(a[:, :, :5].shape, device="cuda", generator=gen).bfloat16()
+    a[:, :, 5:9] = 0
+    got = fn(a, b, g)
+    af, bf, gf = a.float(), b.float(), g.float()
+    want = torch.zeros_like(got)
+    for p in range(a.shape[2]):
+        want += af[:, :, p, :, None, None] * (bf[:, :, p, None, :, None] * gf[:, :, p, None, None])
+    assert torch.equal(got, want)
 
 
 # chip_smoke.py's limits for the stem kernels: bf16 outputs within one

@@ -130,3 +130,80 @@ def test_dcn_block_matches_flax(rng, impl):
         out, offs = mod(torch.from_numpy(x).permute(0, 3, 1, 2))
     np.testing.assert_allclose(offs.numpy(), want_offs, rtol=1e-5, atol=1e-5)
     _close(out.permute(0, 2, 3, 1), want_out, f"DCN[{impl}]")
+
+
+# ---- the dx kernel's order: non-zero ranges, zero terms skipped ----
+
+
+def _ranges(rows):
+    """The dx kernel's pre-pass: (first, last) non-zero index of each
+    row of rows [..., n], (1, 0) for an all-zero row."""
+    nz = rows != 0
+    idx = torch.arange(rows.shape[-1])
+    first = torch.where(nz, idx, rows.shape[-1]).amin(-1)
+    last = torch.where(nz, idx, -1).amax(-1)
+    empty = last < 0
+    return torch.where(empty, 1, first), torch.where(empty, 0, last)
+
+
+def _dx_skipping_zeros(a, b, g):
+    """A mirror of csrc/deform_sample_dx.cu: per (n, g), p ascending, add
+    A[p, qy] * (B[p, qx] * g[p]) to the cells inside both rows' non-zero
+    ranges only."""
+    af, bf, gf = a.float(), b.float(), g.float()
+    N, G, P, H = a.shape
+    out = torch.zeros(N, G, H, b.shape[-1], g.shape[-1])
+    (alo, ahi), (blo, bhi) = _ranges(af), _ranges(bf)
+    for n in range(N):
+        for gg in range(G):
+            for p in range(P):
+                y0, y1, x0, x1 = (int(t[n, gg, p]) for t in (alo, ahi, blo, bhi))
+                if y0 > y1 or x0 > x1:
+                    continue
+                e = bf[n, gg, p, x0:x1 + 1, None] * gf[n, gg, p]
+                out[n, gg, y0:y1 + 1, x0:x1 + 1] += af[n, gg, p, y0:y1 + 1, None, None] * e
+    return out
+
+
+def _dx_dense_order(a, b, g):
+    """Every term of the dense contraction, one p at a time."""
+    af, bf, gf = a.float(), b.float(), g.float()
+    out = torch.zeros(*a.shape[:2], a.shape[-1], b.shape[-1], g.shape[-1])
+    for p in range(a.shape[2]):
+        out += af[:, :, p, :, None, None] * (bf[:, :, p, None, :, None] * gf[:, :, p, None, None])
+    return out
+
+
+def _hat_rows(rng, N=2, G=2, H=7, W=6):
+    """Hat weights A (times the mask) and B of the sampler at the centre
+    tap with offsets over +-3 px (samples outside the map), a third of
+    them whole numbers (integer coordinates), a quarter of the mask rows
+    zero; and, in the last 5 p, dense rows (more than two non-zeros)."""
+    P = H * W
+    off = rng.uniform(-3, 3, (2, N, G, P)).astype(np.float32)
+    whole = rng.uniform(size=off.shape) < 1 / 3
+    off[whole] = np.round(off[whole])
+    py = np.repeat(np.arange(H), W).astype(np.float32) + off[0]
+    px = np.tile(np.arange(W), H).astype(np.float32) + off[1]
+    m = rng.uniform(0, 1, (N, G, P)).astype(np.float32)
+    m[rng.uniform(size=m.shape) < 1 / 4] = 0
+    a = ds.hat_weights(torch.from_numpy(py), H) * torch.from_numpy(m)[..., None]
+    b = ds.hat_weights(torch.from_numpy(px), W)
+    a[:, :, -5:] = torch.from_numpy(rng.uniform(0.1, 1, (N, G, 5, H)).astype(np.float32))
+    b[:, :, -5:, ::2] = torch.from_numpy(rng.uniform(0.1, 1, (N, G, 5, (W + 1) // 2))
+                                         .astype(np.float32))
+    return a.bfloat16(), b.bfloat16()
+
+
+def test_sample_dx_skipping_zeros_matches_plain_and_pallas(rng):
+    a, b = _hat_rows(rng)
+    assert (a == 0).all(-1).any() and ((a != 0).sum(-1) > 2).any()
+    g = torch.from_numpy(rng.normal(size=(*a.shape[:3], 16)).astype(np.float32)).bfloat16()
+    got = _dx_skipping_zeros(a, b, g)
+    # the terms skipped are exact zeros: the dense order's sum bit for bit
+    assert torch.equal(got, _dx_dense_order(a, b, g))
+    # against the plain version and the Pallas kernel (interpret mode):
+    # the same exact terms, f32 sums in another order
+    _close(got, ds.abx_dx_plain(a, b, g), "dx vs plain", tol=1e-6)
+    want = jds._abx_bwd_dx(*(jnp.asarray(t.float().numpy()) for t in (a, b, g)))
+    _close(got, want, "dx vs pallas", tol=1e-6)

@@ -155,6 +155,24 @@ def test_trainer_refuses_what_is_not_ported(flag):
         main(["--device", "cpu", *flag])
 
 
+@pytest.mark.parametrize("cli,flag,default", [
+    ("train", ["--profile_dir", "trace"], None), ("train", ["--warmup_eval", "True"], False),
+    ("train_pixellink", ["--profile_dir", "trace"], None),
+    ("train_pixellink", ["--warmup_eval", "True"], False),
+    ("infer", ["--fold", "1"], 0)])
+def test_cli_takes_the_reference_flags_and_refuses_them(cli, flag, default):
+    # the JAX CLIs' flags (train.py --profile_dir, --warmup_eval; infer.py
+    # --fold) parse with their defaults, and a run that sets one is refused
+    import importlib
+
+    mod = importlib.import_module("gssd_torch.train.trainer" if cli == "train"
+                                  else f"gssd_torch.{cli}")
+    assert getattr(mod.build_parser().parse_args([]), flag[0][2:]) == default
+    argv = ["--device", "cpu", *flag] + (["--weights", "w.pt"] if cli == "infer" else [])
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        mod.main(argv)
+
+
 def test_remat_attention_step_equals_plain_step():
     """--remat_attention recomputes each attention block in the backward;
     its spectral power iterations run once, before the checkpointed part.

@@ -8,7 +8,11 @@ current, baseline), and print one JSON line per site and a summary.
 The baseline's ``gssd_torch/csrc/flash_attn_{fwd,bwd}.cu`` are built with
 the same nvcc flags into a temporary directory and called through the
 same C interface and the same Python wrappers (``flash_attention_fwd``,
-``flash_attention_bwd``), so both sides pay the same host work. Sites: the 12 GSSD++ sites (forward at batch 8, forward
+``flash_attention_bwd``), so both sides pay the same host work. A
+baseline backward that still adds dQ with atomics (its source uses
+``red_add_v2``; its C function takes a zeroed f32 dQ and no scratch) is
+called as its own wrapper called it: dQ zeroed, the kernel, dQ rounded
+to bf16. Sites: the 12 GSSD++ sites (forward at batch 8, forward
 and backward at batch 32) and PixelLink++'s 8 (forward and backward at
 batch 16), from ``chip_smoke.py``. Each baseline output must agree with
 the current kernel's within chip_smoke's KERNEL_TOL of max.
@@ -33,6 +37,8 @@ def build_baseline(root, out_dir):
 
     fns = {}
     procs = []
+    with open(os.path.join(root, "gssd_torch", "csrc", "flash_attn_bwd.cu")) as f:
+        fns["atomic_dq"] = "red_add_v2" in f.read()
     for name in ("flash_attn_fwd", "flash_attn_bwd"):
         src = os.path.join(root, "gssd_torch", "csrc", name + ".cu")
         so = os.path.join(out_dir, name + ".so")
@@ -43,8 +49,13 @@ def build_baseline(root, out_dir):
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on the baseline's {name}.cu:\n{log}")
         fn = getattr(ctypes.CDLL(so), name)
-        fn.argtypes = [ctypes.c_void_p] * (5 if name.endswith("fwd") else 9) + \
-            [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        if name.endswith("fwd"):
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+        elif fns["atomic_dq"]:
+            fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+        else:
+            fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+        fn.argtypes += [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fns[name] = fn
     return fns
@@ -64,14 +75,35 @@ class _Baseline:
         self.launches += 1
 
 
+def atomic_dq_bwd(fn):
+    """The backward wrapper of a baseline that adds dQ with atomics."""
+    import torch
+
+    def bwd(q, k, v, o, lse, do):
+        B, N, dk = q.shape
+        M, dv = k.shape[1], v.shape[2]
+        delta = (do.float() * o).sum(dim=-1)
+        dq = torch.zeros(B, N, dk, dtype=torch.float32, device=q.device)
+        dk_ = torch.empty(B, M, dk, dtype=torch.bfloat16, device=q.device)
+        dv_ = torch.empty(B, M, dv, dtype=torch.bfloat16, device=q.device)
+        _Baseline(fn).launch(torch.cuda.current_stream(q.device).cuda_stream,
+                             *(t.data_ptr() for t in (q, k, v, do, lse, delta, dq, dk_, dv_)),
+                             B, N, M, dk, dv)
+        return dq.to(torch.bfloat16), dk_, dv_
+
+    return bwd
+
+
 @contextlib.contextmanager
 def baseline_kernels(fa, fns):
-    saved = fa.KERNEL, fa.BWD_KERNEL
+    saved = fa.KERNEL, fa.BWD_KERNEL, fa.flash_attention_bwd
     fa.KERNEL, fa.BWD_KERNEL = _Baseline(fns["flash_attn_fwd"]), _Baseline(fns["flash_attn_bwd"])
+    if fns["atomic_dq"]:
+        fa.flash_attention_bwd = atomic_dq_bwd(fns["flash_attn_bwd"])
     try:
         yield
     finally:
-        fa.KERNEL, fa.BWD_KERNEL = saved
+        fa.KERNEL, fa.BWD_KERNEL, fa.flash_attention_bwd = saved
 
 
 def main() -> int:

@@ -1,0 +1,100 @@
+#!/usr/bin/env python3
+"""Device time of every CUDA kernel inside the port's multi-kernel
+launches, at the shapes chip_smoke.py holds them to, from a
+torch.profiler trace on one card.
+
+    python3 tools/profile_kernels.py [--iters 10]
+
+Boundaries: stem_conv_bwd at PixelLink++'s conv1_1 and conv1_2 (batch 16,
+300x300, bf16), deform_conv_bwd at the GSSD++ training site (batch 32,
+38x38) and at 75x75 (batch 16), flash_attn_bwd at N = M = 5625 (batch
+16), deform_sample_dx at the 38x38 site (batch 32). Prints one JSON line
+per boundary: the mean device ms a call of each kernel it launched (and
+of the PyTorch ops around it), and the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def cases(cs):
+    import torch
+
+    from gssd_torch.ops.kernels import deform_hat as dh
+    from gssd_torch.ops.kernels import deform_sample as ds
+    from gssd_torch.ops.kernels import flash_attn as fa
+    from gssd_torch.ops.kernels import stem_conv as sc
+
+    g = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    for name, cin, cout in cs.STEM_SITES:
+        x = torch.rand(cs.PL_BATCH, cin, 300, 300, device="cuda", generator=g).bfloat16()
+        w = torch.randn(cout, cin // 4, 3, 3, device="cuda", generator=g) / math.sqrt(9 * cin / 4)
+        gout = torch.randn(cs.PL_BATCH, cout, 300, 300, device="cuda", generator=g).bfloat16()
+        yield (f"stem_conv_bwd {name}",
+               lambda x=x, w=w, gout=gout, dx=name != "conv1_1": sc.stem_conv_bwd(x, w, gout, 4, dx))
+    x, py, px, m, wg, _ = cs.dcn_inputs(cs.TRAIN_BATCH)
+    gout = torch.randn(cs.TRAIN_BATCH, py.shape[1], wg.shape[-1], device="cuda", generator=g)
+    yield "deform_conv_bwd 38x38 B=32", lambda: dh.deform_conv_bwd(x, py, px, m, wg, gout)
+    B, H, C, G, K, Cout = cs.PL_BATCH, 75, 512, 4, 9, 256
+    off = torch.rand(2, B, H, H, G, K, device="cuda", generator=g) * 6 - 3
+    py75, px75 = (t.reshape(B, H * H, G, K).contiguous() for t in dh.sample_coords(off[0], off[1]))
+    args75 = (torch.randn(B, H, H, C, device="cuda", generator=g).bfloat16(), py75, px75,
+              torch.rand(B, H * H, G, K, device="cuda", generator=g),
+              (torch.randn(G, K, C // G, Cout, device="cuda", generator=g) * 0.05).bfloat16(),
+              torch.randn(B, H * H, Cout, device="cuda", generator=g))
+    yield "deform_conv_bwd 75x75 B=16", lambda: dh.deform_conv_bwd(*args75)
+    q, k, v, do = cs.attn_inputs(g, cs.PL_BATCH, 5625, 32, 128)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    yield "flash_attn_bwd N=5625 B=16", lambda: fa.flash_attention_bwd(q, k, v, o, lse, do)
+    a, b, _, gs = cs.sample_inputs(cs.TRAIN_BATCH)
+    yield "deform_sample_dx 38x38 B=32", lambda: ds.abx_dx(a, b, gs)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--iters", type=int, default=10)
+    args = ap.parse_args()
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("FAIL: needs a CUDA card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from gssd_torch.ops.kernels import KERNELS, build
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    build(KERNELS.values())
+    for label, fn in cases(cs):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(args.iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = {}
+        for e in prof.key_averages():
+            ms = e.self_device_time_total / 1e3 / args.iters
+            if ms > 0:
+                kernels[e.key[:120]] = round(ms, 4)
+        total = sum(kernels.values())
+        print(json.dumps({"boundary": label, "device_ms": round(total, 4),
+                          "kernels_ms": dict(sorted(kernels.items(), key=lambda kv: -kv[1])),
+                          "power": smi}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
