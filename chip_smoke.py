@@ -19,7 +19,11 @@ In order, failing (exit code 1) at the first phase that goes wrong:
    mean |kernel - plain| / mean |plain| per output within its limit on
    contract inputs, while a planted online-softmax forward, bf16-dS
    backward and two-part dS split, in plain PyTorch on the card, must
-   read above it; times kernel, plain version and (attention only)
+   read above it; so do the hat DCN kernels
+   (``gssd_torch/ops/kernels/dcn_contract.py``: forward at batch 8 and
+   32, backward at batch 32; planted f32 corner weights, unrounded
+   samples, g and dU, which must read above it on every output they
+   touch); times kernel, plain version and (attention only)
    ``F.scaled_dot_product_attention`` forward or backward as a yardstick
    the port never calls, and computes each call's bound from the H100
    data sheet (attention: the largest of its bytes, its tensor products
@@ -75,8 +79,8 @@ In order, failing (exit code 1) at the first phase that goes wrong:
    planted double rounding must fail; times them beside cuDNN;
 15. holds the attention kernels at PixelLink++'s four site shapes (N =
    5625, 1444, 361; batch 16), with the checks of phase 3, and the hat
-   DCN at 75x75 (512 -> 256 channels) against their plain versions,
-   timed;
+   DCN at 75x75 (512 -> 256 channels) against their plain versions and
+   within the DCN contract, timed;
 16. with ``USE_WIDE_CONV_KERNEL`` set in-process, trains PixelLink++
    through ``gssd_torch.train_pixellink.main`` at ``--reference_recipe
    pixellink++ --synthetic True --batch_size 16 --device cuda
@@ -418,6 +422,41 @@ def dcn_inputs(batch=BATCH):
             w.reshape(K, G, C // G, Cout).permute(1, 0, 2, 3).bfloat16().contiguous(), b)
 
 
+def dcn_contract(label, fwd=None, bwd=None):
+    """The hat DCN's rounding contract at one site
+    (``gssd_torch/ops/kernels/dcn_contract.py``): ``fwd`` = (args, kernel
+    out, plain out), ``bwd`` = (args, kernel grads, plain grads). Every
+    output's mean |kernel - plain| / mean |plain| within its limit, and
+    every planted fault, in plain PyTorch on the card, above the limit of
+    each output it touches. Returns the readings."""
+    from gssd_torch.ops.kernels import dcn_contract as dc
+
+    parts = []
+    if fwd is not None:
+        args, got, want = fwd
+        parts.append((dc.FWD_OUTPUTS, (got,), (want,), dc.fwd_faults(args)))
+    if bwd is not None:
+        args, got, want = bwd
+        parts.append((dc.BWD_OUTPUTS, got, want, dc.bwd_faults(args, want)))
+    res = dict(mean_rel_errs={}, mean_limits={}, planted={})
+    for names, got, want, planted in parts:
+        errs, lims = dc.readings(names, got, want), dc.limits(names, want)
+        res["mean_rel_errs"].update(errs)
+        res["mean_limits"].update(lims)
+        bad = dc.violations(errs, lims)
+        check(not bad, f"{label}: mean err above the contract's limit: {bad}")
+        missed = dc.faults_missed(planted, lims)
+        check(not missed, f"{label}: a planted fault reads within the limit: {missed}")
+        for fault, r in planted.items():
+            res["planted"].setdefault(fault, {}).update(r)
+    least = {f: min(r[n] for n in dc.AFFECTS[f] if n in r) for f, r in res["planted"].items()}
+    print(f"{label} contract: " + ", ".join(
+        f"{n} {e:.3g} (limit {res['mean_limits'][n]:.3g})" for n, e in
+        res["mean_rel_errs"].items()) + "; least planted reading " + ", ".join(
+        f"{f} {v:.3g}" for f, v in least.items()), flush=True)
+    return res
+
+
 def check_dcn():
     import torch
 
@@ -431,13 +470,14 @@ def check_dcn():
     scale = ref.abs().max().item()
     check(math.isfinite(err) and err <= KERNEL_TOL * scale,
           f"deform_conv_fwd: max err {err} > {KERNEL_TOL} * {scale}")
+    contract = dcn_contract(f"deform_conv_fwd B={BATCH}", fwd=(args, out, ref))
     s = DCN_SITE
     P = s["H"] * s["W"]
     ops = 2 * BATCH * P * s["K"] * s["C"] * s["Cout"]
     nbytes = sum(t.numel() * t.element_size() for t in args) + out.numel() * 4
     b_ms, b_by = bound(ops, nbytes)
     site = dict(
-        B=BATCH, **s, max_abs_err=err, rel_err=err / scale,
+        B=BATCH, **s, max_abs_err=err, rel_err=err / scale, contract=contract,
         ms=time_ms(lambda: dh.deform_conv_fwd(*args)),
         plain_ms=time_ms(lambda: dh.deform_conv_fwd_plain(*args), iters=5),
         library_ms=None, bound_ms=b_ms, bound_by=b_by, ops=ops, bytes=nbytes)
@@ -451,7 +491,8 @@ def check_dcn():
 def check_dcn_bwd():
     """deform_conv_bwd against its plain version at the training site
     (batch 32, 38x38, C 1024, G 4, Cout 512); each of the five gradients
-    within KERNEL_TOL of its own max."""
+    within KERNEL_TOL of its own max, and both kernels within their
+    rounding contract at this batch (``dcn_contract``)."""
     import torch
 
     from gssd_torch.ops.kernels import deform_hat as dh
@@ -462,6 +503,8 @@ def check_dcn_bwd():
     gout = torch.randn(B, P, Cout, device="cuda",
                        generator=torch.Generator(device="cuda").manual_seed(SEED + 2))
     args = (x, py, px, m, wg, gout)
+    fwd_args = (x, py, px, m, wg, bias)
+    out = dh.deform_conv_fwd(*fwd_args)
     got = dh.deform_conv_bwd(*args)
     torch.cuda.synchronize()
     want = dh.deform_conv_bwd_plain(*args)
@@ -473,6 +516,12 @@ def check_dcn_bwd():
         rels.append(err / scale)
         check(math.isfinite(err) and err <= KERNEL_TOL * scale,
               f"deform_conv_bwd {name}: max err {err} > {KERNEL_TOL} * {scale}")
+    ref = dh.deform_conv_fwd_plain(*fwd_args)
+    fwd_err = (out - ref).abs().max().item()
+    check(math.isfinite(fwd_err) and fwd_err <= KERNEL_TOL * ref.abs().max().item(),
+          f"deform_conv_fwd B={B}: max err {fwd_err}")
+    contract = dcn_contract(f"hat DCN B={B}", fwd=(fwd_args, out, ref), bwd=(args, got, want))
+    del ref, want
     H, W = x.shape[1], x.shape[2]
     # the corner terms this data needs: 6 * C/G f32 operations (dS, the
     # sample, dx) per corner that lies inside the map
@@ -490,8 +539,8 @@ def check_dcn_bwd():
     fwd_bound = bound(2 * B * P * K * C * Cout,
                       nbytes_of(x, py, px, m, wg, bias) + B * P * Cout * 4)[0]
     site = dict(
-        B=B, **DCN_SITE, max_abs_err=max(errs), rel_err=max(rels),
-        fwd_ms=time_ms(lambda: dh.deform_conv_fwd(x, py, px, m, wg, bias), iters=5),
+        B=B, **DCN_SITE, max_abs_err=max(errs), rel_err=max(rels), contract=contract,
+        fwd_max_abs_err=fwd_err, fwd_ms=time_ms(lambda: dh.deform_conv_fwd(x, py, px, m, wg, bias), iters=5),
         fwd_bound_ms=fwd_bound,
         ms=time_ms(lambda: dh.deform_conv_bwd(*args), iters=5),
         plain_ms=time_ms(lambda: dh.deform_conv_bwd_plain(*args), iters=2, warmup=1),
@@ -1325,7 +1374,8 @@ def check_pixellink_sites():
     16): attention at its four site shapes (``attn_site``: N = M = 5625,
     1444 and 361), forward and backward, and the hat DCN at 75 x 75 (512
     -> 256 channels, 4 groups), forward and backward, within KERNEL_TOL of
-    its plain version's max."""
+    its plain version's max and within its rounding contract
+    (``dcn_contract``)."""
     import torch
 
     from gssd_torch.ops.kernels import deform_hat as dh
@@ -1359,7 +1409,6 @@ def check_pixellink_sites():
     dcn_fwd_err = (out - ref).abs().max().item()
     check(dcn_fwd_err <= KERNEL_TOL * ref.abs().max().item(),
           f"deform_conv_fwd at 75x75: max err {dcn_fwd_err}")
-    del ref
     want = dh.deform_conv_bwd_plain(*args, gout)
     dcn_bwd_errs = []
     for name, a, b_ in zip(("dpy", "dpx", "dm", "dx", "dwg"), got, want):
@@ -1367,11 +1416,13 @@ def check_pixellink_sites():
         dcn_bwd_errs.append(err)
         check(err <= KERNEL_TOL * b_.float().abs().max().item(),
               f"deform_conv_bwd {name} at 75x75: max err {err}")
-    del want
+    contract = dcn_contract(f"hat DCN B={B} 75x75", fwd=((*args, bias), out, ref),
+                            bwd=((*args, gout), got, want))
+    del ref, want
     ops = 2 * B * P * K * C * Cout
     dcn = dict(
         B=B, H=H, W=W, C=C, G=G, K=K, Cout=Cout, fwd_max_abs_err=dcn_fwd_err,
-        bwd_max_abs_err=max(dcn_bwd_errs),
+        bwd_max_abs_err=max(dcn_bwd_errs), contract=contract,
         fwd_ms=time_ms(lambda: dh.deform_conv_fwd(*args, bias), iters=5),
         fwd_plain_ms=time_ms(lambda: dh.deform_conv_fwd_plain(*args, bias), iters=2, warmup=1),
         bwd_ms=time_ms(lambda: dh.deform_conv_bwd(*args, gout), iters=3),
@@ -1875,7 +1926,8 @@ def main() -> int:
              plain_ms=dcn_bwd_site["plain_ms"], bound_ms=dcn_bwd_site["bound_ms"],
              bound_by=dcn_bwd_site["bound_by"], library_ms=None,
              note=(f"one batch-{TRAIN_BATCH} call at the 38x38 training site; one launch "
-                   "runs the dU GEMM, the corner kernel and the dW GEMM"),
+                   "runs dU with the corner terms, the dx buckets and gather, the dW "
+                   "partials and their sum"),
              sites=[dcn_bwd_site]),
     ]
     pallas_launches = routes["pallas"][0]

@@ -15,25 +15,38 @@
 //             coordinates: the 4-corner subgradient)
 //     w_q  = bf16(ay * bx * m)
 //     dx[q] += w_q * dU_k[p]                                   (f32)
-//   samp   = bf16( sum_q w_q * x[q] )
+//   samp   = bf16( sum_q w_q * x[q] )  (the forward's sample, bit for bit)
 //   dW_k  += samp^T . gb                   (f32 sums over B*P)
-// dx and dW are rounded to bf16 at the end. The corner weights w_q are
-// rounded to bf16 here because the JAX backward rounds them; the port's
-// forward kernel keeps them in f32 (ROADMAP Queue C), so this backward
-// follows the JAX backward, not the port's own forward.
+// dx and dW are rounded to bf16 at the end.
 //
-// What bounds it here: dU and dW are each 2*B*P*K*C*Cout operations
-// (4.4e11 at batch 32, 38x38, C 1024, Cout 512), the corner terms ~3e9:
-// the ideal kernel is tensor-core bound. The TPU kernel avoids gathers
-// with a dense hat matrix over the map; a GPU gathers well. One call
-// runs these kernels on one stream:
-//   1. gemm_bf16 (dU): per group, [B*P x Cout] . [Cout x K*Cg] on the
-//      tensor cores (mma.sync, 128 x 128 tiles, cp.async double
-//      buffer), written as bf16 to a scratch [B*P, G, K, Cg];
-//   2. deform_bwd_corners: one warp per (b, p, g, k) gathers its 4
-//      corners of x, forms dS, dm, dpy, dpx and the bf16 sample (to a
-//      second scratch [B*P, G, K, Cg]);
-//   3. dx as a gather, so that each dx element is one thread's f32 sum
+// What bounds it: dU and dW are each 2*B*P*K*C*Cout operations (4.4e11
+// each at batch 32, 38x38, C 1024, Cout 512: 0.88 ms of tensor-core time
+// together), the corner terms ~3e9 f32 operations; the scratch below
+// adds ~1.7 GB of device-memory traffic at that site (~0.5 ms). The TPU
+// kernel avoids gathers with a dense hat matrix over the map; a GPU
+// gathers well. One call runs these kernels on one stream, with no
+// floating-point atomics, so every output is the same bits on a repeat:
+//   1. deform_du_sm90: a persistent loop over tiles of 128 flattened
+//      (b, p) rows x one (g, k), the (g, k) index fastest so that the 36
+//      tiles of a row range find its gb rows and the x rows they gather
+//      in L2: dU = gb . W_k^T by wgmma (two consumer warpgroups of
+//      m64n256 at Cg 256; gb [B*P, Cout] and wg[g, k] [Cg, Cout] both
+//      K-major, read by TMA through a ring of mbarrier-guarded stages fed
+//      by one producer thread, which runs on into the next tile while the
+//      consumers finish this one). Its epilogue rounds dU to bf16 into a
+//      shared-memory tile; then 11 warps (the consumers and three of the
+//      producer warpgroup) take 11 or 12 rows each, 4 to 12 at a time
+//      (all their corner loads in flight at once): each gathers a row's
+//      four corners of x (lanes over channels, 16 bytes a load), forms
+//      dS_q (each lane's channels in order, then the warp's xor-shuffle
+//      tree), the bf16 sample (csrc/deform_gather.cuh, the forward's
+//      code), stores dU and the sample to scratch, and writes dm, dpy,
+//      dpx. Each corner of x is read once. On the H100 at batch 32 this
+//      kernel takes 2.55 ms, of which the epilogue's corner loads ~1.2
+//      and its stores ~0.6 (tools/ablate_dcn.py); issuing the next rows'
+//      loads before using these, in a second register set, spilled and
+//      read slower.
+//   2. dx as a gather, so that each dx element is one thread's f32 sum
 //      in one fixed order, the same on every run (a scatter with atomics
 //      would add in the order the blocks happen to run):
 //      a. bucket_count: every sample (b, p, g, k) with a corner inside
@@ -52,234 +65,398 @@
 //         the same bf16 w_q = bf16(ay * bx * m) as the corner terms, then
 //         rounds the f32 sum once to bf16. Every term w_q * dU is exact
 //         in f32 (two bf16 factors).
-//   4. gemm_bf16 (dW): per group, [K*Cg x B*P] . [B*P x Cout]: each block
-//      owns a 128 x 128 tile of dW and walks all pixels, so dW needs no
-//      atomics.
-// The scratch buffers cost 2 * B*P*G*K*Cg bf16 (1.7 GB at the training
-// site) and one extra write and read of each; the buckets 4 bytes a
-// sample and 8 a cell.
+//   3. deform_dw_sm90: dW_k = samp^T . gb by wgmma, split over B*P: one
+//      block per (128 channels of one (g, k), up to 256 Cout columns, one
+//      of `splits` contiguous ranges of 64-pixel chunks); A = the samples
+//      (MN-major, from the scratch by TMA), B = gb (MN-major, TMA). Each
+//      block writes its f32 partial; the splits (enough for ~4 waves on
+//      the card: 4 at batch 32) spread dW's 144 tiles over every SM.
+//   4. dw_reduce adds the partials in split order and rounds to bf16.
+// Why dW reads the samples from scratch instead of forming them again in
+// producer warps (as the forward does): kernel 1 already holds the four
+// corners of every sample, so storing its bf16 sample costs 2 bytes
+// written and 2 read back per sample (1.7 GB of device memory at batch
+// 32, ~0.5 ms), where forming it again would gather 8 bytes per sample
+// from L2 once per 256 Cout columns (6.8 GB at Cout 512).
+// Scratch: du and samp, B*P*G*K*Cg bf16 each (852 MB each at batch 32,
+// 38x38, C 1024), each (g, k) slice of samp padded to a multiple of 8
+// channels (a TMA box starts on 16 bytes); the dW partials, splits *
+// G*K*Cg*Cout f32 (75 MB there); the buckets 4 bytes a sample and 8 a
+// cell.
 
-#include <cuda_bf16.h>
-#include <cuda_pipeline.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
-#include "mma_sync.cuh"
+#include "deform_gather.cuh"
+#include "flash_sm90.cuh"
 
 namespace {
 
-using namespace mma16816;
-typedef __nv_bfloat16 bf16;
+using namespace sm90;
+using namespace dcn;
 
-constexpr int BM = 128;
-constexpr int BN = 128;
-constexpr int BK = 32;
-constexpr int PAD = 8;
-constexpr int GEMM_THREADS = 256;  // 8 warps: 2 (m) x 4 (n), 64 x 32 each
+constexpr int SMEM_LIMIT = 232448;
+constexpr int THREADS = 384;  // two consumer warpgroups + the producer warpgroup
+constexpr int DU_BM = 128;    // (b, p) rows of a dU block
+constexpr int DW_BM = 128;    // channels of a dW block
+constexpr int PCH = 64;       // pixels (the reduction) of a dW stage
 
-// rows [r0, r0 + rows) x cols [c0, c0 + cols) of a row-major matrix with
-// nr valid rows, nc valid columns and leading dimension ld into smem
-// [rows][lds]; out-of-range elements are zero. 16-byte cp.async where
-// `vec` (ld and the base are multiples of 8 elements) and the 8-element
-// chunk is whole, element loads otherwise.
-__device__ __forceinline__ void load_block(bf16* dst, int lds, const bf16* src, long ld, int r0,
-                                           int rows, int nr, int c0, int cols, int nc, bool vec) {
-    const int vpr = cols / 8;
-    for (int i = threadIdx.x; i < rows * vpr; i += GEMM_THREADS) {
-        const int r = i / vpr;
-        const int c = (i - r * vpr) * 8;
-        bf16* d = dst + r * lds + c;
-        const int gr = r0 + r, gc = c0 + c;
-        if (gr < nr && vec && gc + 8 <= nc) {
-            __pipeline_memcpy_async(d, src + (size_t)gr * ld + gc, 16);
-        } else {
+template <int NT>
+struct DuPlan {
+    static constexpr int A_BYTES = DU_BM * 128;   // gb: 128 rows x 64 columns
+    static constexpr int B_BYTES = NT * 128;      // W_k: NT rows x 64 columns
+    static constexpr int STAGE = A_BYTES + B_BYTES;
+    static constexpr int LDU = NT + 8;            // bf16 a row of the dU tile
+    static constexpr int DU_BYTES = DU_BM * LDU * 2;
+    static constexpr int FIXED = 1024 + DU_BYTES + 256;
+    static constexpr int STAGES = (SMEM_LIMIT - FIXED) / STAGE >= 4 ? 4 : (SMEM_LIMIT - FIXED) / STAGE;
+    static constexpr int TOTAL = FIXED + STAGES * STAGE;
+};
+
+// the epilogue's workers: the 8 consumer warps and 3 warps of the
+// producer warpgroup (its first warp issues the TMA loads), each taking
+// the rows ew, ew + 11, ... of a dU tile
+constexpr int WORKERS = 11;
+constexpr int WORKER_ROWS = (DU_BM + WORKERS - 1) / WORKERS;  // 12
+
+// The corner terms of worker ew's rows of one chunk of a dU tile (dU
+// rounded to bf16 in `dut`): lane j < WORKER_ROWS holds row ew + 11 j's
+// corners (shuffled to the warp row by row) and sums its dS over the
+// chunks in my_ds; the lanes own NT / 32 channels of a row, ROWS rows
+// with all their corner loads in flight at once.
+template <int NT, bool VEC, int LDU>
+__device__ __forceinline__ void corner_terms(
+    const bf16* dut, const bf16* __restrict__ x, const float* __restrict__ py,
+    const float* __restrict__ px, const float* __restrict__ mk, bf16* __restrict__ du,
+    bf16* __restrict__ samp, float* __restrict__ dpy, float* __restrict__ dpx,
+    float* __restrict__ dm, int H, int W, int C, int G, int K, int P, int BP, int cg8, int r0,
+    int gk, int chunk, int nchunk, int ew, int lane, float (&my_ds)[4]) {
+    constexpr int CPL = NT / 32;      // channels a lane
+    constexpr int WPL = CPL / 2;      // their words
+    // rows whose corner loads are in flight at once (5 WPL + 4 registers a
+    // row; a divisor of WORKER_ROWS)
+    constexpr int ROWS = NT == 256 ? 4 : NT == 128 ? 6 : 12;
+    const int Cg = C / G, GK = G * K, g = gk / K;
+    const int my_ri = ew + WORKERS * lane;
+    const bool mine = lane < WORKER_ROWS && my_ri < DU_BM && r0 + my_ri < BP;
+    const size_t my_wi = (size_t)(mine ? r0 + my_ri : 0) * GK + gk;
+    const float my_m = mine ? mk[my_wi] : 0.0f;
+    const Corners mc = corners_of(mine ? py[my_wi] : 0.0f, mine ? px[my_wi] : 0.0f, my_m, H, W);
+    const int my_img = (mine ? (r0 + my_ri) / P : 0) * H * W;
+    const int cc = chunk * NT + lane * CPL;  // this lane's channels in the group
+    const int left = Cg - cc;
+    for (int j0 = 0; j0 < WORKER_ROWS; j0 += ROWS) {
+        if (ew + WORKERS * j0 >= DU_BM || r0 + ew + WORKERS * j0 >= BP) break;
+        uint32_t u[ROWS][WPL], v[ROWS][4][WPL];
+        float w[ROWS][4];
 #pragma unroll
-            for (int e = 0; e < 8; ++e)
-                d[e] = (gr < nr && gc + e < nc) ? src[(size_t)gr * ld + gc + e]
-                                                : __float2bfloat16(0.0f);
-        }
-    }
-}
-
-// C[m, n] = sum_k A(m, k) B(k, n), bf16 in, f32 sums, bf16 out; batched
-// over blockIdx.z with element offsets a_z, b_z, c_z. A(m, k) is
-// A[k * lda + m] when A_KM, else A[m * lda + k]; B(k, n) is B[k * ldb + n]
-// when B_KN, else B[n * ldb + k]; C is row-major with ldc.
-template <bool A_KM, bool B_KN>
-__global__ void __launch_bounds__(GEMM_THREADS)
-gemm_bf16(const bf16* __restrict__ A, const bf16* __restrict__ B, bf16* __restrict__ C, int M,
-          int N, int Kd, long lda, long ldb, long ldc, long a_z, long b_z, long c_z, int vec_a,
-          int vec_b) {
-    constexpr int LDA_S = A_KM ? BM + PAD : BK + PAD;
-    constexpr int LDB_S = B_KN ? BN + PAD : BK + PAD;
-    constexpr int A_TILE = A_KM ? BK * LDA_S : BM * LDA_S;
-    constexpr int B_TILE = B_KN ? BK * LDB_S : BN * LDB_S;
-    __shared__ __align__(128) bf16 As[2][A_TILE];
-    __shared__ __align__(128) bf16 Bs[2][B_TILE];
-
-    A += blockIdx.z * a_z;
-    B += blockIdx.z * b_z;
-    C += blockIdx.z * c_z;
-    const int m0 = blockIdx.y * BM;
-    const int n0 = blockIdx.x * BN;
-    const int warp = threadIdx.x / 32;
-    const int lane = threadIdx.x % 32;
-    const int g = lane >> 2, tig = lane & 3;
-    const int mi = lane >> 3, r = lane & 7;
-    const int wm = (warp / 4) * 64;
-    const int wn = (warp % 4) * 32;
-
-    auto load = [&](int k0, int buf) {
-        if (A_KM) load_block(As[buf], LDA_S, A, lda, k0, BK, Kd, m0, BM, M, vec_a);
-        else load_block(As[buf], LDA_S, A, lda, m0, BM, M, k0, BK, Kd, vec_a);
-        if (B_KN) load_block(Bs[buf], LDB_S, B, ldb, k0, BK, Kd, n0, BN, N, vec_b);
-        else load_block(Bs[buf], LDB_S, B, ldb, n0, BN, N, k0, BK, Kd, vec_b);
-    };
-
-    float acc[4][4][4];
+        for (int jj = 0; jj < ROWS; ++jj) {
+            const int j = j0 + jj, ri = ew + WORKERS * j;
+            const bool valid = j < WORKER_ROWS && ri < DU_BM && r0 + ri < BP;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+            for (int i = 0; i < WPL; ++i)
+                u[jj][i] = valid ? *reinterpret_cast<const uint32_t*>(dut + ri * LDU + lane * CPL +
+                                                                      2 * i)
+                                 : 0u;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.0f;
-
-    const int nk = (Kd + BK - 1) / BK;
-    load(0, 0);
-    __pipeline_commit();
-    for (int t = 0; t < nk; ++t) {
-        const int buf = t & 1;
-        if (t + 1 < nk) load((t + 1) * BK, buf ^ 1);
-        __pipeline_commit();
-        __pipeline_wait_prior(1);
-        __syncthreads();
-        const bf16* as = As[buf];
-        const bf16* bs = Bs[buf];
-#pragma unroll
-        for (int kk = 0; kk < BK; kk += 16) {
-            uint32_t af[4][4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                if (A_KM)
-                    ldmatrix_x4_trans(af[i], as + (kk + (mi >> 1) * 8 + r) * LDA_S + wm + i * 16 +
-                                                 (mi & 1) * 8);
-                else
-                    ldmatrix_x4(af[i], as + (wm + i * 16 + (mi & 1) * 8 + r) * LDA_S + kk +
-                                           (mi >> 1) * 8);
+            for (int q = 0; q < 4; ++q) {
+                const int pix = __shfl_sync(0xffffffffu, my_img + mc.pix[q], j & 31);
+                const bool in = __shfl_sync(0xffffffffu, (int)mc.in[q], j & 31) != 0;
+                w[jj][q] = __shfl_sync(0xffffffffu, mc.w[q], j & 31);
+                load_words<WPL, VEC>(v[jj][q], x + (size_t)pix * C + g * Cg + cc,
+                                     valid && in ? left : 0);
             }
+        }
 #pragma unroll
-            for (int j = 0; j < 4; j += 2) {
-                uint32_t bb[4];
-                if (B_KN)
-                    ldmatrix_x4_trans(bb, bs + (kk + (mi & 1) * 8 + r) * LDB_S + wn +
-                                              (j + (mi >> 1)) * 8);
-                else
-                    ldmatrix_x4(bb, bs + (wn + (j + (mi >> 1)) * 8 + r) * LDB_S + kk +
-                                        (mi & 1) * 8);
+        for (int jj = 0; jj < ROWS; ++jj) {
+            const int j = j0 + jj, ri = ew + WORKERS * j;
+            if (j >= WORKER_ROWS || ri >= DU_BM || r0 + ri >= BP) break;
+            float ds[4];
 #pragma unroll
-                for (int i = 0; i < 4; ++i) {
-                    mma_bf16(acc[i][j], af[i], bb[0], bb[1]);
-                    mma_bf16(acc[i][j + 1], af[i], bb[2], bb[3]);
+            for (int q = 0; q < 4; ++q) {
+                ds[q] = 0.0f;
+#pragma unroll
+                for (int i = 0; i < WPL; ++i) {
+                    ds[q] = fmaf(lo_f(u[jj][i]), lo_f(v[jj][q][i]), ds[q]);
+                    ds[q] = fmaf(hi_f(u[jj][i]), hi_f(v[jj][q][i]), ds[q]);
                 }
+#pragma unroll
+                for (int off = 16; off > 0; off >>= 1)
+                    ds[q] += __shfl_xor_sync(0xffffffffu, ds[q], off);
+                if (lane == j) my_ds[q] += ds[q];
             }
-        }
-        __syncthreads();  // this buffer is refilled two steps on
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-            const int m = m0 + wm + i * 16 + g + 8 * h;
-            if (m >= M) continue;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-#pragma unroll
-                for (int e = 0; e < 2; ++e) {
-                    const int n = n0 + wn + j * 8 + 2 * tig + e;
-                    if (n < N) C[(size_t)m * ldc + n] = __float2bfloat16(acc[i][j][2 * h + e]);
-                }
-            }
+            uint32_t o[WPL];
+            blend<WPL>(o, v[jj], w[jj]);
+            const size_t wi = (size_t)(r0 + ri) * GK + gk;
+            store_words<WPL, VEC>(du + wi * Cg + cc, u[jj], left);
+            store_words<WPL, VEC>(samp + wi * cg8 + cc, o, left);
         }
     }
-}
-
-constexpr int CORNER_THREADS = 256;
-
-// one warp per (b, p, g, k) = flat index wi of py/px/m [B, P, G, K];
-// lanes own channel pairs c = 2 * lane + 64 * i of the group
-__global__ void __launch_bounds__(CORNER_THREADS)
-deform_bwd_corners(const bf16* __restrict__ x,      // [B, H, W, C]
-                   const float* __restrict__ py,    // [B, P, G, K]
-                   const float* __restrict__ px,
-                   const float* __restrict__ mk,
-                   const bf16* __restrict__ dU,     // [B, P, G, K, Cg]
-                   float* __restrict__ dpy,         // [B, P, G, K]
-                   float* __restrict__ dpx,
-                   float* __restrict__ dm,
-                   bf16* __restrict__ samp,         // [B, P, G, K, Cg]
-                   long total, int H, int W, int C, int G, int K, int P) {
-    const long wi = (long)blockIdx.x * (CORNER_THREADS / 32) + threadIdx.x / 32;
-    if (wi >= total) return;
-    const int lane = threadIdx.x % 32;
-    const int Cg = C / G;
-    const int g = (int)((wi / K) % G);
-    const long bp = wi / ((long)G * K);
-    const int b = (int)(bp / P);
-    const float fy = py[wi], fx = px[wi], m = mk[wi];
-    const float y0 = floorf(fy), x0 = floorf(fx);
-
-    float s0[4], sw[4], ay[4], bx[4];
-    long base[4];  // element offset of the corner's group channels in x
-    bool in[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-        const float qy = y0 + (float)(q >> 1);
-        const float qx = x0 + (float)(q & 1);
-        ay[q] = fmaxf(0.0f, 1.0f - fabsf(fy - qy));
-        bx[q] = fmaxf(0.0f, 1.0f - fabsf(fx - qx));
-        in[q] = qy >= 0.0f && qy < (float)H && qx >= 0.0f && qx < (float)W;
-        s0[q] = ay[q] * bx[q];
-        sw[q] = in[q] ? __bfloat162float(__float2bfloat16(s0[q] * m)) : 0.0f;
-        base[q] = in[q] ? (((long)b * H + (long)qy) * W + (long)qx) * C + (long)g * Cg : 0;
-    }
-
-    float dS[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    const bf16* du = dU + wi * Cg;
-    bf16* so = samp + wi * Cg;
-    for (int c = 2 * lane; c < Cg; c += 64) {
-        const __nv_bfloat162 u2 = *reinterpret_cast<const __nv_bfloat162*>(du + c);
-        const float u0 = __low2float(u2), u1 = __high2float(u2);
-        float a0 = 0.0f, a1 = 0.0f;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-            if (!in[q]) continue;
-            const __nv_bfloat162 x2 = *reinterpret_cast<const __nv_bfloat162*>(x + base[q] + c);
-            const float v0 = __low2float(x2), v1 = __high2float(x2);
-            dS[q] = fmaf(u0, v0, fmaf(u1, v1, dS[q]));
-            a0 = fmaf(sw[q], v0, a0);
-            a1 = fmaf(sw[q], v1, a1);
-        }
-        *reinterpret_cast<__nv_bfloat162*>(so + c) = __floats2bfloat162_rn(a0, a1);
-    }
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) dS[q] += __shfl_xor_sync(0xffffffffu, dS[q], o);
-    if (lane == 0) {
+    if (mine && chunk + 1 == nchunk) {
         float sm = 0.0f, sy = 0.0f, sx = 0.0f;
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
-            if (!in[q]) continue;
-            const float mdS = dS[q] * m;
+            if (!mc.in[q]) continue;
+            const float mdS = my_ds[q] * my_m;
             const float day = (q >> 1) ? 1.0f : -1.0f;
             const float dbx = (q & 1) ? 1.0f : -1.0f;
-            sm += dS[q] * s0[q];
-            sy += mdS * day * bx[q];
-            sx += mdS * ay[q] * dbx;
+            sm += my_ds[q] * (mc.ay[q] * mc.bx[q]);
+            sy += mdS * day * mc.bx[q];
+            sx += mdS * mc.ay[q] * dbx;
         }
-        dm[wi] = sm;
-        dpy[wi] = sy;
-        dpx[wi] = sx;
+        dm[my_wi] = sm;
+        dpy[my_wi] = sy;
+        dpx[my_wi] = sx;
+    }
+}
+
+// A persistent loop over tiles of dU, 128 rows x one (g, k) each, the
+// (g, k) index fastest (the 36 tiles of a row range share its gb rows and
+// the x rows its samples gather, in L2); for each, every term that needs
+// dU and the corners of x (corner_terms).
+template <int NT, bool VEC>
+__global__ void __launch_bounds__(THREADS, 1)
+deform_du_sm90(const __grid_constant__ CUtensorMap tg,  // gb [1][B*P][Cout8]
+               const __grid_constant__ CUtensorMap tw,  // wg [G*K][Cg][Cout8]
+               const bf16* __restrict__ x,              // [B, H, W, C]
+               const float* __restrict__ py,            // [B*P, G, K]
+               const float* __restrict__ px,
+               const float* __restrict__ mk,
+               bf16* __restrict__ du,                   // [B*P, G, K, Cg]
+               bf16* __restrict__ samp,                 // [B*P, G*K, Cg8]
+               float* __restrict__ dpy,                 // [B*P, G, K]
+               float* __restrict__ dpx,
+               float* __restrict__ dm,
+               int H, int W, int C, int G, int K, int P, int BP, int Cout8, int cg8,
+               int tiles) {
+    using Plan = DuPlan<NT>;
+    constexpr int STAGES = Plan::STAGES;
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* base = reinterpret_cast<unsigned char*>(
+        (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+    unsigned char* ring = base;                                         // [STAGES][A | B]
+    bf16* dut = reinterpret_cast<bf16*>(ring + STAGES * Plan::STAGE);   // [DU_BM][LDU]
+    uint64_t* full = reinterpret_cast<uint64_t*>(dut + DU_BM * Plan::LDU);
+    uint64_t* empty = full + STAGES;
+
+    const int Cg = C / G;
+    const int GK = G * K;
+    const int nchunk = (Cg + NT - 1) / NT;
+    const int nk = (Cout8 + 63) / 64;
+    const int wgi = threadIdx.x / 128;
+    const int lane = threadIdx.x % 32;
+    const int warp = threadIdx.x / 32;
+
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < STAGES; ++s) {
+            mbar_init(&full[s], 1);
+            mbar_init(&empty[s], 256);
+        }
+        mbar_fence_init();
+    }
+    __syncthreads();
+
+    auto terms = [&](int tile, int chunk, int ew, float (&my_ds)[4]) {
+        corner_terms<NT, VEC, Plan::LDU>(dut, x, py, px, mk, du, samp, dpy, dpx, dm, H, W, C, G,
+                                         K, P, BP, cg8, (tile / GK) * DU_BM, tile % GK, chunk,
+                                         nchunk, ew, lane, my_ds);
+    };
+
+    if (wgi == 2) {
+        if (warp == 8) {
+            // ---- producer ----
+            if (lane == 0) {
+                int it = 0;
+                for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+                    const int gk = tile % GK, r0 = (tile / GK) * DU_BM;
+                    for (int chunk = 0; chunk < nchunk; ++chunk)
+                        for (int kc = 0; kc < nk; ++kc, ++it) {
+                            const int st = it % STAGES;
+                            unsigned char* stage = ring + st * Plan::STAGE;
+                            mbar_wait(&empty[st], ((it / STAGES) & 1) ^ 1);
+                            mbar_expect_tx(&full[st], Plan::STAGE);
+                            tma_load_3d(stage, &tg, &full[st], kc * 64, r0, 0);
+                            tma_load_3d(stage + Plan::A_BYTES, &tw, &full[st], kc * 64,
+                                        chunk * NT, gk);
+                        }
+                }
+            }
+            return;
+        }
+        // ---- the other three warps: epilogue workers 8..10 ----
+        for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+            float my_ds[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+            for (int chunk = 0; chunk < nchunk; ++chunk) {
+                named_sync(1, 32 * WORKERS);  // the chunk's dU tile is written
+                terms(tile, chunk, warp - 1, my_ds);
+                if (tile + (int)gridDim.x < tiles || chunk + 1 < nchunk)
+                    named_sync(1, 32 * WORKERS);  // its rows are read
+            }
+        }
+        return;
+    }
+
+    // ---- consumers: warpgroup wgi owns rows 64 wgi .. + 64 ----
+    const int tt = threadIdx.x % 128;
+    const int rr = 64 * wgi + 16 * (tt / 32) + lane / 4;
+    const int q2 = 2 * (lane % 4);
+    int it = 0;
+    bool first = true;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        float my_ds[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        for (int chunk = 0; chunk < nchunk; ++chunk) {
+            float acc[NT / 2];
+#pragma unroll
+            for (int i = 0; i < NT / 2; ++i) acc[i] = 0.0f;
+            for (int kc = 0; kc < nk; ++kc, ++it) {
+                const int st = it % STAGES;
+                mbar_wait(&full[st], (it / STAGES) & 1);
+                const uint32_t a_a = smem_u32(ring + st * Plan::STAGE) + 64 * wgi * 128;
+                const uint32_t b_a = smem_u32(ring + st * Plan::STAGE + Plan::A_BYTES);
+                fence_regs(acc);
+                wgmma_fence();
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+                    wgmma_ss<NT, 0, 0>(acc, make_desc(a_a + 32 * j, 16, 1024, 1),
+                                       make_desc(b_a + 32 * j, 16, 1024, 1), 1);
+                wgmma_commit();
+                wgmma_wait<1>();
+                fence_regs(acc);
+                if (kc > 0) mbar_arrive(&empty[(it - 1) % STAGES]);
+            }
+            wgmma_wait<0>();
+            fence_regs(acc);
+            mbar_arrive(&empty[(it - 1) % STAGES]);
+
+            // dU rounded to bf16 into the tile, once every worker has read
+            // the last one
+            if (!first) named_sync(1, 32 * WORKERS);
+            first = false;
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+                for (int c = 0; c < NT / 8; ++c)
+                    *reinterpret_cast<uint32_t*>(dut + (rr + 8 * h) * Plan::LDU + 8 * c + q2) =
+                        pack2(acc[4 * c + 2 * h], acc[4 * c + 2 * h + 1]);
+            named_sync(1, 32 * WORKERS);
+            terms(tile, chunk, warp, my_ds);
+        }
+    }
+}
+
+template <int NT>
+struct DwPlan {
+    static constexpr int A_BYTES = PCH * DW_BM * 2;  // samples: 64 pixels x 128 channels
+    static constexpr int B_BYTES = PCH * NT * 2;     // gb: 64 pixels x NT columns
+    static constexpr int STAGE = A_BYTES + B_BYTES;
+    static constexpr int FIXED = 1024 + 256;
+    static constexpr int STAGES = (SMEM_LIMIT - FIXED) / STAGE >= 4 ? 4 : (SMEM_LIMIT - FIXED) / STAGE;
+    static constexpr int TOTAL = FIXED + STAGES * STAGE;
+};
+
+// the f32 partial of dW[g, k, c0:c0+128, n0:n0+NT] over one split's pixels
+template <int NT>
+__global__ void __launch_bounds__(THREADS, 1)
+deform_dw_sm90(const __grid_constant__ CUtensorMap ts,  // samp [1][B*P][G*K*Cg8]
+               const __grid_constant__ CUtensorMap tg,  // gb [1][B*P][Cout8]
+               float* __restrict__ part,                // [splits][G*K][Cg][Cout]
+               int Cg, int cg8, int GK, int Cout, int chunks, int splits) {
+    using Plan = DwPlan<NT>;
+    constexpr int STAGES = Plan::STAGES;
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* base = reinterpret_cast<unsigned char*>(
+        (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+    unsigned char* ring = base;
+    uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * Plan::STAGE);
+    uint64_t* empty = full + STAGES;
+
+    const int n0 = blockIdx.x * NT;
+    const int ncg = (Cg + DW_BM - 1) / DW_BM;
+    const int gk = blockIdx.y / ncg;
+    const int c0 = (blockIdx.y % ncg) * DW_BM;
+    const int s = blockIdx.z;
+    const int lo = (int)((long)s * chunks / splits), hi = (int)((long)(s + 1) * chunks / splits);
+    const int wgi = threadIdx.x / 128;
+
+    if (threadIdx.x == 0) {
+        for (int i = 0; i < STAGES; ++i) {
+            mbar_init(&full[i], 1);
+            mbar_init(&empty[i], 256);
+        }
+        mbar_fence_init();
+    }
+    __syncthreads();
+
+    if (wgi == 2) {
+        if (threadIdx.x == 256) {
+            for (int ch = lo, it = 0; ch < hi; ++ch, ++it) {
+                const int st = it % STAGES;
+                unsigned char* stage = ring + st * Plan::STAGE;
+                mbar_wait(&empty[st], ((it / STAGES) & 1) ^ 1);
+                mbar_expect_tx(&full[st], Plan::STAGE);
+                for (int bx = 0; bx < DW_BM / 64; ++bx)
+                    tma_load_3d(stage + bx * PCH * 128, &ts, &full[st], gk * cg8 + c0 + 64 * bx,
+                                ch * PCH, 0);
+                for (int bx = 0; bx < NT / 64; ++bx)
+                    tma_load_3d(stage + Plan::A_BYTES + bx * PCH * 128, &tg, &full[st],
+                                n0 + 64 * bx, ch * PCH, 0);
+            }
+        }
+        return;
+    }
+
+    // ---- consumers: warpgroup wgi owns channels c0 + 64 wgi .. + 64 ----
+    const int tt = threadIdx.x % 128;
+    const int lane = tt % 32;
+    const int rr = 16 * (tt / 32) + lane / 4;
+    const int q2 = 2 * (lane % 4);
+    float acc[NT / 2];
+#pragma unroll
+    for (int i = 0; i < NT / 2; ++i) acc[i] = 0.0f;
+    for (int ch = lo, it = 0; ch < hi; ++ch, ++it) {
+        const int st = it % STAGES;
+        mbar_wait(&full[st], (it / STAGES) & 1);
+        const uint32_t a_a = smem_u32(ring + st * Plan::STAGE) + wgi * PCH * 128;
+        const uint32_t b_a = smem_u32(ring + st * Plan::STAGE + Plan::A_BYTES);
+        fence_regs(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < PCH / 16; ++j)
+            wgmma_ss<NT, 1, 1>(acc, make_desc(a_a + j * 16 * 128, 16, 1024, 1),
+                               make_desc(b_a + j * 16 * 128, PCH * 128, 1024, 1), 1);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(acc);
+        if (ch > lo) mbar_arrive(&empty[(it - 1) % STAGES]);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+
+    const bool pairs = (Cout % 2) == 0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int c = c0 + 64 * wgi + rr + 8 * h;
+        if (c >= Cg) continue;
+        float* row = part + (((size_t)s * GK + gk) * Cg + c) * Cout;
+#pragma unroll
+        for (int j = 0; j < NT / 8; ++j) {
+            const int n = n0 + 8 * j + q2;
+            const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+            if (pairs && n + 1 < Cout) {
+                *reinterpret_cast<float2*>(row + n) = make_float2(v0, v1);
+            } else {
+                if (n < Cout) row[n] = v0;
+                if (n + 1 < Cout) row[n + 1] = v1;
+            }
+        }
+    }
+}
+
+// dwg = bf16(sum of the partials, in split order)
+__global__ void dw_reduce(const float* __restrict__ part, bf16* __restrict__ dwg, long n,
+                          int splits) {
+    for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+         i += (long)gridDim.x * blockDim.x) {
+        float s = part[i];
+        for (int sp = 1; sp < splits; ++sp) s += part[(long)sp * n + i];
+        dwg[i] = __float2bfloat16(s);
     }
 }
 
@@ -452,65 +629,105 @@ dx_gather(const float* __restrict__ py, const float* __restrict__ px,
     }
 }
 
-template <bool A_KM, bool B_KN>
-cudaError_t gemm(const bf16* A, const bf16* B, bf16* C, int M, int N, int Kd, long lda, long ldb,
-                 long ldc, long a_z, long b_z, long c_z, int batch, cudaStream_t stream) {
-    auto aligned = [](const void* p, long ld, long z) {
-        return (reinterpret_cast<uintptr_t>(p) % 16 == 0) && ld % 8 == 0 && z % 8 == 0;
-    };
-    const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, batch);
-    gemm_bf16<A_KM, B_KN><<<grid, GEMM_THREADS, 0, stream>>>(
-        A, B, C, M, N, Kd, lda, ldb, ldc, a_z, b_z, c_z, aligned(A, lda, a_z), aligned(B, ldb, b_z));
+template <int NT, bool VEC>
+cudaError_t launch_du(const CUtensorMap& tg, const void* x, const float* py, const float* px,
+                      const float* m, const void* wg, bf16* du, bf16* samp, float* dpy,
+                      float* dpx, float* dm, int B, int H, int W, int C, int G, int K, int P,
+                      int Cout8, int cg8, cudaStream_t s) {
+    using Plan = DuPlan<NT>;
+    CUtensorMap tw;
+    if (!sm90_host::tensor_map_cached(&tw, wg, G * K, C / G, Cout8, NT, 64))
+        return cudaErrorInvalidValue;
+    auto kernel = deform_du_sm90<NT, VEC>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Plan::TOTAL);
+    if (err != cudaSuccess) return err;
+    const int BP = B * P;
+    const int tiles = (BP + DU_BM - 1) / DU_BM * G * K;
+    const int grid = tiles < sm90_host::sm_count() ? tiles : sm90_host::sm_count();
+    kernel<<<grid, THREADS, Plan::TOTAL, s>>>(tg, tw, static_cast<const bf16*>(x), py, px, m, du,
+                                              samp, dpy, dpx, dm, H, W, C, G, K, P, BP, Cout8,
+                                              cg8, tiles);
+    return cudaGetLastError();
+}
+
+template <int NT>
+cudaError_t launch_dw(const void* samp, const void* gb, float* part, int BP, int Cg, int cg8,
+                      int GK, int Cout, int Cout8, int splits, cudaStream_t s) {
+    using Plan = DwPlan<NT>;
+    CUtensorMap ts, tg;
+    if (!sm90_host::tensor_map_cached(&ts, samp, 1, BP, GK * cg8, PCH, 64) ||
+        !sm90_host::tensor_map_cached(&tg, gb, 1, BP, Cout8, PCH, 64))
+        return cudaErrorInvalidValue;
+    auto kernel = deform_dw_sm90<NT>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Plan::TOTAL);
+    if (err != cudaSuccess) return err;
+    const int chunks = (BP + PCH - 1) / PCH;
+    const dim3 grid((Cout + NT - 1) / NT, GK * ((Cg + DW_BM - 1) / DW_BM), splits);
+    kernel<<<grid, THREADS, Plan::TOTAL, s>>>(ts, tg, part, Cg, cg8, GK, Cout, chunks, splits);
     return cudaGetLastError();
 }
 
 }  // namespace
 
-// x [B,H,W,C] bf16; py, px, m [B,P,G,K] f32; wg [G,K,C/G,Cout] bf16; gb
-// [B,P,Cout] bf16 (the output gradient rounded to bf16). Outputs: dpy,
-// dpx, dm [B,P,G,K] f32; dx [B,H,W,C] bf16; dwg [G,K,C/G,Cout] bf16.
-// Scratch: du, samp [B,P,G,K,C/G] bf16; buckets int32 of
-// 2 * B*G*(H+1)*(W+1) + 1 + B*G + B*P*G*K elements. All contiguous; C/G even
-// and <= 512; x, dx 4-byte aligned. Returns the CUDA error code of the
-// launches (0 on success).
+// x [B,H,W,C] bf16; py, px, m [B,P,G,K] f32; wg [G,K,C/G,Cout8] bf16 and
+// gb [B,P,Cout8] bf16 (the output gradient rounded to bf16), Cout8 =
+// Cout rounded up to a multiple of 8, the columns past Cout zero.
+// Outputs: dpy, dpx, dm [B,P,G,K] f32; dx [B,H,W,C] bf16; dwg
+// [G,K,C/G,Cout] bf16. Scratch: du [B,P,G,K,C/G] bf16; samp [B*P, G*K,
+// Cg8] bf16 (Cg8 = C/G rounded up to a multiple of 8: every TMA box of
+// the samples starts on 16 bytes); part [splits,
+// G*K*C/G*Cout] f32 (1 <= splits <= ceil(B*P / 64)); buckets int32 of
+// 2 * B*G*(H+1)*(W+1) + 1 + B*G + B*P*G*K elements. All contiguous and
+// 16-byte aligned; C/G even and <= 512. Returns the CUDA error code of
+// the launches (0 on success).
 extern "C" int deform_conv_bwd(const void* x, const void* py, const void* px, const void* m,
                                const void* wg, const void* gb, void* dpy, void* dpx, void* dm,
-                               void* dx, void* dwg, void* du, void* samp, void* buckets, int B,
-                               int H, int W, int C, int G, int K, int P, int Cout, void* stream) {
+                               void* dx, void* dwg, void* du, void* samp, void* part,
+                               void* buckets, int B, int H, int W, int C, int G, int K, int P,
+                               int Cout, int Cout8, int splits, void* stream) {
     if (B < 1 || H < 1 || W < 1 || G < 1 || C % G || (C / G) % 2 || C / G > 64 * MAX_PAIR_STEPS ||
-        K < 1 || P < 1 || Cout < 1)
+        K < 1 || P < 1 || Cout < 1 || Cout8 < Cout || Cout8 % 8 || splits < 1)
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int Cg = C / G;
-    const long KC = (long)K * Cg;
+    const int cg8 = (Cg + 7) / 8 * 8;
+    const int GK = G * K;
     const long BP = (long)B * P;
-    const long total = BP * G * K;
+    const long total = BP * GK;
     const long nb = (long)B * G * (H + 1) * (W + 1);
-    if (BP > 65535L * BM || total > 0x7fffffffL || nb + 1 > 0x7fffffffL)
+    if (BP > 0x7fffffffL || total > 0x7fffffffL || nb + 1 > 0x7fffffffL ||
+        (long)B * H * W > 0x7fffffffL || splits > (BP + PCH - 1) / PCH)
         return (int)cudaErrorInvalidValue;
-    const bf16* wgp = static_cast<const bf16*>(wg);
-    const bf16* gbp = static_cast<const bf16*>(gb);
     const float* pyp = static_cast<const float*>(py);
     const float* pxp = static_cast<const float*>(px);
     const float* mp = static_cast<const float*>(m);
     bf16* dup = static_cast<bf16*>(du);
     bf16* sp = static_cast<bf16*>(samp);
+    float* pp = static_cast<float*>(part);
     int* count = static_cast<int*>(buckets);
     int* seg_total = count + nb;
     int* offset = seg_total + (long)B * G;
     int* entries = offset + nb + 1;
-    // 1. dU[bp, g, kc] = sum_n gb[bp, n] wg[g, kc, n]
-    cudaError_t err = gemm<false, false>(gbp, wgp, dup, (int)BP, (int)KC, Cout, Cout, Cout, G * KC,
-                                         0, KC * Cout, KC, G, s);
+    // 1. dU, the corner terms and the bf16 samples
+    CUtensorMap tg;
+    if (!sm90_host::tensor_map_cached(&tg, gb, 1, (int)BP, Cout8, DU_BM, 64))
+        return (int)cudaErrorInvalidValue;
+    float* dpyp = static_cast<float*>(dpy);
+    float* dpxp = static_cast<float*>(dpx);
+    float* dmp = static_cast<float*>(dm);
+    cudaError_t err;
+    if (Cg <= 64)
+        err = launch_du<64, true>(tg, x, pyp, pxp, mp, wg, dup, sp, dpyp, dpxp, dmp, B, H, W, C, G, K, P, Cout8, cg8, s);
+    else if (Cg <= 128)
+        err = Cg % 4 == 0 ? launch_du<128, true>(tg, x, pyp, pxp, mp, wg, dup, sp, dpyp, dpxp, dmp, B, H, W, C, G, K, P, Cout8, cg8, s)
+                          : launch_du<128, false>(tg, x, pyp, pxp, mp, wg, dup, sp, dpyp, dpxp, dmp, B, H, W, C, G, K, P, Cout8, cg8, s);
+    else
+        err = Cg % 8 == 0 ? launch_du<256, true>(tg, x, pyp, pxp, mp, wg, dup, sp, dpyp, dpxp, dmp, B, H, W, C, G, K, P, Cout8, cg8, s)
+                          : launch_du<256, false>(tg, x, pyp, pxp, mp, wg, dup, sp, dpyp, dpxp, dmp, B, H, W, C, G, K, P, Cout8, cg8, s);
     if (err != cudaSuccess) return (int)err;
-    // 2. the corner terms and the bf16 samples
-    const long blocks = (total + CORNER_THREADS / 32 - 1) / (CORNER_THREADS / 32);
-    deform_bwd_corners<<<(unsigned)blocks, CORNER_THREADS, 0, s>>>(
-        static_cast<const bf16*>(x), pyp, pxp, mp, dup, static_cast<float*>(dpy),
-        static_cast<float*>(dpx), static_cast<float*>(dm), sp, total, H, W, C, G, K, P);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    // 3. dx: the samples bucketed by corner cell, then gathered per element
+    // 2. dx: the samples bucketed by corner cell, then gathered per element
     err = cudaMemsetAsync(count, 0, (nb + (long)B * G) * sizeof(int), s);
     if (err != cudaSuccess) return (int)err;
     const unsigned sample_blocks = (unsigned)((total + 255) / 256);
@@ -525,10 +742,15 @@ extern "C" int deform_conv_bwd(const void* x, const void* py, const void* px, co
                                         static_cast<bf16*>(dx), B, H, W, C, G);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    // 4. dW[g, kc, n] = sum_bp samp[bp, g, kc] gb[bp, n]
-    err = gemm<true, true>(sp, gbp, static_cast<bf16*>(dwg), (int)KC, Cout, (int)BP, G * KC, Cout,
-                           Cout, KC, 0, KC * Cout, G, s);
-    return (int)err;
+    // 3. dW partials over the splits of B*P, 4. their sum in split order
+    if (Cout8 <= 64) err = launch_dw<64>(samp, gb, pp, (int)BP, Cg, cg8, GK, Cout, Cout8, splits, s);
+    else if (Cout8 <= 128) err = launch_dw<128>(samp, gb, pp, (int)BP, Cg, cg8, GK, Cout, Cout8, splits, s);
+    else err = launch_dw<256>(samp, gb, pp, (int)BP, Cg, cg8, GK, Cout, Cout8, splits, s);
+    if (err != cudaSuccess) return (int)err;
+    const long n = (long)GK * Cg * Cout;
+    const long blocks = (n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096;
+    dw_reduce<<<(unsigned)blocks, 256, 0, s>>>(pp, static_cast<bf16*>(dwg), n, splits);
+    return (int)cudaGetLastError();
 }
 
 extern "C" const char* deform_conv_bwd_error(int err) {

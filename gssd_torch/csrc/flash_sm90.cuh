@@ -1,5 +1,7 @@
-// Hopper (sm_90a) building blocks shared by csrc/flash_attn_fwd.cu and
-// csrc/flash_attn_bwd.cu: mbarriers, TMA tile loads, wgmma descriptors
+// Hopper (sm_90a) building blocks shared by csrc/flash_attn_fwd.cu,
+// csrc/flash_attn_bwd.cu, csrc/deform_conv_fwd.cu and
+// csrc/deform_conv_bwd.cu: mbarriers, TMA tile loads (multicast to a
+// cluster too), cluster barriers, wgmma descriptors
 // and instructions, register-count hand-off, and the host-side encoding
 // of TMA tensor maps.
 //
@@ -88,6 +90,42 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
         "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
         "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
         "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+        : "memory");
+}
+
+// the same box into the same shared-memory offset of every CTA of the
+// cluster in `mask`; each completes its bytes on its own `bar` (the same
+// offset)
+__device__ __forceinline__ void tma_load_3d_mc(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                               int c0, int c1, int c2, uint16_t mask) {
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        ".multicast::cluster [%0], [%1, {%4, %5, %6}], [%2], %3;\n" ::"r"(smem_u32(dst)),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "h"(mask), "r"(c0), "r"(c1),
+        "r"(c2)
+        : "memory");
+}
+
+// ---- clusters -----------------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+    uint32_t r;
+    asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+    return r;
+}
+
+// every thread of every CTA of the cluster
+__device__ __forceinline__ void cluster_sync() {
+    asm volatile("barrier.cluster.arrive.aligned;\nbarrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// arrive on the mbarrier at `bar`'s offset in CTA `cta` of the cluster
+__device__ __forceinline__ void mbar_arrive_remote(uint64_t* bar, uint32_t cta) {
+    asm volatile(
+        "{\n.reg .b32 remote;\n"
+        "mapa.shared::cluster.u32 remote, %0, %1;\n"
+        "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(smem_u32(bar)),
+        "r"(cta)
         : "memory");
 }
 
@@ -333,6 +371,15 @@ inline EncodeTiled encode_fn() {
             fn = reinterpret_cast<EncodeTiled>(p);
     }
     return fn;
+}
+
+// streaming multiprocessors of the current device (132 on an H100 SXM)
+inline int sm_count() {
+    int dev = 0, n = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+        return 132;
+    return n;
 }
 
 // map of a contiguous bf16 tensor [batch][rows][cols] read in boxes of

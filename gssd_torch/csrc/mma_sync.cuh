@@ -1,6 +1,6 @@
-// Warp-level tensor-core helpers shared by csrc/deform_conv_bwd.cu and
-// csrc/stem_conv_bwd.cu: the bf16 mma.sync.m16n8k16 with f32 sums and
-// the ldmatrix loads of its fragments from shared memory.
+// Warp-level tensor-core helpers of csrc/stem_conv_bwd.cu: the bf16
+// mma.sync.m16n8k16 with f32 sums and the ldmatrix loads of its
+// fragments from shared memory.
 //
 // Fragments (g = lane / 4, t = lane % 4): A (16 x 16, row-major) a0 =
 // (row g, k 2t..2t+1), a1 = (row g + 8, same k), a2 = (row g, k 2t + 8..),

@@ -11,7 +11,8 @@ point's contract, prepares the kernels' inputs as it does (absolute f32
 sample coordinates, bf16 input and bf16 weights regrouped per deformable
 group) and joins the two boundaries in a ``torch.autograd.Function``;
 the chain back to the offsets, mask, input and weight casts stays with
-autograd.
+autograd. ``dcn_contract.py`` holds the kernels to the plain versions'
+roundings.
 """
 
 from __future__ import annotations
@@ -20,19 +21,24 @@ import ctypes
 import math
 
 import torch
+import torch.nn.functional as F
 
 from gssd_torch.ops.kernels.build import CudaKernel
 
 KERNEL = CudaKernel(
     "deform_conv_fwd.cu", "deform_conv_fwd",
-    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8)
-# one launch = the dU GEMM, the corner kernel, dx (the samples bucketed by
-# corner cell, then one fixed-order gather per element) and the dW GEMM
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9)
+# one launch = dU with the corner terms and the samples, dx (the samples
+# bucketed by corner cell, then one fixed-order gather per element), the
+# dW partials over splits of B*P and their sum
 BWD_KERNEL = CudaKernel(
     "deform_conv_bwd.cu", "deform_conv_bwd",
-    [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8)
+    [ctypes.c_void_p] * 15 + [ctypes.c_int] * 10)
 # the backward's dx gather holds C/G / 64 channel pairs a lane in registers
 MAX_CG = 512
+# the backward's dW blocks: 128 channels x up to 256 Cout columns, over
+# 64-pixel chunks; enough splits of B*P for DW_WAVES blocks an SM
+DW_WAVES = 4
 
 
 def deform_conv_fwd_plain(x, py, px, m, wg, bias):
@@ -41,6 +47,12 @@ def deform_conv_fwd_plain(x, py, px, m, wg, bias):
     weights times the mask, rounded as the TPU kernel rounds them; a
     corner outside the map is 0), round the sample to bf16, contract it
     with the bf16 weights in f32, then add the bias."""
+    return fwd_rounded(x, py, px, m, wg, bias)
+
+
+def fwd_rounded(x, py, px, m, wg, bias, round_w=True, round_samp=True):
+    """``deform_conv_fwd_plain`` with each of its roundings as a switch
+    (``dcn_contract`` turns one off to plant a fault)."""
     B, H, W, C = x.shape
     _, P, G, K = py.shape
     Cg = C // G
@@ -55,13 +67,18 @@ def deform_conv_fwd_plain(x, py, px, m, wg, bias):
                 xx = x0[..., k] + dx
                 inb = (yy >= 0) & (yy < H) & (xx >= 0) & (xx < W)
                 s = _hat(py[..., k], yy) * _hat(px[..., k], xx) * m[..., k]
-                w = torch.where(inb, s.to(torch.bfloat16).float(), 0.0)
+                w = torch.where(inb, _bf16(s, round_w), 0.0)
                 idx = (yy.clamp(0, H - 1) * W + xx.clamp(0, W - 1)).long()
                 vals = torch.gather(xf, 1, idx[..., None].expand(B, P, G, Cg))
                 samp = samp + w[..., None] * vals
-        samp = samp.to(torch.bfloat16).float().reshape(B, P, C)
+        samp = _bf16(samp, round_samp).reshape(B, P, C)
         out = out + samp @ wg[:, k].float().reshape(C, -1)
     return out + bias
+
+
+def _bf16(t, on=True):
+    """``t`` rounded to bf16 and back to f32 (or as it is, ``on`` off)."""
+    return t.to(torch.bfloat16).float() if on else t.float()
 
 
 def _check(fn, x, py, px, m, wg, extra_name, extra):
@@ -106,14 +123,23 @@ def deform_conv_fwd(x, py, px, m, wg, bias):
     B, H, W, C, P, G, K, Cout = _check("deform_conv_fwd", x, py, px, m, wg, "bias", bias)
     if x.device.type == "cpu":
         return deform_conv_fwd_plain(x, py, px, m, wg, bias)
-    tensors = (x, py, px, m, wg, bias)
-    if any(t.data_ptr() % 16 for t in tensors):
+    if any(t.data_ptr() % 16 for t in (x, py, px, m, wg, bias)):
         raise ValueError("deform_conv_fwd: inputs must be 16-byte aligned")
+    wg, cout8 = _pad_cols(wg)
     out = torch.empty(B, P, Cout, dtype=torch.float32, device=x.device)
     KERNEL.launch(torch.cuda.current_stream(x.device).cuda_stream,
-                  *(t.data_ptr() for t in tensors), out.data_ptr(),
-                  B, H, W, C, G, K, P, Cout)
+                  *(t.data_ptr() for t in (x, py, px, m, wg, bias, out)),
+                  B, H, W, C, G, K, P, Cout, cout8)
     return out
+
+
+def _pad_cols(t):
+    """``t`` with its last dimension zero-padded to a multiple of 8 (TMA
+    reads rows of 16-byte multiples; a copy only where Cout is ragged),
+    and that width."""
+    n = t.shape[-1]
+    n8 = -(-n // 8) * 8
+    return (t if n8 == n else F.pad(t, (0, n8 - n)).contiguous()), n8
 
 
 def _hat(p, q):
@@ -135,19 +161,27 @@ def deform_conv_bwd_plain(x, py, px, m, wg, g):
 
 def deform_conv_bwd_f32(x, py, px, m, wg, g):
     """``deform_conv_bwd_plain`` before dx and dW are rounded to bf16."""
+    return bwd_rounded(x, py, px, m, wg, g)
+
+
+def bwd_rounded(x, py, px, m, wg, g, round_w=True, round_g=True, round_du=True,
+                round_samp=True):
+    """``deform_conv_bwd_f32`` with each of its roundings as a switch
+    (``dcn_contract`` turns one off to plant a fault): the corner
+    weights, g before the dU and dW products, dU before dS and dx, the
+    sample before dW."""
     B, H, W, C = x.shape
     _, P, G, K = py.shape
     Cg = C // G
     xf = x.float().reshape(B, H * W, G, Cg)
-    gb = g.to(torch.bfloat16).float()
+    gb = _bf16(g, round_g)
     y0, x0 = torch.floor(py), torch.floor(px)
     dpy, dpx, dm = (torch.zeros_like(py) for _ in range(3))
     dx = torch.zeros(B, H * W, G, Cg, dtype=torch.float32, device=x.device)
     dw = torch.zeros(G, K, Cg, wg.shape[-1], dtype=torch.float32, device=x.device)
     for k in range(K):
         pyk, pxk, mk = py[..., k], px[..., k], m[..., k]
-        du = torch.einsum("bpn,gcn->bpgc", gb, wg[:, k].float())
-        du = du.to(torch.bfloat16).float()
+        du = _bf16(torch.einsum("bpn,gcn->bpgc", gb, wg[:, k].float()), round_du)
         samp = torch.zeros(B, P, G, Cg, dtype=torch.float32, device=x.device)
         for dy in (0, 1):
             for dxx in (0, 1):
@@ -164,12 +198,19 @@ def deform_conv_bwd_f32(x, py, px, m, wg, g):
                 dm[..., k] += torch.where(inb, ds * s0, zero)
                 dpy[..., k] += torch.where(inb, mds * (1.0 if dy else -1.0) * bx, zero)
                 dpx[..., k] += torch.where(inb, mds * ay * (1.0 if dxx else -1.0), zero)
-                sw = torch.where(inb, (s0 * mk).to(torch.bfloat16).float(), zero)
+                sw = torch.where(inb, _bf16(s0 * mk, round_w), zero)
                 samp = samp + sw[..., None] * vals
                 dx.scatter_add_(1, idx, sw[..., None] * du)
-        samp = samp.to(torch.bfloat16).float()
-        dw[:, k] = torch.einsum("bpgc,bpn->gcn", samp, gb)
+        dw[:, k] = torch.einsum("bpgc,bpn->gcn", _bf16(samp, round_samp), gb)
     return dpy, dpx, dm, dx.reshape(B, H, W, C), dw
+
+
+def dw_splits(bp, gk, cg, cout, sms):
+    """How many ranges of B*P the backward's dW is split into: enough
+    blocks (128 channels x up to 256 Cout columns each) for DW_WAVES a
+    streaming multiprocessor, at most one range a 64-pixel chunk."""
+    blocks = -(-cout // 256) * gk * -(-cg // 128)
+    return max(1, min(-(-bp // 64), -(-DW_WAVES * sms // blocks)))
 
 
 def deform_conv_bwd(x, py, px, m, wg, g):
@@ -185,13 +226,19 @@ def deform_conv_bwd(x, py, px, m, wg, g):
     if C // G > MAX_CG:
         raise ValueError(f"deform_conv_bwd: the kernel takes C/G <= {MAX_CG}, got {C // G}")
     dev = x.device
-    gb = g.to(torch.bfloat16)
+    Cg, GK, BP = C // G, G * K, B * P
+    wg, cout8 = _pad_cols(wg)
+    gb, _ = _pad_cols(g.to(torch.bfloat16).reshape(BP, Cout))
     dpy, dpx, dm = (torch.empty(B, P, G, K, dtype=torch.float32, device=dev)
                     for _ in range(3))
     dx = torch.empty(B, H, W, C, dtype=torch.bfloat16, device=dev)
-    dwg = torch.empty(G, K, C // G, Cout, dtype=torch.bfloat16, device=dev)
-    du, samp = (torch.empty(B, P, G, K, C // G, dtype=torch.bfloat16, device=dev)
-                for _ in range(2))
+    dwg = torch.empty(G, K, Cg, Cout, dtype=torch.bfloat16, device=dev)
+    # scratch: dU (for dx), the bf16 samples (each (g, k) slice padded to
+    # 8 channels for TMA), dW's f32 partials
+    du = torch.empty(B, P, G, K, Cg, dtype=torch.bfloat16, device=dev)
+    samp = torch.empty(BP, GK, -(-Cg // 8) * 8, dtype=torch.bfloat16, device=dev)
+    splits = dw_splits(BP, GK, Cg, Cout, torch.cuda.get_device_properties(dev).multi_processor_count)
+    part = torch.empty(splits, GK * Cg * Cout, dtype=torch.float32, device=dev)
     # dx's buckets: counts and offsets per corner cell, a total per (b, g),
     # one entry a sample
     cells = B * G * (H + 1) * (W + 1)
@@ -199,8 +246,8 @@ def deform_conv_bwd(x, py, px, m, wg, g):
                           device=dev)
     BWD_KERNEL.launch(torch.cuda.current_stream(dev).cuda_stream,
                       *(t.data_ptr() for t in (x, py, px, m, wg, gb, dpy, dpx, dm, dx,
-                                               dwg, du, samp, buckets)),
-                      B, H, W, C, G, K, P, Cout)
+                                               dwg, du, samp, part, buckets)),
+                      B, H, W, C, G, K, P, Cout, cout8, splits)
     return dpy, dpx, dm, dx, dwg
 
 

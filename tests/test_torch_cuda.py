@@ -9,6 +9,7 @@ every test here skips.
 import pytest
 import torch
 
+from gssd_torch.ops.kernels import dcn_contract as dc
 from gssd_torch.ops.kernels import deform_hat as dh
 from gssd_torch.ops.kernels import deform_sample as ds
 from gssd_torch.ops.kernels import flash_attn as fa
@@ -54,7 +55,13 @@ def test_flash_kernel_matches_plain(gen, B, N, M, dk, dv):
 
 
 @pytest.mark.parametrize("B,H,W,C,G,Cout,stride", [
-    (2, 9, 11, 24, 4, 36, 1), (1, 20, 20, 512, 4, 256, 2), (1, 3, 3, 16, 1, 8, 1)])
+    (2, 9, 11, 24, 4, 36, 1), (1, 20, 20, 512, 4, 256, 2), (1, 3, 3, 16, 1, 8, 1),
+    # the tiling's edges: batch 1 at the serving site (P = 1444, not a
+    # multiple of the 64-pixel tile; Cout 512 over two warpgroups, Cg
+    # 256), Cg 128 at Cout 256, Cout 300 (the second warpgroup's columns
+    # ragged), Cout 520 (two column slices), Cg 512
+    (1, 38, 38, 1024, 4, 512, 1), (3, 13, 11, 512, 4, 256, 1), (2, 9, 9, 1024, 4, 300, 1),
+    (1, 10, 10, 128, 2, 520, 1), (1, 7, 7, 1024, 2, 64, 1)])
 def test_dcn_kernel_matches_plain(gen, B, H, W, C, G, Cout, stride):
     K = 9
     Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
@@ -70,6 +77,9 @@ def test_dcn_kernel_matches_plain(gen, B, H, W, C, G, Cout, stride):
     assert dh.KERNEL.launches == before + 1
     ref = dh.deform_conv2d_hat(*(t.cpu() for t in (x, oy, ox, m, w, b)), stride=stride)
     assert (out.cpu() - ref).abs().max() <= 1e-2 * ref.abs().max()
+    # the rounding contract: the plain version's roundings, f32 sums in
+    # another order
+    assert dc.mean_rel_err(out.cpu(), ref) <= dc.mean_limit("out", ref)
 
 
 def test_wrappers_reject_bad_inputs(gen):
@@ -130,7 +140,12 @@ def test_flash_bwd_kernel_matches_plain(gen, B, N, M, dk, dv):
 
 @pytest.mark.parametrize("B,H,W,C,G,Cout", [
     (2, 9, 11, 24, 4, 36), (1, 5, 4, 12, 2, 8), (1, 6, 5, 16, 4, 24), (1, 20, 20, 512, 4, 256),
-    (2, 3, 3, 16, 1, 40)])
+    (2, 3, 3, 16, 1, 40),
+    # the tiling's edges: batch 1 at the training site (B*P = 1444, not a
+    # multiple of the 128-row dU tile; Cg 256, Cout 512), Cg 128 at Cout
+    # 256 with B*P = 646 (ten 64-pixel chunks and a ragged one, over the
+    # dW splits), Cg 512 (dU in two column chunks) at Cout 136
+    (1, 38, 38, 1024, 4, 512), (2, 19, 17, 512, 4, 256), (3, 7, 9, 1024, 2, 136)])
 def test_dcn_bwd_kernel_matches_plain(gen, B, H, W, C, G, Cout):
     K = 9
     P = H * W
@@ -157,6 +172,8 @@ def test_dcn_bwd_kernel_matches_plain(gen, B, H, W, C, G, Cout):
         assert a.dtype == b.dtype and a.shape == b.shape
         # same roundings; f32 sums in another order
         assert _rel_err(a, b) <= 1e-2, (name, _rel_err(a, b))
+    errs = dc.readings(dc.BWD_OUTPUTS, got, want)
+    assert not dc.violations(errs, dc.limits(dc.BWD_OUTPUTS, want)), errs
 
 
 def test_autograd_goes_through_both_kernels(gen):
@@ -225,8 +242,9 @@ def test_dcn_routes_go_through_the_sample_kernels(gen, impl):
 
 def _repeat_case(name, gen):
     """(a kernel boundary, its inputs) at a ragged shape of each boundary
-    that sums in a fixed order instead of with atomics, or that skips
-    the hat rows' zeros."""
+    that sums in a fixed order instead of with atomics, that skips the
+    hat rows' zeros, or whose blocks walk a persistent tile loop (the hat
+    DCN forward)."""
     def randn(*shape):
         return torch.randn(*shape, device="cuda", generator=gen)
 
@@ -235,7 +253,7 @@ def _repeat_case(name, gen):
         v, do = randn(2, 700, 128).bfloat16(), randn(2, 700, 128).bfloat16()
         o, lse = fa.flash_attention_fwd_plain(q, k, v)
         return fa.flash_attention_bwd, (q, k, v, o, lse, do)
-    if name == "deform_conv_bwd":
+    if name in ("deform_conv_fwd", "deform_conv_bwd"):
         B, H, W, C, G, K, Cout = 2, 19, 17, 64, 4, 9, 48
         P = H * W
         base_y = torch.arange(H, device="cuda").repeat_interleave(W).float() - 1
@@ -249,6 +267,8 @@ def _repeat_case(name, gen):
         m = torch.rand(B, P, G, K, device="cuda", generator=gen)
         wg = (randn(G, K, C // G, Cout) * 0.1).bfloat16()
         x = randn(B, H, W, C).bfloat16()
+        if name == "deform_conv_fwd":
+            return dh.deform_conv_fwd, (x, py, px, m, wg, randn(Cout))
         return dh.deform_conv_bwd, (x, py, px, m, wg, randn(B, P, Cout))
     if name == "deform_sample_dx":
         N, G, P, H, W, Cg = 2, 2, 300, 19, 17, 72
@@ -263,8 +283,8 @@ def _repeat_case(name, gen):
     return (lambda *t: sc.stem_conv_bwd(*t, 4)), (x, w, randn(2, 64, 45, 70).bfloat16())
 
 
-@pytest.mark.parametrize("name", ["flash_attn_bwd", "deform_conv_bwd", "deform_sample_dx",
-                                  "stem_conv_bwd"])
+@pytest.mark.parametrize("name", ["flash_attn_bwd", "deform_conv_fwd", "deform_conv_bwd",
+                                  "deform_sample_dx", "stem_conv_bwd"])
 def test_kernels_repeat_bit_equal(gen, name):
     # the same inputs twice: every output the same bits (no sum whose
     # order depends on the blocks' schedule)

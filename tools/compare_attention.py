@@ -32,32 +32,51 @@ import tempfile
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def build_baseline(root, out_dir):
+def compile_sources(root, names, out_dir):
+    """nvcc each ``gssd_torch/csrc/<name>.cu`` of the checkout at ``root``
+    with the port's flags into ``out_dir``, all at once: {name: CDLL}."""
     from gssd_torch.ops.kernels.build import NVCC_FLAGS, _nvcc
 
-    fns = {}
     procs = []
-    with open(os.path.join(root, "gssd_torch", "csrc", "flash_attn_bwd.cu")) as f:
-        fns["atomic_dq"] = "red_add_v2" in f.read()
-    for name in ("flash_attn_fwd", "flash_attn_bwd"):
+    for name in names:
         src = os.path.join(root, "gssd_torch", "csrc", name + ".cu")
         so = os.path.join(out_dir, name + ".so")
         procs.append((name, so, subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", so, src],
                                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    libs = {}
     for name, so, proc in procs:
         log = proc.communicate()[0].decode(errors="replace")
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on the baseline's {name}.cu:\n{log}")
-        fn = getattr(ctypes.CDLL(so), name)
-        if name.endswith("fwd"):
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-        elif fns["atomic_dq"]:
-            fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
-        else:
-            fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
-        fn.argtypes += [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        fns[name] = fn
+        libs[name] = ctypes.CDLL(so)
+    return libs
+
+
+def bind(fn, n_ptrs, n_ints):
+    """``fn`` typed as the port's C entry points are: pointers, ints, the
+    stream; returns int."""
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def in_turns(time_ms, baseline, current, iters):
+    """Times of ``baseline`` and ``current`` in turns (baseline, current,
+    current, baseline): the row of a site."""
+    t = [time_ms(f, iters=iters) for f in (baseline, current, current, baseline)]
+    row = dict(baseline_ms=(t[0] + t[3]) / 2, current_ms=(t[1] + t[2]) / 2, turns_ms=t)
+    row["speedup"] = row["baseline_ms"] / row["current_ms"]
+    return row
+
+
+def build_baseline(root, out_dir):
+    fns = {}
+    with open(os.path.join(root, "gssd_torch", "csrc", "flash_attn_bwd.cu")) as f:
+        fns["atomic_dq"] = "red_add_v2" in f.read()
+    libs = compile_sources(root, ("flash_attn_fwd", "flash_attn_bwd"), out_dir)
+    fns["flash_attn_fwd"] = bind(libs["flash_attn_fwd"].flash_attn_fwd, 5, 5)
+    fns["flash_attn_bwd"] = (bind(libs["flash_attn_bwd"].flash_attn_bwd, 9, 5) if fns["atomic_dq"]
+                             else bind(libs["flash_attn_bwd"].flash_attn_bwd, 10, 6))
     return fns
 
 
@@ -158,10 +177,8 @@ def main() -> int:
                     return 1
             # launch-bound sites take more iterations: their host time is noisy
             iters = args.iters if n > 100 else 10 * args.iters
-            t = [cs.time_ms(f, iters=iters) for f in (baseline, current, current, baseline)]
             row = dict(direction=d, B=B, N=n, M=n, dk=dk, dv=dv, count=count,
-                       baseline_ms=(t[0] + t[3]) / 2, current_ms=(t[1] + t[2]) / 2, turns_ms=t)
-            row["speedup"] = row["baseline_ms"] / row["current_ms"]
+                       **in_turns(cs.time_ms, baseline, current, iters))
             rows.append(row)
             print(json.dumps(row), flush=True)
             del q, k, v, do, o, lse

@@ -6,8 +6,8 @@ torch.profiler trace on one card.
     python3 tools/profile_kernels.py [--iters 10]
 
 Boundaries: stem_conv_bwd at PixelLink++'s conv1_1 and conv1_2 (batch 16,
-300x300, bf16), deform_conv_bwd at the GSSD++ training site (batch 32,
-38x38) and at 75x75 (batch 16), flash_attn_bwd at N = M = 5625 (batch
+300x300, bf16), deform_conv_fwd and deform_conv_bwd at the GSSD++
+training site (batch 32, 38x38) and at 75x75 (batch 16), flash_attn_bwd at N = M = 5625 (batch
 16), deform_sample_dx at the 38x38 site (batch 32). Prints one JSON line
 per boundary: the mean device ms a call of each kernel it launched (and
 of the PyTorch ops around it), and the card's name and power limit.
@@ -40,8 +40,9 @@ def cases(cs):
         gout = torch.randn(cs.PL_BATCH, cout, 300, 300, device="cuda", generator=g).bfloat16()
         yield (f"stem_conv_bwd {name}",
                lambda x=x, w=w, gout=gout, dx=name != "conv1_1": sc.stem_conv_bwd(x, w, gout, 4, dx))
-    x, py, px, m, wg, _ = cs.dcn_inputs(cs.TRAIN_BATCH)
+    x, py, px, m, wg, bias = cs.dcn_inputs(cs.TRAIN_BATCH)
     gout = torch.randn(cs.TRAIN_BATCH, py.shape[1], wg.shape[-1], device="cuda", generator=g)
+    yield "deform_conv_fwd 38x38 B=32", lambda: dh.deform_conv_fwd(x, py, px, m, wg, bias)
     yield "deform_conv_bwd 38x38 B=32", lambda: dh.deform_conv_bwd(x, py, px, m, wg, gout)
     B, H, C, G, K, Cout = cs.PL_BATCH, 75, 512, 4, 9, 256
     off = torch.rand(2, B, H, H, G, K, device="cuda", generator=g) * 6 - 3
@@ -50,6 +51,8 @@ def cases(cs):
               torch.rand(B, H * H, G, K, device="cuda", generator=g),
               (torch.randn(G, K, C // G, Cout, device="cuda", generator=g) * 0.05).bfloat16(),
               torch.randn(B, H * H, Cout, device="cuda", generator=g))
+    bias75 = torch.randn(Cout, device="cuda", generator=g) * 0.1
+    yield "deform_conv_fwd 75x75 B=16", lambda: dh.deform_conv_fwd(*args75[:5], bias75)
     yield "deform_conv_bwd 75x75 B=16", lambda: dh.deform_conv_bwd(*args75)
     q, k, v, do = cs.attn_inputs(g, cs.PL_BATCH, 5625, 32, 128)
     o, lse = fa.flash_attention_fwd(q, k, v)
