@@ -51,11 +51,14 @@ In order, failing (exit code 1) at the first phase that goes wrong:
    and so do bf16 through the kernels and through the plain versions
    (>= KERNEL_COS_MIN); see ``train_parity``;
 9. holds the three deform_sample kernels against their plain versions at
-   the 38x38 DCN site (fwd at batch 8 and 32, dx and dA/dB at batch 32),
-   within SAMPLE_TOL, and times them beside one ``torch.einsum`` each;
-   the dx kernel, which adds only the terms inside each hat row's
-   non-zero range, must give the dense order's sum bit for bit (one p at
-   a time, ascending), and its bound counts the terms this data needs;
+   the 38x38 DCN site (fwd at batch 8 and 32, dx and dA/dB at batch 32)
+   and at PixelLink++'s 75x75 site (all three at batch 16), within
+   SAMPLE_TOL, and times them beside one ``torch.einsum`` each; the
+   kernels add only the terms inside each hat row's non-zero range, so
+   the forward must give the plain version's bits at these hat rows and
+   dx the dense order's sum bit for bit (one p at a time, ascending);
+   their bounds count the work this data needs (the dense contraction's
+   beside them);
 10. serves through ``gssd_torch.infer.main --dcn_impl pallas``: 9
    ``deform_sample_fwd`` and 12 ``flash_attn_fwd`` launches per forward,
    no ``deform_conv_fwd``;
@@ -99,7 +102,12 @@ In order, failing (exit code 1) at the first phase that goes wrong:
    ``torch.use_deterministic_algorithms(True)``, one ``hat`` GSSD++
    training step at batch DET_BATCH twice from the same state and batch:
    every parameter's gradient the same bits (the same without the mode is
-   reported, and the step timed both ways).
+   reported, and the step timed both ways);
+19. trains PixelLink++ as phase 16 does (switch on) with ``--dcn_impl
+   pallas`` for 3 steps: the separable sampler at the 75x75 DCN site,
+   exactly 2 + 2 stem, 8 + 8 + 8 attention and 9 + 9 + 9 deform_sample
+   launches per step and no hat DCN launch, finite losses, the median
+   ms/step printed.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or outside a
@@ -164,6 +172,8 @@ PEAK_EX2 = 16 * 132 * 1.83e9
 ATTN_SITES = [(1444, 64, 256, 2), (361, 128, 512, 2), (100, 64, 256, 2),
               (25, 32, 128, 2), (9, 32, 128, 2), (1, 32, 128, 2)]
 DCN_SITE = dict(H=38, W=38, C=1024, G=4, K=9, Cout=512)
+# PixelLink++ (4s)'s DCN site: slice_and_cat(conv3_3, attn_g) at 75x75
+PL_DCN_SITE = dict(H=75, W=75, C=512, G=4, K=9, Cout=256)
 
 
 class SmokeFailure(RuntimeError):
@@ -553,16 +563,17 @@ def check_dcn_bwd():
     return site
 
 
-def sample_inputs(batch):
-    """One tap's operands of the separable sampler at the 38x38 DCN site,
-    as deform_conv2d_pallas forms them: hat matrices A (times the mask) and
-    B of sample coordinates with offsets over +-3 px (a third of them whole
-    numbers), x and an output gradient, all bf16."""
+def sample_inputs(batch, site=DCN_SITE):
+    """One tap's operands of the separable sampler at a DCN site (the
+    38x38 GSSD++ one unless ``site`` says otherwise), as
+    deform_conv2d_pallas forms them: hat matrices A (times the mask) and
+    B of sample coordinates with offsets over +-3 px (a third of them
+    whole numbers), x and an output gradient, all bf16."""
     import torch
 
     from gssd_torch.ops.kernels import deform_sample as ds
 
-    s = DCN_SITE
+    s = site
     H, W, G, Cg = s["H"], s["W"], s["G"], s["C"] // s["G"]
     P = H * W
     g = torch.Generator(device="cuda").manual_seed(SEED + 3)
@@ -607,16 +618,34 @@ def dense_order_dx(af, bf, gf):
     return out
 
 
+def sample_work(a, b, Cg):
+    """The work the sampler's fwd and dA/dB kernels need for these hat
+    rows, counted over each row's extent (first to last non-zero):
+    (fwd f32 operations: per p and channel, for each qx of B's extent the
+    products and sums over A's extent and the product and sum with b;
+    dab tensor-core MACs, sum_p (ext_B H + ext_A W) Cg; dab f32
+    operations, the products S * g of its A operands)."""
+    ext_a, ext_b = hat_extent(a).long(), hat_extent(b).long()
+    H, W = a.shape[-1], b.shape[-1]
+    fwd = int((ext_b * (2 * ext_a + 2) * (ext_a > 0)).sum().item()) * Cg
+    dab_mac = int((ext_b * H + ext_a * W).sum().item()) * Cg
+    dab_f32 = int((ext_a + ext_b).sum().item()) * Cg
+    return fwd, dab_mac, dab_f32
+
+
 def check_sample():
-    """The three deform_sample kernels against their plain versions at the
-    38x38 site: fwd at batch 8 and 32, dx and dA/dB at batch 32; each
-    output within SAMPLE_TOL[kernel] of its own max. Times kernel, plain
-    version and one torch.einsum of the same function (the yardstick)."""
+    """The three deform_sample kernels against their plain versions: fwd
+    at the 38x38 site at batch 8 and 32 and at PixelLink++'s 75x75 site
+    (batch 16), dx and dA/dB at batch 32 and at 75x75; each
+    output within SAMPLE_TOL[kernel] of its own max, the forward the
+    plain version's bits and dx the dense order's sum bit for bit. Times
+    kernel, plain version and one torch.einsum of the same function (the
+    yardstick); bounds for the work these hat rows need, beside the dense
+    contraction's."""
     import torch
 
     from gssd_torch.ops.kernels import deform_sample as ds
 
-    s = DCN_SITE
     sites = {}
 
     def compare(name, got, want):
@@ -630,66 +659,87 @@ def check_sample():
             errs.append((err, err / scale))
         return max(e for e, _ in errs), max(r for _, r in errs)
 
-    for batch in (BATCH, TRAIN_BATCH):
-        a, b, x, gout = sample_inputs(batch)
-        n_mac = batch * s["G"] * s["H"] * s["W"] * s["H"] * s["W"] * (s["C"] // s["G"])
+    for label, batch, s in ((f"b{BATCH}", BATCH, DCN_SITE),
+                            (f"b{TRAIN_BATCH}", TRAIN_BATCH, DCN_SITE),
+                            ("75", PL_BATCH, PL_DCN_SITE)):
+        a, b, x, gout = sample_inputs(batch, s)
+        Cg = s["C"] // s["G"]
+        n_mac = batch * s["G"] * s["H"] * s["W"] * s["H"] * s["W"] * Cg
+        fwd_f32, dab_mac, dab_f32 = sample_work(a, b, Cg)
         out = ds.abx_fwd(a, b, x)
         torch.cuda.synchronize()
-        err, rel = compare(f"deform_sample_fwd B={batch}", [out], [ds.abx_fwd_plain(a, b, x)])
-        b_ms, b_by = bound(2 * n_mac, nbytes_of(a, b, x, out))
-        sites[f"fwd_b{batch}"] = dict(
-            B=batch, **s, max_abs_err=err, rel_err=rel,
+        plain = ds.abx_fwd_plain(a, b, x)
+        err, rel = compare(f"deform_sample_fwd {label}", [out], [plain])
+        # hat rows: at most two non-zero exact terms in each sum, one
+        # rounding in any order
+        check(torch.equal(out, plain), f"deform_sample_fwd {label}: not the plain version's "
+                                       f"bits at hat rows (max diff {err})")
+        del plain
+        nbytes = nbytes_of(a, b, x, out)
+        b_ms, b_by = bound(0, nbytes, f32_ops=fwd_f32)
+        sites[f"fwd_{label}"] = dict(
+            B=batch, **s, max_abs_err=err, rel_err=rel, bit_equal_plain=True,
             ms=time_ms(lambda: ds.abx_fwd(a, b, x), iters=10),
             plain_ms=time_ms(lambda: ds.abx_fwd_plain(a, b, x), iters=3, warmup=1),
             library_ms=time_ms(lambda: torch.einsum("ngph,ngpw,nghwc->ngpc", a, b, x),
                                iters=3, warmup=1),
-            bound_ms=b_ms, bound_by=b_by, ops=2 * n_mac)
-    # a, b, x, gout of batch 32 from here on
-    dx = ds.abx_dx(a, b, gout)
-    torch.cuda.synchronize()
-    err, rel = compare("deform_sample_dx", [dx], [ds.abx_dx_plain(a, b, gout)])
-    af, bf, gf = a.float(), b.float(), gout.float()
-    dense = dense_order_dx(af, bf, gf)
-    check(torch.equal(dx, dense), "deform_sample_dx: not the dense order's sum bit for bit "
-                                  f"(max diff {(dx - dense).abs().max().item()})")
-    del dense
-    # the work this data needs: 3 f32 operations (B * g, then A * E added)
-    # a channel for each (qy, qx) inside both hat rows' non-zero ranges
-    terms = int((hat_extent(a) * hat_extent(b)).sum().item()) * (s["C"] // s["G"])
-    b_ms, b_by = bound(0, nbytes_of(a, b, gout, dx), f32_ops=3 * terms)
-    sites["dx"] = dict(
-        B=TRAIN_BATCH, **s, max_abs_err=err, rel_err=rel, dense_order_bit_equal=True,
-        ms=time_ms(lambda: ds.abx_dx(a, b, gout), iters=10),
-        plain_ms=time_ms(lambda: ds.abx_dx_plain(a, b, gout), iters=3, warmup=1),
-        library_ms=time_ms(lambda: torch.einsum("ngph,ngpw,ngpc->nghwc", af, bf, gf),
-                           iters=3, warmup=1),
-        bound_ms=b_ms, bound_by=b_by, f32_ops=3 * terms,
-        dense_bound_ms=bound(0, nbytes_of(a, b, gout, dx), f32_ops=2 * n_mac)[0],
-        dense_f32_ops=2 * n_mac)
-    del af, bf, gf
-    da, db = ds.abx_dab(x, gout, a, b)
-    torch.cuda.synchronize()
-    err, rel = compare("deform_sample_dab", [da, db], ds.abx_dab_plain(x, gout, a, b))
-    b_ms, b_by = bound(4 * n_mac, nbytes_of(x, gout, a, b, da, db))
+            bound_ms=b_ms, bound_by=b_by, f32_ops=fwd_f32,
+            dense_bound_ms=bound(2 * n_mac, nbytes)[0], dense_ops=2 * n_mac)
+        if batch == BATCH:
+            continue
+        dx = ds.abx_dx(a, b, gout)
+        torch.cuda.synchronize()
+        err, rel = compare(f"deform_sample_dx {label}", [dx], [ds.abx_dx_plain(a, b, gout)])
+        af, bf, gf = a.float(), b.float(), gout.float()
+        dense = dense_order_dx(af, bf, gf)
+        check(torch.equal(dx, dense), f"deform_sample_dx {label}: not the dense order's sum bit "
+                                      f"for bit (max diff {(dx - dense).abs().max().item()})")
+        del dense
+        # the work this data needs: 3 f32 operations (B * g, then A * E
+        # added) a channel for each (qy, qx) inside both hat rows'
+        # non-zero ranges
+        terms = int((hat_extent(a) * hat_extent(b)).sum().item()) * Cg
+        b_ms, b_by = bound(0, nbytes_of(a, b, gout, dx), f32_ops=3 * terms)
+        sites["dx" if label == f"b{TRAIN_BATCH}" else f"dx_{label}"] = dict(
+            B=batch, **s, max_abs_err=err, rel_err=rel, dense_order_bit_equal=True,
+            ms=time_ms(lambda: ds.abx_dx(a, b, gout), iters=10),
+            plain_ms=time_ms(lambda: ds.abx_dx_plain(a, b, gout), iters=3, warmup=1),
+            library_ms=time_ms(lambda: torch.einsum("ngph,ngpw,ngpc->nghwc", af, bf, gf),
+                               iters=3, warmup=1),
+            bound_ms=b_ms, bound_by=b_by, f32_ops=3 * terms,
+            dense_bound_ms=bound(0, nbytes_of(a, b, gout, dx), f32_ops=2 * n_mac)[0],
+            dense_f32_ops=2 * n_mac)
+        del af, bf, gf, dx
+        da, db = ds.abx_dab(x, gout, a, b)
+        torch.cuda.synchronize()
+        err, rel = compare(f"deform_sample_dab {label}", [da, db],
+                           ds.abx_dab_plain(x, gout, a, b))
+        nbytes = nbytes_of(x, gout, a, b, da, db)
+        b_ms, b_by = bound(2 * dab_mac, nbytes, f32_ops=dab_f32)
 
-    def library_dab():
-        torch.einsum("ngpw,ngpc,nghwc->ngph", b, gout, x)
-        torch.einsum("ngph,ngpc,nghwc->ngpw", a, gout, x)
+        def library_dab(a=a, b=b, x=x, gout=gout):
+            torch.einsum("ngpw,ngpc,nghwc->ngph", b, gout, x)
+            torch.einsum("ngph,ngpc,nghwc->ngpw", a, gout, x)
 
-    sites["dab"] = dict(
-        B=TRAIN_BATCH, **s, max_abs_err=err, rel_err=rel,
-        ms=time_ms(lambda: ds.abx_dab(x, gout, a, b), iters=5),
-        plain_ms=time_ms(lambda: ds.abx_dab_plain(x, gout, a, b), iters=3, warmup=1),
-        library_ms=time_ms(library_dab, iters=3, warmup=1),
-        bound_ms=b_ms, bound_by=b_by, ops=4 * n_mac)
-    print(f"deform_sample_dx: the dense order's sum bit for bit; bound for the terms this "
-          f"data needs {sites['dx']['bound_ms']:.4f} ms ({sites['dx']['bound_by']}), for the "
-          f"dense contraction {sites['dx']['dense_bound_ms']:.4f} ms", flush=True)
+        sites["dab" if label == f"b{TRAIN_BATCH}" else f"dab_{label}"] = dict(
+            B=batch, **s, max_abs_err=err, rel_err=rel,
+            ms=time_ms(lambda: ds.abx_dab(x, gout, a, b), iters=10),
+            plain_ms=time_ms(lambda: ds.abx_dab_plain(x, gout, a, b), iters=3, warmup=1),
+            library_ms=time_ms(library_dab, iters=3, warmup=1),
+            bound_ms=b_ms, bound_by=b_by, ops=2 * dab_mac, f32_ops=dab_f32,
+            dense_bound_ms=bound(4 * n_mac, nbytes)[0], dense_ops=4 * n_mac)
+        del a, b, x, gout, out, da, db
+        torch.cuda.empty_cache()
+    print(f"deform_sample_fwd: the plain version's bits at hat rows (batch {BATCH}, "
+          f"{TRAIN_BATCH}, 75x75); deform_sample_dx: the dense order's sum bit for bit "
+          f"(batch {TRAIN_BATCH}, 75x75)",
+          flush=True)
     for name, site in sites.items():
-        print(f"deform_sample_{name} B={site['B']} 38x38 Cg={s['C'] // s['G']}: rel err "
-              f"{site['rel_err']:.3g}, kernel {site['ms']:.4f} ms, plain {site['plain_ms']:.4f} "
-              f"ms, einsum {site['library_ms']:.4f} ms, bound {1e3 * site['bound_ms']:.2f} us "
-              f"({site['bound_by']})", flush=True)
+        print(f"deform_sample_{name} B={site['B']} {site['H']}x{site['W']} "
+              f"Cg={site['C'] // site['G']}: rel err {site['rel_err']:.3g}, kernel "
+              f"{site['ms']:.4f} ms, plain {site['plain_ms']:.4f} ms, einsum "
+              f"{site['library_ms']:.4f} ms, bound {1e3 * site['bound_ms']:.2f} us "
+              f"({site['bound_by']}; dense {1e3 * site['dense_bound_ms']:.2f} us)", flush=True)
     return sites
 
 
@@ -1253,6 +1303,12 @@ STEM_DW_TOL = 2e-5
 PL_STEP_LAUNCHES = dict(stem_conv_fwd=2, stem_conv_bwd=2, flash_attn_fwd=16,
                         flash_attn_bwd=8, deform_conv_fwd=1, deform_conv_bwd=1)
 PL_FORWARD_LAUNCHES = dict(stem_conv_fwd=2, flash_attn_fwd=8, deform_conv_fwd=1)
+# the same step on the pallas DCN route: the sampler's three kernels once
+# per tap (9) in place of the hat DCN pair
+PL_PALLAS_ITERS = 3
+PL_PALLAS_STEP_LAUNCHES = dict(stem_conv_fwd=2, stem_conv_bwd=2, flash_attn_fwd=16,
+                               flash_attn_bwd=8, deform_sample_fwd=9, deform_sample_dx=9,
+                               deform_sample_dab=9)
 PL_AP_KEYS = {"ap50", "iobb50"}
 
 
@@ -1564,6 +1620,33 @@ def pixellink(tmp, data):
             "switch_off_records": off["records"], "switch_off_median_step_ms": median_off}
 
 
+def pixellink_pallas(tmp, data):
+    """PixelLink++ trained with ``--dcn_impl pallas`` (the separable
+    sampler at the 75x75 DCN site) and the wide-conv switch on:
+    PL_PALLAS_ITERS steps of exactly PL_PALLAS_STEP_LAUNCHES each, finite
+    losses, the median ms/step printed."""
+    from gssd_torch import train_pixellink
+
+    with wide_conv():
+        _reset_launches()
+        res = train_pixellink.main(pl_argv(tmp, data, "pl_pallas", "--max_iter",
+                                           str(PL_PALLAS_ITERS), "--speedrun", "100000",
+                                           "--dcn_impl", "pallas"))
+        launches = _launches()
+    want = {name: PL_PALLAS_STEP_LAUNCHES.get(name, 0) * PL_PALLAS_ITERS for name in launches}
+    check(launches == want, f"pixellink++ pallas: expected {PL_PALLAS_STEP_LAUNCHES} per step, "
+                            f"got {launches}")
+    losses = [r["loss"] for r in res["records"]]
+    check(len(losses) == PL_PALLAS_ITERS and all(math.isfinite(v) for v in losses),
+          f"pixellink++ pallas: non-finite or missing losses {losses}")
+    print(f"pixellink++ --dcn_impl pallas (75x75 sampler): launches {launches}; median "
+          f"{res['median_step_ms']:.2f} ms/step after the first step over {PL_PALLAS_ITERS} "
+          f"steps; steps {[round(r['ms'], 1) for r in res['records']]} ms; losses {losses}",
+          flush=True)
+    return {"launches": launches, "ms_per_step": [r["ms"] for r in res["records"]],
+            "losses": losses, "median_ms_per_step": res["median_step_ms"]}
+
+
 def seeded_pixellink(compute_dtype, seed=SEED):
     """PixelLink++ (4s) with random weights from ``seed`` that make every
     path contribute, as ``seeded_model`` does for GSSD++."""
@@ -1680,7 +1763,8 @@ def _same_bits(first, second):
 def repeat_kernels():
     """Each of the nine kernel boundaries twice on the same inputs at its
     training shape (attention at the 12 GSSD++ sites, batch 32; the hat
-    DCN and the sampler at the 38x38 site, batch 32; the stem at
+    DCN and the sampler at the 38x38 site, batch 32, the sampler also at
+    the 75x75 site, batch 16; the stem at
     PixelLink++'s conv1_1 and conv1_2, batch 16): every output the same
     bits both times."""
     import torch
@@ -1710,6 +1794,10 @@ def repeat_kernels():
     twice("deform_conv_bwd", dh.deform_conv_bwd, x, py, px, m, wg, gout)
     del x, py, px, m, wg, bias, gout
     a, b, x, gs = sample_inputs(TRAIN_BATCH)
+    twice("deform_sample_fwd", ds.abx_fwd, a, b, x)
+    twice("deform_sample_dx", ds.abx_dx, a, b, gs)
+    twice("deform_sample_dab", ds.abx_dab, x, gs, a, b)
+    a, b, x, gs = sample_inputs(PL_BATCH, PL_DCN_SITE)
     twice("deform_sample_fwd", ds.abx_fwd, a, b, x)
     twice("deform_sample_dx", ds.abx_dx, a, b, gs)
     twice("deform_sample_dab", ds.abx_dab, x, gs, a, b)
@@ -1871,6 +1959,7 @@ def main() -> int:
             pl_s = time.perf_counter() - t_pl
             repeat_calls = repeat_kernels()
             det_step = deterministic_step_check(train_data)
+            pl_pallas = pixellink_pallas(tmp, train_data)
         dcn_grad_cos = dcn_grads()
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
@@ -1931,8 +2020,10 @@ def main() -> int:
              sites=[dcn_bwd_site]),
     ]
     pallas_launches = routes["pallas"][0]
-    sample_note = ("times per launch at the 38x38 site; library_ms is one torch.einsum of "
-                   "the same function, never called by the port")
+    sample_note = ("times per launch at the 38x38 site (the 75x75 site of PixelLink++ in "
+                   "sites); bound_ms counts the work these hat rows need, dense_bound_ms in "
+                   "sites the dense contraction's; library_ms is one torch.einsum of the same "
+                   "function, never called by the port")
     kernels += [
         dict(name="deform_sample_fwd", route="cuda",
              source="gssd_torch/csrc/deform_sample_fwd.cu",
@@ -1943,7 +2034,8 @@ def main() -> int:
                    f"launches from the pallas serving run, "
                    f"{pallas_launches['deform_sample_fwd']} in the pallas training run"),
              ms_train_batch=sample_sites[f"fwd_b{TRAIN_BATCH}"]["ms"],
-             sites=[sample_sites["fwd_b8"], sample_sites[f"fwd_b{TRAIN_BATCH}"]]),
+             sites=[sample_sites["fwd_b8"], sample_sites[f"fwd_b{TRAIN_BATCH}"],
+                    sample_sites["fwd_75"]]),
         dict(name="deform_sample_dx", route="cuda", source="gssd_torch/csrc/deform_sample_dx.cu",
              replaces="gssd_tpu/ops/pallas/deform_sample.py:79",
              launches=pallas_launches["deform_sample_dx"],
@@ -1951,15 +2043,17 @@ def main() -> int:
              note=(f"{sample_note}; one batch-{TRAIN_BATCH} call (one tap; 9 per step); launches "
                    f"from the pallas training run, {routes['fused'][0]['deform_sample_dx']} in "
                    f"the fused one"),
-             sites=[sample_sites["dx"]]),
+             sites=[sample_sites["dx"], sample_sites["dx_75"]]),
         dict(name="deform_sample_dab", route="cuda",
              source="gssd_torch/csrc/deform_sample_dab.cu",
              replaces="gssd_tpu/ops/pallas/deform_sample.py:104",
              launches=pallas_launches["deform_sample_dab"],
              **_kernel_numbers(sample_sites["dab"]),
              note=(f"{sample_note} (two einsums: dA and dB); one batch-{TRAIN_BATCH} call "
-                   "(one tap; 9 per step) runs the dA and the dB pass"),
-             sites=[sample_sites["dab"]]),
+                   "(one tap; 9 per step) runs the ranges, the buckets, the dA and the dB "
+                   f"pass; PixelLink++ pallas: {pl_pallas['launches']['deform_sample_dab']} "
+                   f"over {PL_PALLAS_ITERS} steps"),
+             sites=[sample_sites["dab"], sample_sites["dab_75"]]),
     ]
     def stem_sum(key):
         return sum(site[key] for site in stem_sites)
@@ -2010,7 +2104,8 @@ def main() -> int:
                                         r["ms"] for r in pl["switch_off_records"]],
                                     "switch_off_median_ms_per_step":
                                         pl["switch_off_median_step_ms"],
-                                    "parity": pl_parity, "seconds": pl_s, "power": smi}}))
+                                    "parity": pl_parity, "seconds": pl_s,
+                                    "pallas": pl_pallas, "power": smi}}))
     print(json.dumps({"routes": {
         impl: {"batch": TRAIN_BATCH, "steps": len(res["records"]),
                "ms_per_step": [r["ms"] for r in res["records"]],

@@ -15,10 +15,10 @@
 // Cg operations (0.14 TFLOP a call at batch 32, 38x38, Cg 256) are almost
 // all products with zeros: a hat row A[p, :] or B[p, :] has at most two
 // non-zeros, so at most 4 of the H * W cells of a p get a non-zero term.
-// Here a first kernel (hat_ranges) reads A and B once and stores, for
-// each (n, p), the first and last non-zero index of each row (an empty
-// row as lo > hi); it works from the rows as given, so any A and B give
-// the right answer, not only hat weights. The second kernel gives a block
+// Here a first kernel (hat_ranges, csrc/hat_ranges.cuh) reads A and B
+// once and stores, for each (n, p), the first and last non-zero index of
+// each row (an empty row as lo > hi); it works from the rows as given,
+// so any A and B give the right answer, not only hat weights. The second kernel gives a block
 // an 8 x 8 tile of (qy, qx) and 128 channels of one n; a thread owns one
 // row of the tile and one channel pair, its 8 x 2 sums in registers. The
 // block walks p in ascending order, 512 at a time: the p whose two
@@ -44,6 +44,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hat_ranges.cuh"
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
@@ -53,30 +55,6 @@ constexpr int TX = 8;         // qx per block
 constexpr int NPAIR = 64;     // channel pairs per block (128 channels)
 constexpr int THREADS = TY * NPAIR;  // one (row, channel pair) each
 constexpr int SUB = 32;       // listed p staged at a time
-
-// first and last index i < len with row[i] != 0 (NaN counts as non-zero,
-// -0 as zero); (1, 0) for an all-zero row
-__device__ __forceinline__ int2 nonzero_range(const bf16* __restrict__ row, int len) {
-    const uint16_t* bits = reinterpret_cast<const uint16_t*>(row);
-    int lo = 1, hi = 0;
-    for (int i = 0; i < len; ++i) {
-        if (bits[i] & 0x7fff) {
-            if (lo > hi) lo = i;
-            hi = i;
-        }
-    }
-    return make_int2(lo, hi);
-}
-
-// ranges[n * P + p] = (A lo, A hi, B lo, B hi)
-__global__ void hat_ranges(const bf16* __restrict__ A, const bf16* __restrict__ B,
-                           int4* __restrict__ ranges, long rows, int H, int W) {
-    const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= rows) return;
-    const int2 a = nonzero_range(A + i * H, H);
-    const int2 b = nonzero_range(B + i * W, W);
-    ranges[i] = make_int4(a.x, a.y, b.x, b.y);
-}
 
 __global__ void __launch_bounds__(THREADS)
 abx_dx_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
@@ -188,11 +166,9 @@ extern "C" int deform_sample_dx(const void* A, const void* B, const void* g, voi
     if (NG < 1 || P < 1 || H < 1 || W < 1 || Cg < 8 || Cg % 8 || NG > 65535)
         return (int)cudaErrorInvalidValue;
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const long rows = (long)NG * P;
-    hat_ranges<<<(unsigned)((rows + 255) / 256), 256, 0, s>>>(
-        static_cast<const bf16*>(A), static_cast<const bf16*>(B), static_cast<int4*>(ranges),
-        rows, H, W);
-    cudaError_t err = cudaGetLastError();
+    cudaError_t err = hat_ranges_pass::launch(static_cast<const bf16*>(A),
+                                              static_cast<const bf16*>(B),
+                                              static_cast<int4*>(ranges), (long)NG * P, H, W, s);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid(((H + TY - 1) / TY) * ((W + TX - 1) / TX), (Cg + 2 * NPAIR - 1) / (2 * NPAIR),
                     NG);

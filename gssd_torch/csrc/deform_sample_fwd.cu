@@ -10,205 +10,148 @@
 // value in f32 and summed over qx in f32 (separate multiply and add, as
 // the TPU kernel's t * b then sum).
 //
-// What bounds it here: 2 * n * P * H * W * Cg operations against reading
-// A, B, x once and writing out (~0.2 GB at batch 32, 38x38, Cg 256 for
-// 0.14 TFLOP), so the ideal kernel is tensor-core bound. The TPU kernel
-// forms the whole [TP, W * Cg] f32 product A . x in VMEM (TP * 9728 f32 at
-// 38x38, Cg 256), far more than a block's shared memory. Here a block
-// owns 128 pixels x 64 channels of one n and walks qx: for each column
-// one [128 x H] x [H x 64] product on the tensor cores (mma.sync bf16,
-// f32 accumulators in registers, H padded to a multiple of 16 with
-// zeros), then out += B[p, qx] * T in registers. A's fragments stay in
-// registers for the whole block; x columns arrive by cp.async, four
-// columns per stage, double-buffered. The block re-reads its n's x once
-// per 128-pixel tile (12 times at 38x38) from L2. Takes H, W <= 64 and
-// Cg a multiple of 8; pixel and channel edges are masked.
+// The TPU kernel contracts the dense hat rows on the MXU: 2 * H * W * Cg
+// operations a pixel, of which 4 * Cg are non-zero, since a hat row A[p,
+// :] (times the mask) or B[p, :] has at most two non-zeros. Here a first
+// kernel (hat_ranges, csrc/hat_ranges.cuh) stores each row's first and
+// last non-zero index; the second gives a thread 8 channels of one (n,
+// p) and walks only the cells inside both ranges: for qx in B's range,
+// ascending, T = sum over qy in A's range, ascending, of a * x (each a
+// product of two bf16 values, exact in f32, added with __fadd_rn), then
+// acc = __fadd_rn(acc, __fmul_rn(b, T)); no fmaf, as the plain version
+// multiplies and adds separately. x arrives as 16-byte loads of 8 bf16
+// channels (Cg / 8 neighbouring threads read one corner's Cg channels)
+// and out leaves as two 16-byte stores a thread.
+//
+// Rounding: at hat rows T has at most two non-zero exact terms and acc at
+// most two non-zero terms b * T, and a sum of at most two non-zero terms
+// rounds once whatever the order; the terms outside the ranges are exact
+// zeros, whose sum into an f32 value leaves it unchanged. So at hat rows
+// (including empty rows and integer positions) the output is the dense
+// order's (abx_fwd_plain's) bit for bit. Rows with more non-zeros are
+// walked over their whole range and summed in this order, within f32
+// rounding of any other. The one difference: the dense order multiplies
+// a NaN or Inf of x by the zeros of A and B outside the ranges, which
+// spreads NaN over the row; here a non-finite value of x reaches out only
+// where its cell lies inside both ranges of a p.
+//
+// What bounds it: the bytes, x read once (94.6 MB at batch 32, 38x38, Cg
+// 256), A and B (28 MB) and the f32 out written (189 MB), ~0.093 ms at
+// 3.35 TB/s; the corners come from L2 (each x row is read by the ~4 p
+// that sample around it). Takes any H and W and Cg a multiple of 8.
 
 #include <cuda_bf16.h>
-#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hat_ranges.cuh"
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int TP = 128;       // pixels per block, 16 per warp
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int TC = 64;        // channels per block: 8 n-tiles of 8
-constexpr int RC = 4;         // qx columns per pipeline stage
-constexpr int MAXHW = 64;     // H (4 k-steps of 16) and W
-constexpr int PAD = 8;        // bf16 padding per smem row: conflict-free ldmatrix
-constexpr int LDX = TC + PAD;
+constexpr int THREADS = 256;
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// t += a * x for the 8 channels of x (8 bf16 in v), each product exact
+__device__ __forceinline__ void add_row(float (&t)[8], float a, uint4 v) {
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+        t[2 * j] = __fadd_rn(t[2 * j], __fmul_rn(a, __uint_as_float(w[j] << 16)));
+        t[2 * j + 1] =
+            __fadd_rn(t[2 * j + 1], __fmul_rn(a, __uint_as_float(w[j] & 0xffff0000u)));
+    }
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-    const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(a));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
-    const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(a));
-}
-
-// padded qy extent (multiple of 16) and the smem layout
-__host__ __device__ __forceinline__ int padded(int H) { return (H + 15) / 16 * 16; }
-
-__host__ __device__ __forceinline__ size_t smem_bytes(int H, int W) {
-    const int KP = padded(H);
-    return (size_t)TP * (KP + PAD) * sizeof(bf16)      // As [TP][KP + PAD]
-           + (size_t)TP * W * sizeof(float)            // Bs [TP][W]
-           + (size_t)2 * RC * KP * LDX * sizeof(bf16);  // Xs [2][RC][KP][LDX]
+// one column qx of a hat row: T = 0 + a0 x0 (+ a1 x1 where the A row has
+// two cells), then acc += b T
+__device__ __forceinline__ void column(float (&acc)[8], float a0, float a1, float b, uint4 v0,
+                                       uint4 v1, bool two) {
+    float t[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) t[j] = 0.0f;
+    add_row(t, a0, v0);
+    if (two) add_row(t, a1, v1);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[j] = __fadd_rn(acc[j], __fmul_rn(b, t[j]));
 }
 
 __global__ void __launch_bounds__(THREADS)
 abx_fwd_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
-               const bf16* __restrict__ x, float* __restrict__ out, int P, int H, int W,
-               int Cg) {
-    extern __shared__ __align__(128) unsigned char smem[];
-    const int KP = padded(H);
-    const int lda = KP + PAD;
-    bf16* As = reinterpret_cast<bf16*>(smem);
-    float* Bs = reinterpret_cast<float*>(As + TP * lda);
-    bf16* Xs = reinterpret_cast<bf16*>(Bs + TP * W);
+               const bf16* __restrict__ x, const int4* __restrict__ ranges,
+               float* __restrict__ out, int P, int H, int W, int Cg) {
+    const int cpr = Cg / 8;  // threads per pixel
+    const int i = blockIdx.x * THREADS + threadIdx.x;
+    if (i >= P * cpr) return;
+    const int n = blockIdx.y;
+    const int p = i / cpr;
+    const int c = (i - p * cpr) * 8;
+    const size_t row = (size_t)n * P + p;
+    const int4 r = ranges[row];
+    const bf16* arow = A + row * H;
+    const bf16* brow = B + row * W;
+    const bf16* xn = x + (size_t)n * H * W * Cg + c;
 
-    const int n = blockIdx.z;
-    const int p0 = blockIdx.x * TP;
-    const int c0 = blockIdx.y * TC;
-    const int tid = threadIdx.x;
-    const int warp = tid / 32, lane = tid % 32;
-    const int g = lane >> 2, tig = lane & 3;
-    const int mi = lane >> 3, r8 = lane & 7;
-    const bf16* An = A + (size_t)n * P * H;
-    const bf16* Bn = B + (size_t)n * P * W;
-    const bf16* xn = x + (size_t)n * H * W * Cg;
-
-    // x columns r0 .. r0 + RC - 1, rows qy < KP, channels c0 .. c0 + TC - 1
-    // into Xs half `buf`; zero outside the map and past Cg
-    auto stage = [&](int s, int buf) {
-        const int r0 = s * RC;
-        for (int i = tid; i < RC * KP * (TC / 8); i += THREADS) {
-            const int j = i / (KP * (TC / 8));
-            const int rem = i - j * KP * (TC / 8);
-            const int q = rem / (TC / 8);
-            const int c = (rem - q * (TC / 8)) * 8;
-            bf16* d = Xs + ((buf * RC + j) * KP + q) * LDX + c;
-            if (r0 + j < W && q < H && c0 + c < Cg)
-                __pipeline_memcpy_async(d, xn + ((size_t)q * W + r0 + j) * Cg + c0 + c, 16);
-            else
-                *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
-        }
-    };
-
-    stage(0, 0);
-    __pipeline_commit();
-    for (int i = tid; i < TP * KP; i += THREADS) {
-        const int row = i / KP, q = i - row * KP;
-        const int p = p0 + row;
-        As[row * lda + q] = (p < P && q < H) ? An[(size_t)p * H + q] : __float2bfloat16(0.0f);
-    }
-    for (int i = tid; i < TP * W; i += THREADS) {
-        const int row = i / W, q = i - row * W;
-        const int p = p0 + row;
-        Bs[i] = p < P ? __bfloat162float(Bn[(size_t)p * W + q]) : 0.0f;
-    }
-    __syncthreads();
-
-    // the warp's 16 rows of A as mma A fragments, kept for the whole block
-    uint32_t af[MAXHW / 16][4];
+    float acc[8];
 #pragma unroll
-    for (int kk = 0; kk < MAXHW / 16; ++kk)
-        if (kk * 16 < KP)
-            ldmatrix_x4(af[kk], As + (warp * 16 + (mi & 1) * 8 + r8) * lda + kk * 16 + (mi >> 1) * 8);
-
-    float acc[TC / 8][4];
+    for (int j = 0; j < 8; ++j) acc[j] = 0.0f;
+    if (r.x <= r.y && r.y - r.x <= 1 && r.z <= r.w && r.w - r.z <= 1) {
+        // a hat row's 1 or 2 cells each way: every load issued first, then
+        // the same operations in the same order as the loop below
+        const bool y2 = r.y > r.x, x2 = r.w > r.z;
+        const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+        const bf16* c00 = xn + ((size_t)r.x * W + r.z) * Cg;
+        const uint4 v00 = *reinterpret_cast<const uint4*>(c00);
+        const uint4 v10 = y2 ? *reinterpret_cast<const uint4*>(c00 + (size_t)W * Cg) : zero;
+        const uint4 v01 = x2 ? *reinterpret_cast<const uint4*>(c00 + Cg) : zero;
+        const uint4 v11 =
+            y2 && x2 ? *reinterpret_cast<const uint4*>(c00 + (size_t)(W + 1) * Cg) : zero;
+        const float a0 = __bfloat162float(arow[r.x]);
+        const float a1 = y2 ? __bfloat162float(arow[r.y]) : 0.0f;
+        const float b0 = __bfloat162float(brow[r.z]);
+        const float b1 = x2 ? __bfloat162float(brow[r.w]) : 0.0f;
+        column(acc, a0, a1, b0, v00, v10, y2);
+        if (x2) column(acc, a0, a1, b1, v01, v11, y2);
+    } else {
+        for (int qx = r.z; qx <= r.w; ++qx) {
+            float t[8];
 #pragma unroll
-    for (int f = 0; f < TC / 8; ++f) acc[f][0] = acc[f][1] = acc[f][2] = acc[f][3] = 0.0f;
-    const float* b_lo = Bs + (warp * 16 + g) * W;      // row g
-    const float* b_hi = Bs + (warp * 16 + g + 8) * W;  // row g + 8
-
-    const int nst = (W + RC - 1) / RC;
-    for (int s = 0; s < nst; ++s) {
-        if (s + 1 < nst) stage(s + 1, (s + 1) & 1);
-        __pipeline_commit();
-        __pipeline_wait_prior(1);
-        __syncthreads();
-        const bf16* xs = Xs + (s & 1) * RC * KP * LDX;
-        for (int j = 0; j < RC && s * RC + j < W; ++j) {
-            float t[TC / 8][4];
+            for (int j = 0; j < 8; ++j) t[j] = 0.0f;
+            for (int qy = r.x; qy <= r.y; ++qy)
+                add_row(t, __bfloat162float(arow[qy]),
+                        *reinterpret_cast<const uint4*>(xn + ((size_t)qy * W + qx) * Cg));
+            const float b = __bfloat162float(brow[qx]);
 #pragma unroll
-            for (int f = 0; f < TC / 8; ++f) t[f][0] = t[f][1] = t[f][2] = t[f][3] = 0.0f;
-#pragma unroll
-            for (int kk = 0; kk < MAXHW / 16; ++kk) {
-                if (kk * 16 < KP) {
-#pragma unroll
-                    for (int f = 0; f < TC / 8; f += 2) {
-                        uint32_t bv[4];
-                        ldmatrix_x4_trans(bv, xs + (j * KP + kk * 16 + (mi & 1) * 8 + r8) * LDX +
-                                                  (f + (mi >> 1)) * 8);
-                        mma_bf16(t[f], af[kk], bv[0], bv[1]);
-                        mma_bf16(t[f + 1], af[kk], bv[2], bv[3]);
-                    }
-                }
-            }
-            const float blo = b_lo[s * RC + j], bhi = b_hi[s * RC + j];
-#pragma unroll
-            for (int f = 0; f < TC / 8; ++f) {
-                acc[f][0] = __fadd_rn(acc[f][0], __fmul_rn(blo, t[f][0]));
-                acc[f][1] = __fadd_rn(acc[f][1], __fmul_rn(blo, t[f][1]));
-                acc[f][2] = __fadd_rn(acc[f][2], __fmul_rn(bhi, t[f][2]));
-                acc[f][3] = __fadd_rn(acc[f][3], __fmul_rn(bhi, t[f][3]));
-            }
-        }
-        __syncthreads();  // this Xs half is refilled two stages on
-    }
-
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-        const int p = p0 + warp * 16 + g + 8 * h;
-        if (p < P) {
-            float* orow = out + ((size_t)n * P + p) * Cg;
-#pragma unroll
-            for (int f = 0; f < TC / 8; ++f) {
-                const int c = c0 + f * 8 + 2 * tig;
-                if (c < Cg)
-                    *reinterpret_cast<float2*>(orow + c) = make_float2(acc[f][2 * h], acc[f][2 * h + 1]);
-            }
+            for (int j = 0; j < 8; ++j) acc[j] = __fadd_rn(acc[j], __fmul_rn(b, t[j]));
         }
     }
+    float4* o = reinterpret_cast<float4*>(out + row * Cg + c);
+    o[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+    o[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
 }
 
 }  // namespace
 
-// A [NG,P,H], B [NG,P,W], x [NG,H,W,Cg] bf16; out [NG,P,Cg] f32. All
-// contiguous and 16-byte aligned; H, W <= 64; Cg a multiple of 8. Returns
-// the CUDA error code of the launch (0 on success).
-extern "C" int deform_sample_fwd(const void* A, const void* B, const void* x, void* out, int NG,
-                                 int P, int H, int W, int Cg, void* stream) {
-    if (NG < 1 || P < 1 || H < 1 || W < 1 || H > MAXHW || W > MAXHW || Cg < 8 || Cg % 8)
+// A [NG,P,H], B [NG,P,W], x [NG,H,W,Cg] bf16; out [NG,P,Cg] f32; ranges
+// [NG,P] int4 scratch. All contiguous and 16-byte aligned; Cg a multiple
+// of 8. Launches the range pass and the sample kernel on `stream`;
+// returns the CUDA error code (0 on success).
+extern "C" int deform_sample_fwd(const void* A, const void* B, const void* x, void* out,
+                                 void* ranges, int NG, int P, int H, int W, int Cg,
+                                 void* stream) {
+    if (NG < 1 || NG > 65535 || P < 1 || H < 1 || W < 1 || Cg < 8 || Cg % 8 ||
+        (long)P * (Cg / 8) > 0x7fffffffL - THREADS)
         return (int)cudaErrorInvalidValue;
-    const size_t smem = smem_bytes(H, W);
-    cudaError_t err = cudaFuncSetAttribute(abx_fwd_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const bf16* a = static_cast<const bf16*>(A);
+    const bf16* b = static_cast<const bf16*>(B);
+    cudaError_t err =
+        hat_ranges_pass::launch(a, b, static_cast<int4*>(ranges), (long)NG * P, H, W, s);
     if (err != cudaSuccess) return (int)err;
-    const dim3 grid((P + TP - 1) / TP, (Cg + TC - 1) / TC, NG);
-    abx_fwd_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const bf16*>(A), static_cast<const bf16*>(B), static_cast<const bf16*>(x),
-        static_cast<float*>(out), P, H, W, Cg);
+    const dim3 grid((unsigned)(((long)P * (Cg / 8) + THREADS - 1) / THREADS), NG);
+    abx_fwd_kernel<<<grid, THREADS, 0, s>>>(a, b, static_cast<const bf16*>(x),
+                                            static_cast<const int4*>(ranges),
+                                            static_cast<float*>(out), P, H, W, Cg);
     return (int)cudaGetLastError();
 }
 

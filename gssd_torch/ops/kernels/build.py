@@ -89,6 +89,15 @@ class CudaKernel:
             self._lib, self._fn, self._err = lib, fn, err
         return self._fn
 
+    def query(self, name: str, *ints: int) -> int:
+        """The library's host function ``<symbol>_<name>``: ints in, a
+        long out (such as the scratch a launch at these sizes takes)."""
+        self._load()
+        fn = getattr(self._lib, f"{self.symbol}_{name}")
+        fn.argtypes = [ctypes.c_int] * len(ints)
+        fn.restype = ctypes.c_long
+        return fn(*ints)
+
     def launch(self, stream: int, *args) -> None:
         """Call the kernel on ``stream`` (a cudaStream_t as int); raise
         if the launch was refused."""

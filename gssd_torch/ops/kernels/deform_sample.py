@@ -17,13 +17,20 @@ the same arithmetic in plain PyTorch. Their roundings are the TPU
 kernels':
 
 - fwd: A, B, x in bf16; T = A . x[:, qx] accumulated in f32, times the
-  bf16 B in f32, summed over qx in f32 (the caller rounds to x's dtype);
+  bf16 B in f32, summed over qx in f32 (the caller rounds to x's dtype;
+  the kernel adds only the terms inside each hat row's non-zero range,
+  multiply and add separate: the plain version's bits at hat rows);
 - dx: A, B, g in bf16; every term A * (B * g) in f32, where it is exact;
   f32 output (the kernel adds only the terms inside each hat row's
   non-zero range, in ascending p: the dense sum's bits for finite
   inputs);
 - dab: dA = sum bf16(B * g) . x and dB = sum bf16(A * g) . x with bf16 x
-  and f32 accumulation; f32 outputs.
+  and f32 accumulation; f32 outputs (the kernel sorts the pixels by the
+  first non-zero of their hat row and walks only the columns their rows
+  reach, on the tensor cores).
+
+Every kernel reads the hat rows' non-zero ranges from a first pass
+(``csrc/hat_ranges.cuh``) and takes any H and W.
 
 ``abx_sample`` joins them in a ``torch.autograd.Function`` at the (A, B,
 xg) boundary, as the JAX ``custom_vjp`` does; the chain back to the
@@ -40,19 +47,18 @@ import torch
 
 from gssd_torch.ops.kernels.build import CudaKernel
 
+# one launch = the hat rows' non-zero ranges, then the sample kernel
 FWD_KERNEL = CudaKernel(
     "deform_sample_fwd.cu", "deform_sample_fwd",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5)
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5)
 # one launch = the hat rows' non-zero ranges, then dx over them
 DX_KERNEL = CudaKernel(
     "deform_sample_dx.cu", "deform_sample_dx",
     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5)
-# one launch = the dA pass and the dB pass of one kernel, back to back
+# one launch = the ranges, the pixels' buckets, the dA pass, the dB pass
 DAB_KERNEL = CudaKernel(
     "deform_sample_dab.cu", "deform_sample_dab",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5)
-# the fwd and dab kernels keep a tile's whole hat rows in registers
-MAX_HW = 64
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5)
 
 _BF16 = torch.bfloat16
 
@@ -98,11 +104,11 @@ def abx_dab_plain(x, g, a, b):
     return da, db
 
 
-def _check(fn, a, b, x=None, g=None, max_hw=MAX_HW):
+def _check(fn, a, b, x=None, g=None):
     """Validate a kernel boundary's inputs: a [N, G, P, H], b [N, G, P, W]
     and x [N, G, H, W, Cg] and/or g [N, G, P, Cg], all bf16, contiguous, on
-    one device; on the card also the kernel's limits (H, W <= max_hw
-    where it has one, C/G a multiple of 8). Returns (N, G, P, H, W, Cg)."""
+    one device; on the card also the kernels' limits (C/G a multiple of 8,
+    N * G <= 65535, 16-byte aligned). Returns (N, G, P, H, W, Cg)."""
     if a.dim() != 4 or b.dim() != 4:
         raise ValueError(f"{fn}: A and B must be [N, G, P, n], got {tuple(a.shape)}, "
                          f"{tuple(b.shape)}")
@@ -127,9 +133,9 @@ def _check(fn, a, b, x=None, g=None, max_hw=MAX_HW):
     if dev not in ("cpu", "cuda"):
         raise ValueError(f"{fn}: unsupported device {a.device}")
     if dev == "cuda":
-        if (max_hw and max(H, W) > max_hw) or Cg % 8:
-            raise ValueError(f"{fn}: the kernel takes H, W <= {max_hw} and C/G a multiple "
-                             f"of 8, got H={H}, W={W}, C/G={Cg}")
+        if Cg % 8 or N * G > 65535:
+            raise ValueError(f"{fn}: the kernel takes C/G a multiple of 8 and N * G <= 65535, "
+                             f"got C/G={Cg}, N * G={N * G}")
         if any(t.data_ptr() % 16 for _, t, _ in named):
             raise ValueError(f"{fn}: inputs must be 16-byte aligned")
     return N, G, P, H, W, Cg
@@ -146,15 +152,17 @@ def abx_fwd(a, b, x):
     if a.device.type == "cpu":
         return abx_fwd_plain(a, b, x)
     out = torch.empty(N, G, P, Cg, dtype=torch.float32, device=a.device)
+    # (first, last) non-zero index of each A and B row
+    ranges = torch.empty(N, G, P, 4, dtype=torch.int32, device=a.device)
     FWD_KERNEL.launch(_stream(a), a.data_ptr(), b.data_ptr(), x.data_ptr(), out.data_ptr(),
-                      N * G, P, H, W, Cg)
+                      ranges.data_ptr(), N * G, P, H, W, Cg)
     return out
 
 
 def abx_dx(a, b, g):
     """a [N, G, P, H], b [N, G, P, W], g [N, G, P, Cg] bf16 -> dx [N, G,
     H, W, Cg] f32."""
-    N, G, P, H, W, Cg = _check("abx_dx", a, b, g=g, max_hw=None)
+    N, G, P, H, W, Cg = _check("abx_dx", a, b, g=g)
     if a.device.type == "cpu":
         return abx_dx_plain(a, b, g)
     out = torch.empty(N, G, H, W, Cg, dtype=torch.float32, device=a.device)
@@ -173,7 +181,12 @@ def abx_dab(x, g, a, b):
         return abx_dab_plain(x, g, a, b)
     da = torch.empty(N, G, P, H, dtype=torch.float32, device=a.device)
     db = torch.empty(N, G, P, W, dtype=torch.float32, device=a.device)
-    DAB_KERNEL.launch(_stream(a), *(t.data_ptr() for t in (x, g, a, b, da, db)),
+    ranges = torch.empty(N, G, P, 4, dtype=torch.int32, device=a.device)
+    # per pass and (n, g): the pixels in bucket order, their tiles and the
+    # bucket counts, sized by the kernel's library
+    buckets = torch.empty(DAB_KERNEL.query("scratch_ints", N * G, P, H, W), dtype=torch.int32,
+                          device=a.device)
+    DAB_KERNEL.launch(_stream(a), *(t.data_ptr() for t in (x, g, a, b, da, db, ranges, buckets)),
                       N * G, P, H, W, Cg)
     return da, db
 

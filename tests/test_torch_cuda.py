@@ -196,13 +196,40 @@ def test_autograd_goes_through_both_kernels(gen):
     assert all(torch.isfinite(t.grad).all() for t in (x, oy, ox, mk, w, b))
 
 
-@pytest.mark.parametrize("N,G,P,H,W,Cg", [
-    (1, 2, 30, 5, 7, 8), (2, 3, 200, 17, 13, 72), (1, 1, 1444, 38, 38, 256),
-    (1, 1, 300, 64, 64, 16), (1, 1, 1, 1, 1, 8)])
-def test_deform_sample_kernels_match_plain(gen, N, G, P, H, W, Cg):
-    # dense hat rows with a few zeros, as the sampler's are mostly zero
-    a, b = (torch.rand(N, G, P, n, device="cuda", generator=gen) for n in (H, W))
-    a, b = (torch.where(t < 0.3, 0.0, t).bfloat16() for t in (a, b))
+def _hat_rows(gen, N, G, P, H, W):
+    """The sampler's hat rows: positions over the map and 3 px past each
+    border (samples outside the map), a third of them whole numbers
+    (integer coordinates), A times a mask with a quarter of it zero."""
+    pos = []
+    for n in (H, W):
+        t = torch.rand(N, G, P, device="cuda", generator=gen) * (n + 5) - 3
+        whole = torch.rand(t.shape, device="cuda", generator=gen) < 1 / 3
+        pos.append(torch.where(whole, t.round(), t))
+    m = torch.rand(N, G, P, 1, device="cuda", generator=gen)
+    m = torch.where(torch.rand(m.shape, device="cuda", generator=gen) < 1 / 4, 0.0, m)
+    with torch.no_grad():
+        return ((ds.hat_weights(pos[0], H) * m).bfloat16().contiguous(),
+                ds.hat_weights(pos[1], W).bfloat16().contiguous())
+
+
+@pytest.mark.parametrize("N,G,P,H,W,Cg,rows", [
+    (1, 2, 30, 5, 7, 8, "dense"), (2, 3, 200, 17, 13, 72, "dense"),
+    (1, 1, 1444, 38, 38, 256, "dense"), (1, 1, 300, 64, 64, 16, "dense"),
+    (1, 1, 1, 1, 1, 8, "dense"),
+    # H or W past 64: no hat row is held whole in registers
+    (1, 2, 300, 70, 90, 24, "dense"),
+    # hat rows: the forward is the plain version's bit for bit; the 75x75
+    # site of PixelLink++ (P = 5625, Cg = 128) and a ragged map
+    (2, 3, 200, 17, 13, 72, "hat"), (1, 2, 5625, 75, 75, 128, "hat"),
+    (2, 2, 777, 33, 130, 40, "hat"),
+    # a map too tall for the range pass's and the buckets' shared memory
+    (1, 1, 100, 3000, 2, 8, "hat")])
+def test_deform_sample_kernels_match_plain(gen, N, G, P, H, W, Cg, rows):
+    if rows == "dense":  # dense hat rows with a few zeros, as the sampler's are mostly zero
+        a, b = (torch.rand(N, G, P, n, device="cuda", generator=gen) for n in (H, W))
+        a, b = (torch.where(t < 0.3, 0.0, t).bfloat16() for t in (a, b))
+    else:
+        a, b = _hat_rows(gen, N, G, P, H, W)
     x = torch.randn(N, G, H, W, Cg, device="cuda", generator=gen).bfloat16()
     g = torch.randn(N, G, P, Cg, device="cuda", generator=gen).bfloat16()
     kernels = (ds.FWD_KERNEL, ds.DX_KERNEL, ds.DAB_KERNEL)
@@ -214,10 +241,15 @@ def test_deform_sample_kernels_match_plain(gen, N, G, P, H, W, Cg):
     for name, u, v in zip(("fwd", "dx", "dA", "dB"), got, want):
         assert u.dtype == v.dtype == torch.float32 and u.shape == v.shape
         # the same roundings; only the f32 summation order differs (the
-        # tensor cores' for fwd, dA and dB; the order over p for dx). With
-        # dense rows that is up to ~1e-6 of max over 1444 terms; a bf16 E
-        # or T, or a TF32 product, reads ~1e-4 to ~2e-3
+        # tensor cores' for dA and dB; the order over p for dx; the order
+        # over a dense row's cells for fwd). With dense rows that is up to
+        # ~1e-6 of max over 1444 terms; a bf16 E or T, or a TF32 product,
+        # reads ~1e-4 to ~2e-3
         assert _rel_err(u, v) <= 1e-5, (name, _rel_err(u, v))
+    if rows == "hat":
+        # at most two non-zero exact terms in each sum: one rounding in any
+        # order, so the forward is the dense order's bit for bit
+        assert torch.equal(got[0], want[0])
 
 
 @pytest.mark.parametrize("impl", ["pallas", "fused"])
@@ -270,21 +302,30 @@ def _repeat_case(name, gen):
         if name == "deform_conv_fwd":
             return dh.deform_conv_fwd, (x, py, px, m, wg, randn(Cout))
         return dh.deform_conv_bwd, (x, py, px, m, wg, randn(B, P, Cout))
-    if name == "deform_sample_dx":
+    if name.startswith("deform_sample"):
         N, G, P, H, W, Cg = 2, 2, 300, 19, 17, 72
         pos = [torch.rand(N, G, P, device="cuda", generator=gen) * (n + 4) - 2 for n in (H, W)]
         with torch.no_grad():
             a = (ds.hat_weights(pos[0], H) * torch.rand(N, G, P, 1, device="cuda",
                                                         generator=gen)).bfloat16()
             b = ds.hat_weights(pos[1], W).bfloat16()
-        return ds.abx_dx, (a, b, randn(N, G, P, Cg).bfloat16())
+        g = randn(N, G, P, Cg).bfloat16()
+        if name == "deform_sample_dx":
+            return ds.abx_dx, (a, b, g)
+        # the forward and the dA/dB passes (whose pixels are placed into
+        # buckets by a scatter) at the same shape
+        x = randn(N, G, H, W, Cg).bfloat16()
+        if name == "deform_sample_fwd":
+            return ds.abx_fwd, (a, b, x)
+        return ds.abx_dab, (x, g, a, b)
     x = torch.rand(2, 64, 45, 70, device="cuda", generator=gen).bfloat16()
     w = randn(64, 16, 3, 3) / 12
     return (lambda *t: sc.stem_conv_bwd(*t, 4)), (x, w, randn(2, 64, 45, 70).bfloat16())
 
 
 @pytest.mark.parametrize("name", ["flash_attn_bwd", "deform_conv_fwd", "deform_conv_bwd",
-                                  "deform_sample_dx", "stem_conv_bwd"])
+                                  "deform_sample_fwd", "deform_sample_dx", "deform_sample_dab",
+                                  "stem_conv_bwd"])
 def test_kernels_repeat_bit_equal(gen, name):
     # the same inputs twice: every output the same bits (no sum whose
     # order depends on the blocks' schedule)

@@ -207,3 +207,117 @@ def test_sample_dx_skipping_zeros_matches_plain_and_pallas(rng):
     _close(got, ds.abx_dx_plain(a, b, g), "dx vs plain", tol=1e-6)
     want = jds._abx_bwd_dx(*(jnp.asarray(t.float().numpy()) for t in (a, b, g)))
     _close(got, want, "dx vs pallas", tol=1e-6)
+
+
+# ---- the forward kernel's order: non-zero ranges, multiply and add apart ----
+
+
+def _fwd_skipping_zeros(a, b, x):
+    """A mirror of csrc/deform_sample_fwd.cu: per (n, g, p), for qx in B's
+    non-zero range, ascending, T = the products a * x over A's range
+    added in ascending qy, then acc = acc + b * T; f32, every multiply
+    and add rounded on its own."""
+    af, bf, xf = a.float(), b.float(), x.float()
+    N, G, P, H = a.shape
+    out = torch.zeros(N, G, P, x.shape[-1])
+    (alo, ahi), (blo, bhi) = _ranges(af), _ranges(bf)
+    for n in range(N):
+        for gg in range(G):
+            for p in range(P):
+                y0, y1, x0, x1 = (int(t[n, gg, p]) for t in (alo, ahi, blo, bhi))
+                acc = out[n, gg, p]
+                for qx in range(x0, x1 + 1):
+                    t = torch.zeros(x.shape[-1])
+                    for qy in range(y0, y1 + 1):
+                        t = t + af[n, gg, p, qy] * xf[n, gg, qy, qx]
+                    acc = acc + bf[n, gg, p, qx] * t
+                out[n, gg, p] = acc
+    return out
+
+
+def test_sample_fwd_skipping_zeros_matches_plain_and_pallas(rng):
+    a, b = _hat_rows(rng)
+    x = torch.from_numpy(rng.normal(size=(*a.shape[:2], a.shape[-1], b.shape[-1], 16))
+                         .astype(np.float32)).bfloat16()
+    got = _fwd_skipping_zeros(a, b, x)
+    # hat rows (all but the last 5 p): at most two non-zero exact terms
+    # in each sum, so the plain version's dense order gives the same bits
+    plain = ds.abx_fwd_plain(a, b, x)
+    assert torch.equal(got[:, :, :-5], plain[:, :, :-5])
+    # dense rows too, against the plain version and the Pallas kernel
+    # (interpret mode): f32 sums in another order
+    _close(got, plain, "fwd vs plain", tol=1e-6)
+    want = jds._abx_fwd_impl(*(jnp.asarray(t.float().numpy()) for t in (a, b, x)))
+    _close(got, want, "fwd vs pallas", tol=1e-6)
+
+
+# ---- the dA/dB kernel's buckets: pixels by the first non-zero of a row ----
+
+
+def _dab_buckets(rows, tile):
+    """A mirror of csrc/deform_sample_dab.cu's dab_buckets for one (n, g)
+    and one pass: the p sorted (stably) by the first non-zero index of
+    their hat row, all-zero rows last, cut into tiles of up to ``tile``
+    p; [(lo, [p, ...])]."""
+    lo, hi = _ranges(rows)
+    R = rows.shape[-1]
+    key = torch.where(lo <= hi, lo, R)
+    order = sorted(range(rows.shape[0]), key=lambda p: int(key[p]))
+    tiles = []
+    for k in sorted(set(int(key[p]) for p in order)):
+        ps = [p for p in order if int(key[p]) == k]
+        tiles += [(k, ps[i:i + tile]) for i in range(0, len(ps), tile)]
+    return tiles
+
+
+def _dab_skipping_zeros(x, g, a, b, tile):
+    """dA and dB as the bucketed kernel forms them: each tile walks r from
+    its bucket's lo to the largest last non-zero index of its p, adding
+    bf16(S[p, r] * g[p]) . x over channels; all-zero rows give zero rows."""
+    xf, gf, af, bf = x.float(), g.float(), a.float(), b.float()
+    N, G, P, H = a.shape
+    W = b.shape[-1]
+    out = []
+    for side, (S, Q) in enumerate(((bf, H), (af, W))):
+        d = torch.full((N, G, P, Q), float("nan"))
+        for n in range(N):
+            for gg in range(G):
+                lo, hi = _ranges(S[n, gg])
+                tiles = _dab_buckets(S[n, gg], tile)
+                # every p once, in a tile of its own bucket
+                assert sorted(p for _, ps in tiles for p in ps) == list(range(P))
+                for r0, ps in tiles:
+                    if r0 == S.shape[-1]:
+                        d[n, gg, ps] = 0.0
+                        continue
+                    r1 = max(int(hi[p]) for p in ps)
+                    # the walk covers every p's non-zero range
+                    assert all(int(lo[p]) == r0 and int(hi[p]) <= r1 for p in ps)
+                    acc = torch.zeros(len(ps), Q)
+                    for r in range(r0, r1 + 1):
+                        e = (S[n, gg, ps, r, None] * gf[n, gg, ps]).bfloat16().float()
+                        xr = xf[n, gg, :, r] if side == 0 else xf[n, gg, r]
+                        acc = acc + e @ xr.T
+                    d[n, gg, ps] = acc
+        out.append(d)
+    return out
+
+
+@pytest.mark.parametrize("tile", [64, 3])  # 64: the kernel's tile (TPB)
+def test_sample_dab_buckets_match_plain_and_pallas(rng, tile):
+    a, b = _hat_rows(rng)
+    N, G, P, H = a.shape
+    W = b.shape[-1]
+    assert (a == 0).all(-1).any()
+    x = torch.from_numpy(rng.normal(size=(N, G, H, W, 16)).astype(np.float32)).bfloat16()
+    g = torch.from_numpy(rng.normal(size=(N, G, P, 16)).astype(np.float32)).bfloat16()
+    da, db = _dab_skipping_zeros(x, g, a, b, tile)
+    # a p whose A row is all zero (a zero mask) has a zero dB row, and one
+    # whose B row is (a sample left of or right of the map) a zero dA row
+    assert (db[(a == 0).all(-1)] == 0).all() and (da[(b == 0).all(-1)] == 0).all()
+    for name, got, want in zip(("dA", "dB"), (da, db), ds.abx_dab_plain(x, g, a, b)):
+        _close(got, want, f"{name} vs plain", tol=1e-6)
+    want_da, want_db, _ = jds._abx_bwd(tuple(jnp.asarray(t.float().numpy()) for t in (a, b, x)),
+                                       jnp.asarray(g.float().numpy()))
+    _close(da, want_da, "dA vs pallas", tol=1e-6)
+    _close(db, want_db, "dB vs pallas", tol=1e-6)

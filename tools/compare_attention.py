@@ -81,11 +81,18 @@ def build_baseline(root, out_dir):
 
 
 class _Baseline:
-    """Stands in for a ``CudaKernel``: the baseline library's function."""
+    """Stands in for a ``CudaKernel``: the baseline library's function
+    (and, given its library, the host functions a wrapper queries)."""
 
-    def __init__(self, fn):
-        self.fn = fn
+    def __init__(self, fn, lib=None):
+        self.fn, self.lib = fn, lib
         self.launches = 0
+
+    def query(self, name, *ints):
+        q = getattr(self.lib, f"{self.fn.__name__}_{name}")
+        q.argtypes = [ctypes.c_int] * len(ints)
+        q.restype = ctypes.c_long
+        return q(*ints)
 
     def launch(self, stream, *args):
         code = self.fn(*args, stream)

@@ -8,7 +8,10 @@ torch.profiler trace on one card.
 Boundaries: stem_conv_bwd at PixelLink++'s conv1_1 and conv1_2 (batch 16,
 300x300, bf16), deform_conv_fwd and deform_conv_bwd at the GSSD++
 training site (batch 32, 38x38) and at 75x75 (batch 16), flash_attn_bwd at N = M = 5625 (batch
-16), deform_sample_dx at the 38x38 site (batch 32). Prints one JSON line
+16), the separable sampler's fwd, dx and dA/dB at the 38x38 site (batch
+32; the range pass, the sample kernel; the range pass, dx; the range
+pass, the buckets, the dA and dB passes) and all three at 75x75 (batch
+16). Prints one JSON line
 per boundary: the mean device ms a call of each kernel it launched (and
 of the PyTorch ops around it), and the card's name and power limit.
 """
@@ -57,8 +60,14 @@ def cases(cs):
     q, k, v, do = cs.attn_inputs(g, cs.PL_BATCH, 5625, 32, 128)
     o, lse = fa.flash_attention_fwd(q, k, v)
     yield "flash_attn_bwd N=5625 B=16", lambda: fa.flash_attention_bwd(q, k, v, o, lse, do)
-    a, b, _, gs = cs.sample_inputs(cs.TRAIN_BATCH)
+    a, b, xs, gs = cs.sample_inputs(cs.TRAIN_BATCH)
+    yield "deform_sample_fwd 38x38 B=32", lambda: ds.abx_fwd(a, b, xs)
     yield "deform_sample_dx 38x38 B=32", lambda: ds.abx_dx(a, b, gs)
+    yield "deform_sample_dab 38x38 B=32", lambda: ds.abx_dab(xs, gs, a, b)
+    a75, b75, x75, g75 = cs.sample_inputs(cs.PL_BATCH, cs.PL_DCN_SITE)
+    yield "deform_sample_fwd 75x75 B=16", lambda: ds.abx_fwd(a75, b75, x75)
+    yield "deform_sample_dx 75x75 B=16", lambda: ds.abx_dx(a75, b75, g75)
+    yield "deform_sample_dab 75x75 B=16", lambda: ds.abx_dab(x75, g75, a75, b75)
 
 
 def main() -> int:
