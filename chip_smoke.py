@@ -79,7 +79,13 @@ In order, failing (exit code 1) at the first phase that goes wrong:
    their plain versions at PixelLink++'s conv1_1 and conv1_2 (batch 16,
    300x300, bf16): y and dx within STEM_ULP_MAX ulp with at most
    STEM_DIFF_SHARE of the elements differing, dW within STEM_DW_TOL; a
-   planted double rounding must fail; times them beside cuDNN;
+   planted double rounding must fail; times them beside cuDNN; then the
+   f32 forward (f32 x and weights, three bf16 parts on the tensor cores)
+   at both sites' channels, batch 2: mean |y - y64| / mean |y64| against
+   the function in f64 within ``stem_conv.STEM_F32_MEAN_TOL`` and y within
+   STEM_DW_TOL of max |plain|, while a planted two-part split, in plain
+   PyTorch on the card, must read at least STEM_F32_PLANTED_MIN times the
+   limit;
 15. holds the attention kernels at PixelLink++'s four site shapes (N =
    5625, 1444, 361; batch 16), with the checks of phase 3, and the hat
    DCN at 75x75 (512 -> 256 channels) against their plain versions and
@@ -1298,6 +1304,10 @@ PL_ITERS = 5
 STEM_ULP_MAX = 1
 STEM_DIFF_SHARE = 2e-4
 STEM_DW_TOL = 2e-5
+# the f32 forward's contract check (check_stem_f32): its batch, and how far
+# above the limit the planted two-part split must read
+STEM_F32_BATCH = 2
+STEM_F32_PLANTED_MIN = 5
 # launches of one PixelLink++ train step (remat recomputes the 8
 # attention forwards) and of one forward (valid loss, evaluation, --test)
 PL_STEP_LAUNCHES = dict(stem_conv_fwd=2, stem_conv_bwd=2, flash_attn_fwd=16,
@@ -1422,6 +1432,57 @@ def check_stem():
               f"{s['bwd_library_ms']:.4f}, bound {s['bwd_bound_ms']:.4f} ({s['bwd_bound_by']})",
               flush=True)
         del x, gout, y, yp, dx, dxp, planted, xr
+    return sites
+
+
+def check_stem_f32():
+    """The f32 forward (f32 x and w: the kernel takes three bf16 parts of
+    w) at conv1_1's and conv1_2's channels, batch STEM_F32_BATCH, 300 x
+    300: within ``STEM_F32_MEAN_TOL`` of the function in f64 (mean error
+    over mean value) and within STEM_DW_TOL of max |plain|; a planted
+    two-part split must read at least STEM_F32_PLANTED_MIN times the
+    limit. The kernel is timed beside its plain version."""
+    import torch
+
+    from gssd_torch.ops.kernels import stem_conv as sc
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    B, H, W, G = STEM_F32_BATCH, 300, 300, 4
+    limit = sc.STEM_F32_MEAN_TOL
+    sites = []
+    for name, cin, cout in STEM_SITES:
+        x = torch.rand(B, cin, H, W, device="cuda", generator=g)
+        w = torch.randn(cout, cin // G, 3, 3, device="cuda", generator=g) * math.sqrt(
+            2 / (9 * cin / G))
+        b = torch.randn(cout, device="cuda", generator=g) * 0.5
+        y = sc.stem_conv_fwd(x, w, b, G)
+        torch.cuda.synchronize()
+        y64 = sc.stem_conv_fwd_f64(x, w, b, G)
+        yp = sc.stem_conv_fwd_plain(x, w, b, G)
+        site = dict(site=name, B=B, H=H, W=W, Cin=cin, Cout=cout, G=G, limit=limit,
+                    mean_err=sc.f32_mean_err(y, y64),
+                    plain_mean_err=sc.f32_mean_err(yp, y64),
+                    three_part_plain_mean_err=sc.f32_mean_err(
+                        sc.stem_conv_fwd_split(x, w, b, G, 3), y64),
+                    planted_two_part_mean_err=sc.f32_mean_err(
+                        sc.stem_conv_fwd_split(x, w, b, G, 2), y64),
+                    rel_err=((y - yp).abs().max() / yp.abs().max()).item(),
+                    ms=time_ms(lambda: sc.stem_conv_fwd(x, w, b, G)),
+                    plain_ms=time_ms(lambda: sc.stem_conv_fwd_plain(x, w, b, G), iters=5))
+        sites.append(site)
+        print(f"stem_conv f32 {name} B={B} {cin}->{cout}: mean err {site['mean_err']:.3g} "
+              f"(limit {limit:.3g}; plain f32 conv {site['plain_mean_err']:.3g}, three-part "
+              f"emulation {site['three_part_plain_mean_err']:.3g}), planted two-part split "
+              f"{site['planted_two_part_mean_err']:.3g}; max rel err {site['rel_err']:.3g}; "
+              f"kernel {site['ms']:.4f} ms, plain {site['plain_ms']:.4f}", flush=True)
+        check(site["mean_err"] <= limit,
+              f"stem_conv f32 {name}: mean err {site['mean_err']} > {limit}")
+        check(site["rel_err"] <= STEM_DW_TOL,
+              f"stem_conv f32 {name}: rel err {site['rel_err']} > {STEM_DW_TOL}")
+        check(site["planted_two_part_mean_err"] >= STEM_F32_PLANTED_MIN * limit,
+              f"stem_conv f32 {name}: the planted two-part split reads "
+              f"{site['planted_two_part_mean_err']}, below {STEM_F32_PLANTED_MIN} x {limit}")
+        del x, y, y64, yp
     return sites
 
 
@@ -1940,6 +2001,7 @@ def main() -> int:
         dcn_bwd_site = check_dcn_bwd()
         sample_sites = check_sample()
         stem_sites = check_stem()
+        stem_f32_sites = check_stem_f32()
         pl_sites = check_pixellink_sites()
         with tempfile.TemporaryDirectory() as tmp:
             launches, lat, data, weights = serve(tmp)
@@ -2072,7 +2134,8 @@ def main() -> int:
              max_abs_err=max(s["max_abs_err"] for s in stem_sites),
              ms=stem_sum("fwd_ms"), plain_ms=stem_sum("fwd_plain_ms"),
              bound_ms=stem_fwd_bound[0], bound_by=stem_fwd_bound[1],
-             library_ms=stem_sum("fwd_library_ms"), note=stem_note, sites=stem_sites),
+             library_ms=stem_sum("fwd_library_ms"), note=stem_note, sites=stem_sites,
+             f32_sites=stem_f32_sites),
         dict(name="stem_conv_bwd", route="cuda", source="gssd_torch/csrc/stem_conv_bwd.cu",
              replaces="gssd_tpu/ops/pallas/stem_conv.py:97",
              launches=pl["launches"]["stem_conv_bwd"],

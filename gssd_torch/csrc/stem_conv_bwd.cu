@@ -4,17 +4,10 @@
 // on the tensor cores with f32 sums, dx rounded once to x's dtype, dW
 // kept f32. One launch runs up to three kernels:
 //
-// 1. dx (when asked for), per group an implicit GEMM [pixels x 9 cgo] .
-//    [9 cgo x cgi]: dx[b, ci, y, x] = sum_{j, ky, kx} bf16(g[b, j, y + ky
-//    - 1, x + kx - 1]) * wt[ci, j, ky, kx], wt the flipped, transposed
-//    weights. A block owns 8 x 64 pixels of one image and one group; it
-//    stages g with its one-pixel halo once (8- or 16-byte loads where W is
-//    a multiple of 4), channels innermost ([pixel][j], bf16), and the
-//    weights as [tap][j chunk][ci][16 j] (packed once a launch by
-//    pack_dx_weights, copied with 16-byte loads); each warp owns
-//    one row (four 16-pixel fragments) and runs, per tap and 16-channel
-//    chunk of j, mma.sync.m16n8k16 with A loaded by ldmatrix from the
-//    halo tile shifted by the tap (each lane points at its own pixel row).
+// 1. dx (when asked for): dx[b, ci, y, x] = sum_{j, ky, kx} bf16(g[b, j,
+//    y + ky - 1, x + kx - 1]) * wt[ci, j, ky, kx], wt the flipped,
+//    transposed weights: the forward's conv of g (stem_conv.cuh, one bf16
+//    part, no bias), its weights packed first in the same launch.
 // 2. dW partial sums, per group [9 cgi x pixels] . [pixels x cgo]:
 //    dW[co, ci, ky, kx] = sum_{b, y, x} bf16(x[b, ci, y + ky - 1, x + kx -
 //    1]) * bf16(g[b, co, y, x]) (the TPU's dense block-diagonal dW holds
@@ -52,254 +45,7 @@ namespace {
 
 using namespace mma16816;
 using stem::bf16;
-
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
-    return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Four consecutive elements of a row of g or x, raw: one 8-byte (bf16) or
-// 16-byte (f32) load where `vec` (W a multiple of 4, 16-byte aligned
-// tensors), else four element loads; zeros past the row's end
-template <typename T> struct Quad;
-template <> struct Quad<bf16> {
-    uint2 v;
-    __device__ void load(const bf16* row, int gx0, int W, bool vec) {
-        if (vec) {
-            v = gx0 < W ? __ldg(reinterpret_cast<const uint2*>(row + gx0)) : make_uint2(0, 0);
-            return;
-        }
-        uint16_t e[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-            e[i] = gx0 + i < W ? __ldg(reinterpret_cast<const unsigned short*>(row + gx0 + i)) : 0;
-        v = make_uint2(e[0] | (uint32_t)e[1] << 16, e[2] | (uint32_t)e[3] << 16);
-    }
-    __device__ bf16 get(int i) const {
-        const uint32_t w = i < 2 ? v.x : v.y;
-        return __ushort_as_bfloat16((unsigned short)(i % 2 ? w >> 16 : w & 0xffff));
-    }
-};
-template <> struct Quad<float> {
-    float4 v;
-    __device__ void load(const float* row, int gx0, int W, bool vec) {
-        if (vec) {
-            v = gx0 < W ? __ldg(reinterpret_cast<const float4*>(row + gx0))
-                        : make_float4(0.f, 0.f, 0.f, 0.f);
-            return;
-        }
-        float e[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) e[i] = gx0 + i < W ? __ldg(row + gx0 + i) : 0.f;
-        v = make_float4(e[0], e[1], e[2], e[3]);
-    }
-    __device__ bf16 get(int i) const {
-        return __float2bfloat16(i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w);
-    }
-};
-
-// ---- dx -------------------------------------------------------------------
-
-constexpr int DX_TH = 8;               // pixel rows a block
-constexpr int DX_TW = 64;              // pixel columns a block
-constexpr int DX_THREADS = 32 * DX_TH; // a warp a row
-constexpr int HALO = (DX_TH + 2) * (DX_TW + 2);
-constexpr int WROW = 24;               // a weight row: 16 j + 8 pad (48 bytes)
-
-// bf16 elements a halo pixel takes: 16 j a chunk + 8 pad (a stride of
-// 16 mod 128 bytes, so the 8 rows of an ldmatrix hit 8 bank groups)
-__host__ __device__ constexpr int dx_pixel_stride(int nch) { return 16 * nch + 8; }
-
-// bf16 elements of one group's packed dx weights [9][nch][NT * 8][WROW]
-__host__ __device__ constexpr int dx_weight_elems(int nch, int nt) { return 9 * nch * nt * 8 * WROW; }
-
-template <int NT>
-__host__ __device__ constexpr int dx_smem_bytes(int nch) {
-    return 2 * (HALO * dx_pixel_stride(nch) + dx_weight_elems(nch, NT));
-}
-
-// wpack[grp][tap][jc][ci][jj] = wt[grp * cgi + ci, 16 jc + jj, tap], zero
-// past cgi, cgo and in the 8 pad elements of a row: each block of the dx
-// kernel copies its group's slice with 16-byte loads
-__global__ void pack_dx_weights(const bf16* __restrict__ wt, bf16* __restrict__ wpack, int G,
-                                int cgi, int cgo, int nch, int nt) {
-    const int per = dx_weight_elems(nch, nt);
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= G * per) return;
-    const int grp = i / per, r = i % per;
-    const int jj = r % WROW, ci = (r / WROW) % (nt * 8), jc = (r / (WROW * nt * 8)) % nch;
-    const int tap = r / (WROW * nt * 8 * nch);
-    const int j = 16 * jc + jj;
-    wpack[i] = ci < cgi && jj < 16 && j < cgo ? wt[((size_t)(grp * cgi + ci) * cgo + j) * 9 + tap]
-                                              : __float2bfloat16(0.0f);
-}
-
-// g [B, Cout, H, W] of type T; wpack the packed weights; dx [B, Cin, H,
-// W] of type T. NT: 8-wide tiles of ci (cgi <= 8 NT); Cout / G <= 64.
-// Grid (ceil(W / DX_TW), ceil(H / DX_TH), B * G). `vec`: W is a multiple
-// of 4 and g and dx are 16-byte aligned.
-// loads a thread makes per 16 channels of the halo tile: quads, halo values
-constexpr int DQ = 16 * (DX_TH + 2) * (DX_TW / 4) / DX_THREADS;
-constexpr int DH = (16 * (DX_TH + 2) * 2 + DX_THREADS - 1) / DX_THREADS;
-
-template <typename T, int NT>
-__global__ void __launch_bounds__(DX_THREADS)
-dx_mma_kernel(const T* __restrict__ g, const bf16* __restrict__ wpack, T* __restrict__ dx,
-              int Cin, int Cout, int G, int H, int W, int vec) {
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    const int cgi = Cin / G, cgo = Cout / G;
-    const int nch = (cgo + 15) / 16;
-    const int ps = dx_pixel_stride(nch);
-    bf16* gs = reinterpret_cast<bf16*>(smem_raw);  // [HALO][ps]
-    bf16* ws = gs + HALO * ps;                      // [9][nch][NT * 8][WROW]
-
-    const int grp = blockIdx.z % G, b = blockIdx.z / G;
-    const int x0 = blockIdx.x * DX_TW, y0 = blockIdx.y * DX_TH;
-    const int tid = threadIdx.x;
-    const size_t plane = (size_t)H * W;
-    const T* gb = g + ((size_t)b * Cout + (size_t)grp * cgo) * plane;
-
-    const int wn = dx_weight_elems(nch, NT) / 8;  // 16-byte chunks
-    const uint4* wsrc = reinterpret_cast<const uint4*>(wpack) + (size_t)grp * wn;
-    for (int i = tid; i < wn; i += DX_THREADS) reinterpret_cast<uint4*>(ws)[i] = __ldg(wsrc + i);
-    // g with its halo, 16 channels at a time: every load of a thread in
-    // flight before its stores (quads of the 32 interior columns, then the
-    // two halo columns)
-    for (int jc = 0; jc < nch; ++jc) {
-        Quad<T> q[DQ];
-        float h[DH];
-#pragma unroll
-        for (int k = 0; k < DQ; ++k) {
-            const int i = tid + k * DX_THREADS;
-            const int j = 16 * jc + i / ((DX_TH + 2) * (DX_TW / 4));
-            const int rem = i % ((DX_TH + 2) * (DX_TW / 4));
-            const int gy = y0 + rem / (DX_TW / 4) - 1;
-            if (j < cgo && gy >= 0 && gy < H)
-                q[k].load(gb + (size_t)j * plane + (size_t)gy * W, x0 + 4 * (rem % (DX_TW / 4)), W,
-                          vec);
-            else
-                q[k].load(gb, W, W, true);  // zeros
-        }
-#pragma unroll
-        for (int k = 0; k < DH; ++k) {
-            const int i = tid + k * DX_THREADS;
-            const int j = 16 * jc + i / ((DX_TH + 2) * 2), rem = i % ((DX_TH + 2) * 2);
-            const int gy = y0 + rem / 2 - 1, gx = rem % 2 ? x0 + DX_TW : x0 - 1;
-            h[k] = i < 16 * (DX_TH + 2) * 2 && j < cgo && gy >= 0 && gy < H && gx >= 0 && gx < W
-                       ? stem::to_f32(gb[(size_t)j * plane + (size_t)gy * W + gx])
-                       : 0.f;
-        }
-#pragma unroll
-        for (int k = 0; k < DQ; ++k) {
-            const int i = tid + k * DX_THREADS;
-            const int jl = i / ((DX_TH + 2) * (DX_TW / 4)), rem = i % ((DX_TH + 2) * (DX_TW / 4));
-            const int p0 = rem / (DX_TW / 4) * (DX_TW + 2) + 1 + 4 * (rem % (DX_TW / 4));
-#pragma unroll
-            for (int e = 0; e < 4; ++e) gs[(p0 + e) * ps + 16 * jc + jl] = q[k].get(e);
-        }
-#pragma unroll
-        for (int k = 0; k < DH; ++k) {
-            const int i = tid + k * DX_THREADS;
-            if (i >= 16 * (DX_TH + 2) * 2) continue;
-            const int jl = i / ((DX_TH + 2) * 2), rem = i % ((DX_TH + 2) * 2);
-            const int p = rem / 2 * (DX_TW + 2) + (rem % 2 ? DX_TW + 1 : 0);
-            gs[p * ps + 16 * jc + jl] = __float2bfloat16(h[k]);
-        }
-    }
-    __syncthreads();
-
-    const int warp = tid / 32, lane = tid % 32;
-    const int lg = lane / 4, lt = lane % 4;
-    float acc[4][NT][4];
-#pragma unroll
-    for (int f = 0; f < 4; ++f)
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) acc[f][nt][0] = acc[f][nt][1] = acc[f][nt][2] = acc[f][nt][3] = 0.0f;
-
-    for (int tap = 0; tap < 9; ++tap) {
-        const int ky = tap / 3, kx = tap % 3;
-        for (int jc = 0; jc < nch; ++jc) {
-            uint32_t bw[NT][2];
-            const bf16* wrow = ws + (tap * nch + jc) * NT * 8 * WROW;
-#pragma unroll
-            for (int nt = 0; nt < NT; ++nt) {
-                bw[nt][0] = lds32(wrow + (nt * 8 + lg) * WROW + 2 * lt);
-                bw[nt][1] = lds32(wrow + (nt * 8 + lg) * WROW + 2 * lt + 8);
-            }
-#pragma unroll
-            for (int f = 0; f < 4; ++f) {
-                // fragment f: pixel row `warp`, columns 16 f ..
-                const int hp = (warp + ky) * (DX_TW + 2) + 16 * f + lane % 16 + kx;
-                uint32_t a[4];
-                ldmatrix_x4(a, gs + hp * ps + 16 * jc + 8 * (lane / 16));
-#pragma unroll
-                for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[f][nt], a, bw[nt][0], bw[nt][1]);
-            }
-        }
-    }
-
-    // the output, 8 channels at a time, through shared memory (the halo
-    // tile is consumed) into whole 4-pixel stores
-    T* dxb = dx + ((size_t)b * Cin + (size_t)grp * cgi) * plane;
-    T* os = reinterpret_cast<T*>(smem_raw);  // [8 ci][DX_TH][DX_TW]
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-        __syncthreads();
-#pragma unroll
-        for (int f = 0; f < 4; ++f)
-#pragma unroll
-            for (int h = 0; h < 2; ++h)
-#pragma unroll
-                for (int e = 0; e < 2; ++e)
-                    os[((2 * lt + e) * DX_TH + warp) * DX_TW + 16 * f + lg + 8 * h] =
-                        stem::from_f32<T>(acc[f][nt][2 * h + e]);
-        __syncthreads();
-#pragma unroll
-        for (int k = 0; k < 8 * DX_TH * DX_TW / 4 / DX_THREADS; ++k) {
-            const int i = tid + k * DX_THREADS;
-            const int cl = i / (DX_TH * DX_TW / 4), r = i / (DX_TW / 4) % DX_TH, q = i % (DX_TW / 4);
-            const int ci = 8 * nt + cl, y = y0 + r, xq = x0 + 4 * q;
-            if (ci >= cgi || y >= H || xq >= W) continue;
-            const T* src = os + (cl * DX_TH + r) * DX_TW + 4 * q;
-            T* dst = dxb + (size_t)ci * plane + (size_t)y * W + xq;
-            if (vec) {
-                if constexpr (sizeof(T) == 2)
-                    *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(src);
-                else
-                    *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
-            } else {
-                for (int e = 0; e < 4 && xq + e < W; ++e) dst[e] = src[e];
-            }
-        }
-    }
-}
-
-template <typename T, int NT>
-cudaError_t launch_dx_nt(const void* g, const void* wt, bf16* wpack, void* dx, int B, int Cin,
-                         int Cout, int G, int H, int W, cudaStream_t stream) {
-    const int nch = (Cout / G + 15) / 16;
-    const int n = G * dx_weight_elems(nch, NT);
-    pack_dx_weights<<<(n + 255) / 256, 256, 0, stream>>>(static_cast<const bf16*>(wt), wpack, G,
-                                                         Cin / G, Cout / G, nch, NT);
-    const int smem = dx_smem_bytes<NT>(nch);
-    cudaError_t err = cudaFuncSetAttribute(dx_mma_kernel<T, NT>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((W + DX_TW - 1) / DX_TW, (H + DX_TH - 1) / DX_TH, B * G);
-    const bool vec = W % 4 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
-                     reinterpret_cast<uintptr_t>(dx) % 16 == 0;
-    dx_mma_kernel<T, NT><<<grid, DX_THREADS, smem, stream>>>(
-        static_cast<const T*>(g), wpack, static_cast<T*>(dx), Cin, Cout, G, H, W, vec);
-    return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_dx(const void* g, const void* wt, bf16* wpack, void* dx, int B, int Cin,
-                      int Cout, int G, int H, int W, cudaStream_t stream) {
-    const int cgi = Cin / G;
-    if (cgi <= 16) return launch_dx_nt<T, 2>(g, wt, wpack, dx, B, Cin, Cout, G, H, W, stream);
-    if (cgi <= 32) return launch_dx_nt<T, 4>(g, wt, wpack, dx, B, Cin, Cout, G, H, W, stream);
-    return launch_dx_nt<T, 8>(g, wt, wpack, dx, B, Cin, Cout, G, H, W, stream);
-}
+using stem::Quad;
 
 // ---- dW -------------------------------------------------------------------
 
@@ -570,25 +316,29 @@ cudaError_t launch_dw(const void* x, const void* g, float* part, float* dw, int 
 // x [B, Cin, H, W] and g [B, Cout, H, W] of one dtype (dtype 0: bf16, 1:
 // f32); wt [Cin, Cout / G, 3, 3] bf16, the flipped transposed weights;
 // dx [B, Cin, H, W] in x's dtype, or null to skip it; wpack scratch of
-// G * 9 * 4 * 64 * 24 bf16 (the packed dx weights); part [n_bands * B,
-// Cout, Cin / G, 9] f32 scratch; dw [Cout, Cin / G, 3, 3] f32. band_rows
-// * n_bands covers H; Cin / G and Cout / G <= 64 where dx is asked for.
-// All contiguous, 16-byte aligned. Returns the CUDA error code of the
-// first launch that failed (0 on success).
+// stem_conv_bwd_wpack_elems bf16 (the packed dx weights); part [n_bands *
+// B, Cout, Cin / G, 9] f32 scratch; dw [Cout, Cin / G, 3, 3] f32.
+// band_rows * n_bands covers H; Cin / G and Cout / G <= 64 where dx is
+// asked for. All contiguous, 16-byte aligned. Returns the CUDA error code
+// of the first launch that failed (0 on success).
 extern "C" int stem_conv_bwd(const void* x, const void* g, const void* wt, void* dx, void* wpack,
                              void* part, void* dw, int B, int Cin, int Cout, int G, int H, int W,
                              int band_rows, int n_bands, int dtype, void* stream) {
     if (!stem::conv_shape_ok(B, Cout, Cin, G, H, W) || (dtype != 0 && dtype != 1) ||
         band_rows < 1 || n_bands < 1 || (long long)band_rows * n_bands < H ||
         (long long)band_rows * (n_bands - 1) >= H || B > 65535 ||
-        (dx != nullptr && (Cin / G > 64 || Cout / G > 64)))
+        (long long)G * ((Cin / G + DCI - 1) / DCI) * ((Cout / G + DCO - 1) / DCO) > 65535 ||
+        (dx != nullptr && !stem::conv_ok(Cout / G, Cin / G)))
         return (int)cudaErrorInvalidValue;
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     cudaError_t err = cudaSuccess;
     if (dx != nullptr) {
+        // dx is the forward's conv of g with the flipped, transposed weights
+        const bf16* w = static_cast<const bf16*>(wt);
         bf16* wp = static_cast<bf16*>(wpack);
-        err = dtype == 0 ? launch_dx<bf16>(g, wt, wp, dx, B, Cin, Cout, G, H, W, s)
-                         : launch_dx<float>(g, wt, wp, dx, B, Cin, Cout, G, H, W, s);
+        const int CI = Cout / G, CO = Cin / G;
+        err = dtype == 0 ? stem::launch_conv<bf16, 1>(g, w, nullptr, wp, dx, B, G, CI, CO, H, W, s)
+                         : stem::launch_conv<float, 1>(g, w, nullptr, wp, dx, B, G, CI, CO, H, W, s);
         if (err != cudaSuccess) return (int)err;
     }
     float* p = static_cast<float*>(part);
@@ -596,6 +346,11 @@ extern "C" int stem_conv_bwd(const void* x, const void* g, const void* wt, void*
     err = dtype == 0 ? launch_dw<bf16>(x, g, p, d, B, Cin, Cout, G, H, W, band_rows, n_bands, s)
                      : launch_dw<float>(x, g, p, d, B, Cin, Cout, G, H, W, band_rows, n_bands, s);
     return (int)err;
+}
+
+// bf16 elements of the wpack scratch the dx of a launch at these sizes takes
+extern "C" long stem_conv_bwd_wpack_elems(int Cin, int Cout, int G) {
+    return stem::conv_wpack_elems(Cout / G, Cin / G, G, 1);
 }
 
 extern "C" const char* stem_conv_bwd_error(int err) {

@@ -17,10 +17,17 @@ conv) on the port's NCHW tensors with grouped weights [Cout, Cin/G, 3,
 - forward: the patches rounded to bf16, the weights in the compute dtype
   (x's dtype), f32 accumulation, the f32 bias added to the f32 sum, one
   rounding to x's dtype (the plain grouped conv of ``ConvBNRelu`` rounds
-  the conv to the compute dtype and adds a rounded bias: other numbers);
+  the conv to the compute dtype and adds a rounded bias: other numbers).
+  The kernel multiplies bf16 operands on the tensor cores: f32 weights
+  reach it as three bf16 parts (``split_bf16``) that sum back to w
+  exactly, so an f32 forward differs from the plain version only in the
+  order of its f32 sums (``STEM_F32_MEAN_TOL`` holds it to that, read by
+  ``f32_mean_err``; ``stem_conv_fwd_split`` emulates the kernel with any
+  number of parts);
 - backward: g and the flipped, transposed weights rounded to bf16 (also
-  in an f32 model); dx is their conv, f32-accumulated and rounded to x's
-  dtype, skipped when autograd does not need it; dW is the f32 sum over
+  in an f32 model); dx is their conv (the forward's kernel, one part, no
+  bias), f32-accumulated and rounded to x's dtype, skipped when autograd
+  does not need it; dW is the f32 sum over
   (b, y, x) of bf16 patches times bf16 g and reaches the f32 parameter
   unrounded; db = sum of f32(g), outside the kernel. The kernels run both
   products on the tensor cores (bf16 operands, f32 sums) and sum every
@@ -36,18 +43,27 @@ import torch
 import torch.nn.functional as F
 
 from gssd_torch.ops.kernels.build import CudaKernel
+from gssd_torch.ops.kernels.flash_contract import split_bf16
 
+# one launch = the weights' packing and the conv
 FWD_KERNEL = CudaKernel(
     "stem_conv_fwd.cu", "stem_conv_fwd",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7)
-# one launch = the dx weights' packing and the dx kernel (when asked for),
-# the dW partial sums and their reduction, in order
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8)
+# one launch = the dx weights' packing and the conv kernel for dx (when
+# asked for), the dW partial sums and their reduction, in order
 BWD_KERNEL = CudaKernel(
     "stem_conv_bwd.cu", "stem_conv_bwd",
     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9)
-# channels a group in and out of the dx kernel (its accumulators and
-# staged weights; ConvBNRelu's wide-conv gate keeps both <= 64)
-MAX_DX_GROUP = 64
+# channels a group in and out of the conv kernel (forward and dx: its
+# accumulators and staged rows; ConvBNRelu's wide-conv gate keeps both
+# <= 64)
+MAX_GROUP = 64
+# the f32 forward's contract: mean |y - y64| / mean |y64| against the
+# function in f64 (``stem_conv_fwd_f64``). On the card the kernel reads
+# ~5-7e-8 at the stem's channels (cuDNN's f32 conv 0.7-1.8e-7), a two-part
+# split (``stem_conv_fwd_split(..., parts=2)``) ~2e-6; on the CPU the
+# three-part emulation 4-6e-8, two parts 1.7-2.1e-6 (PERF.md §6)
+STEM_F32_MEAN_TOL = 3e-7
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 # dW: rows per pixel tile of the partial-sum kernel, and the number of
@@ -70,6 +86,34 @@ def stem_conv_fwd_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     with w (as given), plus the f32 bias, rounded once to x's dtype."""
     y = F.conv2d(x.to(torch.bfloat16).float(), w.float(), None, padding=1, groups=groups)
     return (y + bias.float()[None, :, None, None]).to(x.dtype)
+
+
+def stem_conv_fwd_split(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, groups: int,
+                        parts: int) -> torch.Tensor:
+    """The forward kernel's arithmetic in plain PyTorch: f32 convs of
+    bf16(x) with each of ``parts`` bf16 parts of w (``split_bf16``), added
+    in f32 in order, plus the f32 bias, rounded once to x's dtype. Three
+    parts keep the contract of an f32 forward; two break it."""
+    xb = x.to(torch.bfloat16).float()
+    y = None
+    for part in split_bf16(w, parts):
+        c = F.conv2d(xb, part.float(), None, padding=1, groups=groups)
+        y = c if y is None else y + c
+    return (y + bias.float()[None, :, None, None]).to(x.dtype)
+
+
+def stem_conv_fwd_f64(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                      groups: int) -> torch.Tensor:
+    """The forward's function in f64: the conv of bf16(x) with w plus the
+    bias, unrounded (the reference of ``STEM_F32_MEAN_TOL``)."""
+    y = F.conv2d(x.to(torch.bfloat16).double(), w.double(), None, padding=1, groups=groups)
+    return y + bias.double()[None, :, None, None]
+
+
+def f32_mean_err(y: torch.Tensor, y64: torch.Tensor) -> float:
+    """mean |y - y64| / mean |y64| in f64: the f32 forward's contract
+    reading against ``stem_conv_fwd_f64``."""
+    return ((y.double() - y64).abs().mean() / y64.abs().mean()).item()
 
 
 def stem_conv_bwd_plain(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor, groups: int,
@@ -123,16 +167,25 @@ def _aligned(fn, *tensors):
 def stem_conv_fwd(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                   groups: int) -> torch.Tensor:
     """x [B, Cin, H, W] bf16 or f32; w [Cout, Cin/G, 3, 3] in x's dtype;
-    bias [Cout] f32; all contiguous -> [B, Cout, H, W] in x's dtype."""
+    bias [Cout] f32; all contiguous -> [B, Cout, H, W] in x's dtype. The
+    kernel takes Cin/G and Cout/G up to ``MAX_GROUP``; f32 weights go to
+    it as three bf16 parts."""
     B, Cin, Cout, H, W = _check("stem_conv_fwd", x, w, groups, (
         ("w", w, x.dtype, tuple(w.shape)), ("bias", bias, torch.float32, (w.shape[0],))))
     if x.device.type == "cpu":
         return stem_conv_fwd_plain(x, w, bias, groups)
-    _aligned("stem_conv_fwd", x, w, bias)
+    if max(Cin, Cout) // groups > MAX_GROUP:
+        raise ValueError(f"stem_conv_fwd: the kernel takes at most {MAX_GROUP} channels a "
+                         f"group, got {Cin // groups} -> {Cout // groups}")
+    parts = 1 if x.dtype == torch.bfloat16 else 3
+    wparts = w if parts == 1 else torch.stack(split_bf16(w, parts))
+    _aligned("stem_conv_fwd", x, wparts, bias)
+    wpack = torch.empty(FWD_KERNEL.query("wpack_elems", Cin, Cout, groups, parts),
+                        dtype=torch.bfloat16, device=x.device)
     out = torch.empty(B, Cout, H, W, dtype=x.dtype, device=x.device)
     FWD_KERNEL.launch(torch.cuda.current_stream(x.device).cuda_stream,
-                      x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                      B, Cin, Cout, groups, H, W, _DTYPE_CODE[x.dtype])
+                      x.data_ptr(), wparts.data_ptr(), bias.data_ptr(), wpack.data_ptr(),
+                      out.data_ptr(), B, Cin, Cout, groups, H, W, _DTYPE_CODE[x.dtype], parts)
     return out
 
 
@@ -164,16 +217,16 @@ def stem_conv_bwd(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor, groups: int
     _aligned("stem_conv_bwd", x, g, wt)
     dev = x.device
     cgi, cgo = Cin // groups, Cout // groups
-    if need_dx and max(cgi, cgo) > MAX_DX_GROUP:
-        raise ValueError(f"stem_conv_bwd: the dx kernel takes at most {MAX_DX_GROUP} channels "
+    if need_dx and max(cgi, cgo) > MAX_GROUP:
+        raise ValueError(f"stem_conv_bwd: the dx kernel takes at most {MAX_GROUP} channels "
                          f"a group, got {cgi} -> {cgo}")
     rows, bands = dw_bands(B, H, groups * _cdiv(cgi, 16) * _cdiv(cgo, 16))
     part = torch.empty(bands * B, Cout, cgi, 9, dtype=torch.float32, device=dev)
     dw = torch.empty(Cout, cgi, 3, 3, dtype=torch.float32, device=dev)
     dx = torch.empty_like(x) if need_dx else None
-    # the dx weights, packed per group as [tap][16-channel chunk][ci][24]
-    # (at most 4 chunks of j and 64 ci)
-    wpack = torch.empty(groups * 9 * 4 * 64 * 24, dtype=torch.bfloat16, device=dev)
+    # the dx weights, packed in the mma fragments' order
+    wpack = torch.empty(BWD_KERNEL.query("wpack_elems", Cin, Cout, groups) if need_dx else 0,
+                        dtype=torch.bfloat16, device=dev)
     BWD_KERNEL.launch(torch.cuda.current_stream(dev).cuda_stream,
                       x.data_ptr(), g.data_ptr(), wt.data_ptr(),
                       dx.data_ptr() if need_dx else None, wpack.data_ptr(), part.data_ptr(),

@@ -320,12 +320,14 @@ def _repeat_case(name, gen):
         return ds.abx_dab, (x, g, a, b)
     x = torch.rand(2, 64, 45, 70, device="cuda", generator=gen).bfloat16()
     w = randn(64, 16, 3, 3) / 12
+    if name == "stem_conv_fwd":
+        return (lambda *t: sc.stem_conv_fwd(*t, 4)), (x, w.bfloat16(), randn(64))
     return (lambda *t: sc.stem_conv_bwd(*t, 4)), (x, w, randn(2, 64, 45, 70).bfloat16())
 
 
 @pytest.mark.parametrize("name", ["flash_attn_bwd", "deform_conv_fwd", "deform_conv_bwd",
                                   "deform_sample_fwd", "deform_sample_dx", "deform_sample_dab",
-                                  "stem_conv_bwd"])
+                                  "stem_conv_fwd", "stem_conv_bwd"])
 def test_kernels_repeat_bit_equal(gen, name):
     # the same inputs twice: every output the same bits (no sum whose
     # order depends on the blocks' schedule)
@@ -361,10 +363,14 @@ def test_sample_dx_is_the_dense_order(gen):
 # for smaller ones: near-cancelling sums carry their large terms' f32
 # order noise), with at most STEM_DIFF_SHARE of the elements differing
 # (the same roundings, f32 sums in another order); f32 outputs and dW
-# within STEM_DW_TOL of max |plain|
+# within STEM_DW_TOL of max |plain|; the f32 forward (three bf16 parts of
+# w) also within stem_conv.STEM_F32_MEAN_TOL of the function in f64 (mean
+# error over mean value), which a planted two-part split must read at
+# least STEM_F32_PLANTED_MIN times above
 STEM_ULP_MAX = 1
 STEM_DIFF_SHARE = 2e-4
 STEM_DW_TOL = 2e-5
+STEM_F32_PLANTED_MIN = 5
 
 
 def _bf16_ulp_err(got, want):
@@ -375,8 +381,11 @@ def _bf16_ulp_err(got, want):
 
 @pytest.mark.parametrize("B,Cin,Cout,G,H,W,dtype", [
     (2, 12, 24, 4, 23, 37, torch.bfloat16),    # ragged tiles, 6 channels a group out
+    (2, 12, 64, 4, 23, 37, torch.bfloat16),    # conv1_1's 3 channels a group (folded), ragged
     (1, 64, 64, 1, 9, 70, torch.bfloat16),     # one group of 64: channel chunks
     (2, 8, 16, 2, 33, 65, torch.float32),      # an f32 model: f32 weights and outputs
+    (2, 12, 64, 4, 33, 65, torch.float32),     # f32 at conv1_1's channels
+    (2, 64, 64, 4, 33, 64, torch.float32),     # f32 at conv1_2's channels, 4-pixel rows
     (16, 64, 64, 4, 300, 300, torch.bfloat16),  # conv1_2 of PixelLink++ at batch 16
 ])
 def test_stem_conv_kernels_match_plain(gen, monkeypatch, B, Cin, Cout, G, H, W, dtype):
@@ -386,9 +395,13 @@ def test_stem_conv_kernels_match_plain(gen, monkeypatch, B, Cin, Cout, G, H, W, 
     w = torch.randn(Cout, Cin // G, 3, 3, device="cuda", generator=gen) / (3 * Cin / G) ** 0.5
     b = torch.randn(Cout, device="cuda", generator=gen) * 0.5
     g = torch.randn(B, Cout, H, W, device="cuda", generator=gen).to(dtype)
+    # each boundary is one launch: the forward (weights packed, then the
+    # conv) and the backward (dx's weights and conv, dW, its sum)
     before = (sc.FWD_KERNEL.launches, sc.BWD_KERNEL.launches)
     y = sc.stem_conv_fwd(x, w.to(dtype), b, G)
+    assert (sc.FWD_KERNEL.launches, sc.BWD_KERNEL.launches) == (before[0] + 1, before[1])
     dx, dw = sc.stem_conv_bwd(x, w, g, G)
+    assert (sc.FWD_KERNEL.launches, sc.BWD_KERNEL.launches) == (before[0] + 1, before[1] + 1)
     _, dw_only = sc.stem_conv_bwd(x, w, g, G, need_dx=False)
     torch.cuda.synchronize()
     assert (sc.FWD_KERNEL.launches, sc.BWD_KERNEL.launches) == (before[0] + 1, before[1] + 2)
@@ -405,6 +418,12 @@ def test_stem_conv_kernels_match_plain(gen, monkeypatch, B, Cin, Cout, G, H, W, 
             assert ulp <= STEM_ULP_MAX and share <= limit, (name, ulp.item(), share.item())
         else:
             assert _rel_err(got, want) <= STEM_DW_TOL, (name, _rel_err(got, want))
+    if dtype == torch.float32:
+        y64 = sc.stem_conv_fwd_f64(x, w, b, G)
+        err = sc.f32_mean_err(y, y64)
+        planted = sc.f32_mean_err(sc.stem_conv_fwd_split(x, w, b, G, 2), y64)
+        assert err <= sc.STEM_F32_MEAN_TOL, err
+        assert planted >= STEM_F32_PLANTED_MIN * sc.STEM_F32_MEAN_TOL, planted
     assert dw.dtype == torch.float32 and torch.equal(dw, dw_only)
     assert _rel_err(dw, dwp) <= STEM_DW_TOL, _rel_err(dw, dwp)
 

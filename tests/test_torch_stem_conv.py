@@ -7,6 +7,10 @@ Tolerances: bf16 outputs (the forward and dx of a bf16 model) within one
 bf16 ulp per element, since both sides round the same f32 sums (summed
 in another order) once; f32 outputs, dW and db within 1e-5 of their
 largest magnitude (f32 sums of bf16-exact products in another order).
+The f32 forward's kernel takes f32 weights as three bf16 parts: its
+plain emulation (``stem_conv_fwd_split``) is held to the same 1e-5
+against JAX, and to ``STEM_F32_MEAN_TOL`` (mean error over mean value)
+against the function in f64, which a two-part split fails by 5x.
 """
 
 import jax
@@ -77,7 +81,11 @@ def test_plain_matches_conv3x3_wide(B, H, W, C, Cout, G, dtype):
     yt.backward(torch.from_numpy(g.transpose(0, 3, 1, 2).copy()).to(tdt))
     assert wt.grad.dtype == torch.float32
 
-    for name, want, got in (("y", y, yt), ("dx", dx, xt.grad)):
+    outs = [("y", y, yt), ("dx", dx, xt.grad)]
+    if dtype == "float32":
+        # the f32 forward kernel's arithmetic: three bf16 parts of w
+        outs.append(("y, three parts", y, sc.stem_conv_fwd_split(xt, wt, bt, G, 3)))
+    for name, want, got in outs:
         want = np.asarray(want).transpose(0, 3, 1, 2)
         if dtype == "bfloat16":
             ulps = np.abs(_ordered(want) - _ordered(got.detach().float().numpy()))
@@ -89,6 +97,27 @@ def test_plain_matches_conv3x3_wide(B, H, W, C, Cout, G, dtype):
                             ("db", np.asarray(db), bt.grad)):
         err = np.abs(want - got.numpy()).max()
         assert err <= 1e-5 * np.abs(want).max(), (name, err)
+
+
+@pytest.mark.parametrize("B,Cin,Cout,G,H,W", [
+    (2, 8, 16, 2, 33, 65),
+    (2, 64, 64, 4, 33, 65),   # conv1_2's channels
+    (2, 12, 64, 4, 33, 65),   # conv1_1's
+])
+def test_three_part_split_keeps_the_f32_contract(B, Cin, Cout, G, H, W):
+    rng = np.random.default_rng(Cin * 7 + Cout)
+    x = torch.from_numpy(rng.uniform(0, 1, (B, Cin, H, W)).astype(np.float32))
+    w = torch.from_numpy((rng.normal(0, 1, (Cout, Cin // G, 3, 3))
+                          / np.sqrt(9 * Cin / G)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(0, 0.5, (Cout,)).astype(np.float32))
+    hi, mid, lo = sc.split_bf16(w, 3)
+    assert all(p.dtype == torch.bfloat16 for p in (hi, mid, lo))
+    assert torch.equal(hi.float() + mid.float() + lo.float(), w)  # exact
+    y64 = sc.stem_conv_fwd_f64(x, w, b, G)
+    three = sc.f32_mean_err(sc.stem_conv_fwd_split(x, w, b, G, 3), y64)
+    two = sc.f32_mean_err(sc.stem_conv_fwd_split(x, w, b, G, 2), y64)
+    assert three <= sc.STEM_F32_MEAN_TOL, three
+    assert two >= 5 * sc.STEM_F32_MEAN_TOL, two
 
 
 def test_plain_backward_skips_dx():

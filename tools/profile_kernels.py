@@ -3,10 +3,11 @@
 launches, at the shapes chip_smoke.py holds them to, from a
 torch.profiler trace on one card.
 
-    python3 tools/profile_kernels.py [--iters 10]
+    python3 tools/profile_kernels.py [--iters 10] [--only stem_conv]
 
-Boundaries: stem_conv_bwd at PixelLink++'s conv1_1 and conv1_2 (batch 16,
-300x300, bf16), deform_conv_fwd and deform_conv_bwd at the GSSD++
+Boundaries: stem_conv_fwd and stem_conv_bwd at PixelLink++'s conv1_1 and
+conv1_2 (batch 16, 300x300, bf16; the forward: the weights' packing, the
+conv), deform_conv_fwd and deform_conv_bwd at the GSSD++
 training site (batch 32, 38x38) and at 75x75 (batch 16), flash_attn_bwd at N = M = 5625 (batch
 16), the separable sampler's fwd, dx and dA/dB at the 38x38 site (batch
 32; the range pass, the sample kernel; the range pass, dx; the range
@@ -41,6 +42,9 @@ def cases(cs):
         x = torch.rand(cs.PL_BATCH, cin, 300, 300, device="cuda", generator=g).bfloat16()
         w = torch.randn(cout, cin // 4, 3, 3, device="cuda", generator=g) / math.sqrt(9 * cin / 4)
         gout = torch.randn(cs.PL_BATCH, cout, 300, 300, device="cuda", generator=g).bfloat16()
+        b = torch.randn(cout, device="cuda", generator=g)
+        yield (f"stem_conv_fwd {name}",
+               lambda x=x, w=w.bfloat16(), b=b: sc.stem_conv_fwd(x, w, b, 4))
         yield (f"stem_conv_bwd {name}",
                lambda x=x, w=w, gout=gout, dx=name != "conv1_1": sc.stem_conv_bwd(x, w, gout, 4, dx))
     x, py, px, m, wg, bias = cs.dcn_inputs(cs.TRAIN_BATCH)
@@ -70,12 +74,33 @@ def cases(cs):
     yield "deform_sample_dab 75x75 B=16", lambda: ds.abx_dab(x75, g75, a75, b75)
 
 
+def device_ms(fn, iters):
+    """{kernel or op name: mean device ms a call of ``fn``} from a
+    torch.profiler trace of ``iters`` calls after 3 warm-up calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = {}
+    for e in prof.key_averages():
+        ms = e.self_device_time_total / 1e3 / iters
+        if ms > 0:
+            kernels[e.key[:120]] = round(ms, 4)
+    return kernels
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--only", default="", help="profile the boundaries whose label has this")
     args = ap.parse_args()
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         print("FAIL: needs a CUDA card", file=sys.stderr)
@@ -89,18 +114,9 @@ def main() -> int:
     print(smi, flush=True)
     build(KERNELS.values())
     for label, fn in cases(cs):
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(args.iters):
-                fn()
-            torch.cuda.synchronize()
-        kernels = {}
-        for e in prof.key_averages():
-            ms = e.self_device_time_total / 1e3 / args.iters
-            if ms > 0:
-                kernels[e.key[:120]] = round(ms, 4)
+        if args.only not in label:
+            continue
+        kernels = device_ms(fn, args.iters)
         total = sum(kernels.values())
         print(json.dumps({"boundary": label, "device_ms": round(total, 4),
                           "kernels_ms": dict(sorted(kernels.items(), key=lambda kv: -kv[1])),
