@@ -113,7 +113,23 @@ In order, failing (exit code 1) at the first phase that goes wrong:
    pallas`` for 3 steps: the separable sampler at the 75x75 DCN site,
    exactly 2 + 2 stem, 8 + 8 + 8 attention and 9 + 9 + 9 deform_sample
    launches per step and no hat DCN launch, finite losses, the median
-   ms/step printed.
+   ms/step printed;
+20. the training input paths: the ``hat`` trainer at batch 32 for
+   INPUT_ITERS steps on the host path (one thread), ``--num_workers 4``,
+   ``--aug_method device`` and ``--aug_method device_cached``, each with a
+   ``--profile_dir`` trace of steps INPUT_TRACE: exactly 12 + 12
+   attention and 1 + 1 hat DCN launches a step, finite losses; prints per
+   path the median input wait, step ms, wall ms an iteration, slices/s on
+   the wall clock and the device idle share of the traced steps (one
+   minus the union of the kernel intervals over their span), with the
+   traced step's kernels, their time by origin (the port's, NVIDIA's
+   libraries, PyTorch's), launch calls and casts; exact
+   resume with ``--aug_method device_cached`` and ``--num_workers 2``
+   (RESUME_ITERS steps with a checkpoint at RESUME_AT, then ``--resume``:
+   the resumed batches the same bits as the uninterrupted run's, the
+   losses side by side); the cache's device warp at batch 32 against the
+   same warp on the CPU in f64 within WARP_TOL, a TF32 warp above it; and
+   the prefetch's host wait with f32 and with bf16 images on the wire.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or outside a
@@ -1952,6 +1968,294 @@ def deterministic_step_check(data):
     return res
 
 
+# ---- the training input paths on the card ----
+
+# steps of each input path's run, and the iterations its --profile_dir
+# trace covers (steps 5-11: past the first steps' allocations and builds)
+INPUT_ITERS = 12
+INPUT_TRACE = (5, 12)
+INPUT_PATHS = {"host": [], "workers": ["--num_workers", "4"],
+               "device": ["--aug_method", "device"],
+               "device_cached": ["--aug_method", "device_cached"]}
+# the device warp (f32 products) against the same warp in f64, images in
+# [0, 1]: f32 sums of <= 512 terms read ~1e-7; a TF32 product (10-bit
+# mantissa) ~1e-4..1e-3, which must read above it
+WARP_TOL = 1e-5
+# the exact-resume runs: steps, and the iteration of the checkpoint
+RESUME_ITERS, RESUME_AT = 6, 3
+# batches of the wire-dtype reading, and the device time a simulated step
+# holds the card (cycles of torch.cuda._sleep at ~1.8 GHz: ~190 ms, a
+# GSSD++ step at batch 32)
+WIRE_BATCHES, WIRE_STEP_CYCLES = 12, 340_000_000
+
+
+@contextlib.contextmanager
+def profile_window(window):
+    """The trainer's --profile_dir window set in-process for the block."""
+    from gssd_torch.train import trainer
+
+    saved = trainer.PROFILE_WINDOW
+    trainer.PROFILE_WINDOW = window
+    try:
+        yield
+    finally:
+        trainer.PROFILE_WINDOW = saved
+
+
+# kernels by origin in a step's trace: the port's own (the __global__
+# functions of gssd_torch/csrc), NVIDIA's libraries, PyTorch's own
+LIBRARY_KERNELS = ("cudnn", "cutlass", "xmma", "gemm", "gemv", "nvjet", "cublas")
+
+
+def port_kernel_names():
+    import glob
+    import re
+
+    names = set()
+    for src in glob.glob(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                      "gssd_torch", "csrc", "*.cu*")):
+        with open(src) as f:
+            names |= set(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
+                                    r"(\w+)\s*\(", f.read()))
+    check(len(names) >= 9, f"found only {sorted(names)} in gssd_torch/csrc")
+    return names
+
+
+def read_trace(path, port_names):
+    """From a --profile_dir trace (Chrome JSON): the span of its
+    "train_iteration" ranges on the host clock and one minus the union of
+    the kernel intervals inside it over that span (the device idle
+    share); per iteration the kernels, their ms by origin (the port's,
+    NVIDIA's libraries, PyTorch's at::native, other), the host's kernel
+    launch calls and its casts (aten::to)."""
+    import re
+
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    iters = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("name") == "train_iteration" and e.get("cat") == "user_annotation"]
+    check(iters, f"{path}: no train_iteration range in the trace")
+    lo, hi = min(a for a, _ in iters), max(b for _, b in iters)
+    kernels = [e for e in events if e.get("cat") == "kernel" and e.get("ph") == "X"]
+    spans = sorted((max(e["ts"], lo), min(e["ts"] + e["dur"], hi)) for e in kernels)
+    busy, end = 0.0, lo
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    check(busy > 0, f"{path}: no kernel inside the traced iterations")
+    port = re.compile(r"\b(" + "|".join(sorted(port_names)) + r")\b")
+    by_origin = dict.fromkeys(("port", "library", "pytorch", "other"), 0.0)
+    for e in kernels:
+        name = e["name"]
+        origin = ("port" if port.search(name) else
+                  "library" if any(k in name.lower() for k in LIBRARY_KERNELS) else
+                  "pytorch" if "at::native" in name or "at_cuda_detail" in name else "other")
+        by_origin[origin] += e["dur"]
+    n = len(iters)
+    total = sum(by_origin.values())
+    return {"iterations": n, "window_ms": (hi - lo) / 1e3, "kernel_ms": busy / 1e3,
+            "idle_share": 1.0 - busy / (hi - lo),
+            "kernels_per_iteration": len(kernels) / n,
+            "kernel_ms_per_iteration": total / 1e3 / n,
+            "kernel_share_by_origin": {k: v / total for k, v in by_origin.items()},
+            "launch_calls_per_iteration": sum(1 for e in events if e.get("cat") == "cuda_runtime"
+                                              and "Launch" in e.get("name", "")) / n,
+            "casts_per_iteration": sum(1 for e in events if e.get("cat") == "cpu_op"
+                                       and e.get("name") == "aten::to") / n}
+
+
+def input_paths(tmp):
+    """The hat GSSD++ trainer at batch 32, INPUT_ITERS steps through each
+    of INPUT_PATHS, with a --profile_dir trace of INPUT_TRACE: exactly
+    ROUTE_LAUNCHES["hat"] a step, finite losses; per path the median
+    input wait, step and wall ms (wait + step) after the first step,
+    slices/s on the wall clock and the device idle share of the trace."""
+    import statistics
+
+    from gssd_torch import train as trainer
+
+    out, port_names = {}, port_kernel_names()
+    for name, extra in INPUT_PATHS.items():
+        _reset_launches()
+        trace_dir = os.path.join(tmp, f"trace_{name}")
+        with profile_window(INPUT_TRACE):
+            res = trainer.main(train_argv(tmp, "hat", TRAIN_BATCH, INPUT_ITERS, f"input_{name}")
+                               + extra + ["--profile_dir", trace_dir])
+        launches = _launches()
+        want = {k: ROUTE_LAUNCHES["hat"].get(k, 0) * INPUT_ITERS for k in launches}
+        check(launches == want, f"input path {name}: launches {launches}, expected {want}")
+        recs = res["records"]
+        losses = [r["loss"] for r in recs]
+        check(len(losses) == INPUT_ITERS and all(math.isfinite(v) for v in losses),
+              f"input path {name}: non-finite or missing losses {losses}")
+        check(len(res["traces"]) == 1, f"input path {name}: traces {res['traces']}")
+        steady = recs[1:]
+        wall = [r["wait_ms"] + r["ms"] for r in steady]
+        out[name] = dict(
+            flags=extra, steps=INPUT_ITERS,
+            median_input_wait_ms=statistics.median(r["wait_ms"] for r in steady),
+            median_ms_per_step=statistics.median(r["ms"] for r in steady),
+            median_wall_ms_per_iteration=statistics.median(wall),
+            slices_per_s=TRAIN_BATCH * len(wall) / sum(wall) * 1e3,
+            trace=read_trace(res["traces"][0], port_names),
+            input_wait_ms=[r["wait_ms"] for r in recs], ms_per_step=[r["ms"] for r in recs],
+            losses=losses)
+        p, tr = out[name], out[name]["trace"]
+        print(f"input path {name} {extra}: median input_wait {p['median_input_wait_ms']:.2f} "
+              f"ms, step {p['median_ms_per_step']:.2f} ms, wall "
+              f"{p['median_wall_ms_per_iteration']:.2f} ms/iteration, {p['slices_per_s']:.1f} "
+              f"slices/s; device idle {tr['idle_share']:.3f} of steps {INPUT_TRACE[0]}-"
+              f"{INPUT_TRACE[1] - 1} ({tr['kernel_ms']:.1f} of {tr['window_ms']:.1f} ms); a "
+              f"step {tr['kernels_per_iteration']:.0f} kernels, "
+              f"{tr['kernel_ms_per_iteration']:.1f} kernel ms by origin "
+              + ", ".join(f"{k} {v:.3f}" for k, v in tr["kernel_share_by_origin"].items())
+              + f"; {tr['launch_calls_per_iteration']:.0f} launch calls, "
+              f"{tr['casts_per_iteration']:.0f} casts", flush=True)
+    return out
+
+
+@contextlib.contextmanager
+def recorded_steps(seen):
+    """gssd_torch.train.steps.train_step wrapped in-process for the block:
+    each step's batch is kept (a copy on the card) in ``seen``."""
+    from gssd_torch.train import steps
+
+    real = steps.train_step
+
+    def recording(model, opt, priors, batch, *a):
+        seen.append({k: v.clone() for k, v in batch.items()})
+        return real(model, opt, priors, batch, *a)
+
+    steps.train_step = recording
+    try:
+        yield
+    finally:
+        steps.train_step = real
+
+
+def exact_resume(tmp):
+    """With --aug_method device_cached and with --num_workers 2: RESUME_ITERS
+    steps with a checkpoint at iteration RESUME_AT, then --resume
+    RESUME_AT; the resumed run's batches (image bits, boxes, valid) must
+    equal the uninterrupted run's from that iteration on."""
+    import torch
+
+    from gssd_torch import train as trainer
+
+    out = {}
+    for name, extra in (("device_cached", ["--aug_method", "device_cached"]),
+                        ("workers", ["--num_workers", "2"])):
+        argv = train_argv(tmp, "hat", TRAIN_BATCH, RESUME_ITERS, f"resume_{name}") + extra
+        first, second = [], []
+        with recorded_steps(first):
+            run = trainer.main(argv + ["--val_every", str(RESUME_AT), "--speedrun",
+                                       str(RESUME_AT)])
+        with recorded_steps(second):
+            resumed = trainer.main(argv + ["--resume", str(RESUME_AT)])
+        check(len(first) == RESUME_ITERS and len(second) == RESUME_ITERS - RESUME_AT,
+              f"resume {name}: {len(first)} and {len(second)} steps")
+        same = [all(torch.equal(a[k], b[k]) for k in ("image", "boxes", "valid"))
+                for a, b in zip(first[RESUME_AT:], second)]
+        losses = ([r["loss"] for r in run["records"][RESUME_AT:]],
+                  [r["loss"] for r in resumed["records"]])
+        print(f"exact resume ({name}) at iteration {RESUME_AT}: batches "
+              f"{list(range(RESUME_AT, RESUME_ITERS))} the same bits {same}; losses "
+              f"uninterrupted {losses[0]}, resumed {losses[1]}", flush=True)
+        check(all(same), f"resume {name}: the resumed batches differ from the "
+                         f"uninterrupted run's: {same}")
+        out[name] = {"same_batches": same, "losses_uninterrupted": losses[0],
+                     "losses_resumed": losses[1]}
+        del first, second
+    return out
+
+
+def warp_check(data):
+    """The device cache's gather-warp on the card at batch 32 (512 -> 300,
+    12 channels) against the same warp on the CPU in f64, from one cache
+    and one geometry: max abs error within WARP_TOL; the same call with
+    TF32 products (allow_tf32 on for that call only) must read above it.
+    Times the warp (CUDA events) and the host geometry of 32 items."""
+    import numpy as np
+    import torch
+
+    from gssd_torch.data import DataSplitter, DeviceCacheLoader, LesionDataset
+    from gssd_torch.data.augment_device import hat_matrices, warp
+
+    ids = DataSplitter(data, 1, 4).data_cv_train[0]
+    loader = DeviceCacheLoader(LesionDataset(data, ids), TRAIN_BATCH, seed=SEED)
+    check(loader.cache.is_cuda, f"the device cache lives on {loader.cache.device}")
+    idx = np.asarray(loader._perm.indices_for_batch(0, TRAIN_BATCH), np.int64)
+    g = loader._geom
+    g.rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
+    geom, _ = g.sample_batch([loader._boxes[i] for i in idx], [loader._labels[i] for i in idx])
+    geometry_ms = (time.perf_counter() - t0) * 1e3
+    args = (torch.from_numpy(idx).cuda(), *geom.to("cuda"))
+
+    def gathered():
+        return loader._gather_warp(*args)
+
+    got = gathered()
+    mat_y, mat_x = hat_matrices(args[1], args[2], args[3], g.size, loader.src_size)
+    ref = warp(loader.cache[args[0]].cpu(), mat_y.cpu(), mat_x.cpu(), args[4].cpu(),
+               args[5].cpu(), g.mean, g.use_normalize, dtype=torch.float64)
+    err = (got.cpu().double() - ref).abs().max().item()
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        planted = (gathered().cpu().double() - ref).abs().max().item()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    ms = time_ms(gathered)
+    ops = 2 * TRAIN_BATCH * g.size * loader.src_size * (loader.src_size * 12 + g.size * 12)
+    bound_ms = ops / PEAK_F32_OPS * 1e3
+    print(f"device warp (batch {TRAIN_BATCH}, {loader.src_size} -> {g.size}): max |f32 card - "
+          f"f64 cpu| {err:.3g} (limit {WARP_TOL}); TF32 planted {planted:.3g}; {ms:.3f} ms a "
+          f"batch on the card ({ops / 1e9:.1f} GFLOP f32, bound {bound_ms:.3f} ms), "
+          f"host geometry {geometry_ms:.2f} ms", flush=True)
+    check(err <= WARP_TOL, f"device warp: {err} > {WARP_TOL} against f64")
+    check(planted > WARP_TOL, f"device warp: a TF32 warp reads {planted} <= {WARP_TOL}")
+    return {"max_abs_err": err, "tf32_planted": planted, "limit": WARP_TOL, "ms": ms,
+            "gflop": ops / 1e9, "bound_ms": bound_ms, "geometry_ms": geometry_ms,
+            "cache_mib": loader.cache.nbytes / 2**20, "slices": len(ids)}
+
+
+def wire_dtype_wait(data):
+    """The host wait of ``device_prefetch`` with f32 and with bf16 images
+    on the wire, on WIRE_BATCHES collated batch-32 batches already in host
+    memory (the loader out of the way), each taken while a simulated
+    ~190 ms step holds the card, as the trainer takes them: median ms
+    blocked on next()."""
+    import statistics
+
+    import torch
+
+    from gssd_torch.data import (DataSplitter, LesionDataset, SSDAugmentation, collate,
+                                 device_prefetch)
+
+    ids = DataSplitter(data, 1, 4).data_cv_train[0]
+    ds = LesionDataset(data, ids, transform=SSDAugmentation(seed=SEED), load_to_ram=True)
+    batches = [collate([ds[(b * TRAIN_BATCH + i) % len(ds)] for i in range(TRAIN_BATCH)])
+               for b in range(3)]
+    out = {}
+    for label, cast in (("f32", None), ("bf16", {"image": torch.bfloat16}),
+                        ("f32 again", None), ("bf16 again", {"image": torch.bfloat16})):
+        it = device_prefetch((batches[n % 3] for n in range(WIRE_BATCHES)), "cuda", cast=cast)
+        waits = []
+        for _ in range(WIRE_BATCHES):
+            t0 = time.perf_counter()
+            b = next(it)
+            waits.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda._sleep(WIRE_STEP_CYCLES)
+            b["image"].float().sum()
+            torch.cuda.synchronize()
+        out[label] = statistics.median(waits[2:])
+    print(f"device_prefetch wait at batch {TRAIN_BATCH} (median ms on next()): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in out.items()), flush=True)
+    return out
+
+
 def _kernel_numbers(site):
     return {k: site[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms")}
@@ -2022,6 +2326,12 @@ def main() -> int:
             repeat_calls = repeat_kernels()
             det_step = deterministic_step_check(train_data)
             pl_pallas = pixellink_pallas(tmp, train_data)
+            t_in = time.perf_counter()
+            inputs = input_paths(tmp)
+            resumes = exact_resume(tmp)
+            warp_res = warp_check(train_data)
+            wire = wire_dtype_wait(train_data)
+            inputs_s = time.perf_counter() - t_in
         dcn_grad_cos = dcn_grads()
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
@@ -2177,6 +2487,11 @@ def main() -> int:
         for impl, (lc, res, _) in routes.items()},
         "pallas_serving": {"batch": BATCH, "latency_ms_per_image": pallas_lat},
         "harness": harness, "dcn_grad_cosines": dcn_grad_cos, "power": smi}))
+    print(json.dumps({"input_paths": {"batch": TRAIN_BATCH, "paths": inputs,
+                                      "trace_steps": list(INPUT_TRACE), "exact_resume": resumes,
+                                      "warp": warp_res, "wire_wait_ms": wire,
+                                      "nproc": os.cpu_count(), "seconds": inputs_s,
+                                      "power": smi}}))
     print(json.dumps({"repeatability": {"bit_equal_calls": repeat_calls,
                                         "deterministic_step": det_step, "batch": DET_BATCH,
                                         "power": smi}}))

@@ -3,5 +3,8 @@ from gssd_torch.data.dataset import LesionDataset  # noqa: F401
 from gssd_torch.data.transforms import BaseTransform  # noqa: F401
 from gssd_torch.data.synthetic import make_synthetic_dataset  # noqa: F401
 from gssd_torch.data.dataset import (  # noqa: F401
-    BatchLoader, collate, collate_pixellink, pad_targets)
+    BatchLoader, MPBatchLoader, collate, collate_pixellink, collate_raw, device_prefetch,
+    pad_targets)
 from gssd_torch.data.augment import SSDAugmentation  # noqa: F401
+from gssd_torch.data.augment_device import DeviceAugmentation  # noqa: F401
+from gssd_torch.data.device_cache import DeviceCacheLoader  # noqa: F401

@@ -1,32 +1,43 @@
 """Trainer CLI of the port: ``python -m gssd_torch.train``.
 
-One fold of the JAX package's ``train.py``, with its flag names: host
-augmentation, SGD with the published LR steps (x0.1 on dcn_* with
-``--modify_dcn_lr``) and, every ``--val_every`` iterations from
-``--speedrun`` on (and at the last iteration), the validation loss, the
-AP/IoBB evaluation of the validation and test sets and a checkpoint
+One fold of the JAX package's ``train.py``, with its flag names: the
+training input path of ``--aug_method`` and ``--num_workers``, SGD with
+the published LR steps (x0.1 on dcn_* with ``--modify_dcn_lr``) and,
+every ``--val_every`` iterations from ``--speedrun`` on (and at the last
+iteration), the validation loss, the AP/IoBB evaluation of the
+validation and test sets and a checkpoint
 ``<output>/checkpoints/<model_name>/<model_name>_<iter>_CV0.pt`` (step,
 model state, optimizer momenta; ``python -m gssd_torch.infer --weights``
 reads it too). ``--resume N`` restores checkpoint N and continues from
 iteration N at the stored step's LR; ``--test True --checkpoint N``
 evaluates checkpoint N on the test set. Each iteration prints loss,
-loss_l, loss_c, lr and ms/step (the step from the batch on the device to
+loss_l, loss_c, lr, ms/step (the step from the batch on the device to
 the updated weights, synchronised) and the time spent waiting for the
 batch. Logs go to ``<output>/logs/<model_name>/`` (tab-separated text;
 TensorBoard too where it imports).
+
+Input paths (fold 0): ``--aug_method host`` augments on the host, in one
+thread or, with ``--num_workers > 1``, in forked worker processes whose
+stream is a function of (seed, batch index); ``device`` loads the raw
+slices the same ways and augments them on the card; ``device_cached``
+keeps the training split on the card and ships only each batch's
+indices and scalars. Every path reaches the step through
+``device_prefetch`` (pinned buffers, a side stream, two batches in
+flight). ``--profile_dir`` writes a ``torch.profiler`` trace of
+iterations start+20 to start+30; ``--warmup_eval`` builds the CUDA
+kernels and runs the evaluation once at startup.
 
 ``prepare`` (device, data split, logs) and ``run`` (the loop,
 evaluation, checkpoints, resume, test mode) are shared with the
 PixelLink++ trainer, ``gssd_torch.train_pixellink``.
 
 Runs on the GPU (``--device cuda``, the default) and refuses to start
-without one unless ``--device cpu`` is given. Cross-validation folds,
-the multi-process loader, device augmentation and ``--visualize`` are
-not ported yet (ROADMAP.md) and raise.
+without one unless ``--device cpu`` is given. Cross-validation folds and
+``--visualize`` are not ported yet (ROADMAP.md) and raise.
 
 Example (GSSD++ on synthetic data):
   python -m gssd_torch.train --reference_recipe gssd++ --synthetic True \
-      --batch_size 32 --max_iter 100 --output runs/gssd_pp
+      --batch_size 32 --max_iter 100 --aug_method device_cached --output runs/gssd_pp
 """
 
 from __future__ import annotations
@@ -62,7 +73,10 @@ def build_parser():
     p.add_argument("--expand_ratio", default=1.5, type=float)
     p.add_argument("--max_gt", default=16, type=int)
     p.add_argument("--aug_method", default="host",
-                   choices=["host", "vanilla", "device", "device_cached"])
+                   choices=["host", "vanilla", "device", "device_cached"],
+                   help="'host'/'vanilla': the numpy pipeline; 'device': the raw slices "
+                        "augmented on the card; 'device_cached': the training split held on "
+                        "the card, augmented there (caps at GSSD_DEVICE_CACHE_GB)")
     # model
     p.add_argument("--ssd_type", default="gssd", choices=["gssd", "ssd"])
     p.add_argument("--ssd_dim", default=300, type=int)
@@ -107,14 +121,17 @@ def build_parser():
     p.add_argument("--num_test_subjects", default=10, type=int)
     p.add_argument("--start_iter", default=0, type=int)
     p.add_argument("--resume", default=None, type=int,
-                   help="iteration to resume from (its checkpoint); the "
-                        "batch stream restarts from its first batch")
+                   help="iteration to resume from. Exact resume of the data-stream order "
+                        "additionally needs --num_workers > 1 (host augmentation) or --aug_method "
+                        "device_cached (their stream is a function of the batch index; the "
+                        "thread loader restarts its stream from batch 0)")
     p.add_argument("--seed", default=1111, type=int)
     p.add_argument("--output", default="output", type=str)
     p.add_argument("--model_name", default="gssd", type=str)
     p.add_argument("--log_iters", default=True, type=str2bool)
     p.add_argument("--profile_dir", default=None, type=str,
-                   help="a trace of steps 20-30 into this directory (not ported yet: refused)")
+                   help="write a torch.profiler trace (CPU and CUDA) of iterations 20-30 "
+                        "after the start into this directory (Chrome trace JSON)")
     # eval
     p.add_argument("--test", default=False, type=str2bool)
     p.add_argument("--checkpoint", default=None, type=int)
@@ -124,7 +141,8 @@ def build_parser():
     p.add_argument("--iobb_list", default="0.3,0.5,0.7", type=str)
     p.add_argument("--visualize", default=False, type=str2bool)
     p.add_argument("--warmup_eval", default=False, type=str2bool,
-                   help="prepare the evaluation at startup (not ported yet: refused)")
+                   help="build the CUDA kernels and run the evaluation step and the "
+                        "inference forward once at startup")
     p.add_argument("--eval_batch", default=16, type=int,
                    help="inference batch of the AP/IoBB evaluation")
     p.add_argument("--reference_recipe", default=None, choices=["gssd", "gssd++"],
@@ -145,20 +163,17 @@ def parse_args(argv=None):
     return args
 
 
-def _refuse(args) -> None:
-    todo = {
-        "--cross_validation > 1": args.cross_validation > 1,
-        "--aug_method device*": getattr(args, "aug_method", "host").startswith("device"),
-        "--num_workers > 1 (the multi-process loader)": args.num_workers > 1,
-        "--visualize": args.visualize,
-        "--profile_dir": args.profile_dir is not None,
-        "--warmup_eval": args.warmup_eval,
-    }
+def _refuse(args, unported=()) -> None:
+    """Raise for what the port does not do: k-fold, --visualize, and the
+    flags a trainer names in ``unported``."""
+    todo = {"--cross_validation > 1": args.cross_validation > 1,
+            "--visualize": args.visualize,
+            **{f"--{name}": bool(getattr(args, name)) for name in unported}}
     asked = [name for name, on in todo.items() if on]
     if asked:
         raise NotImplementedError(
-            f"{', '.join(asked)}: not ported to gssd_torch yet (see ROADMAP.md, "
-            "Queue A); use the JAX trainer")
+            f"{', '.join(asked)}: not supported by this gssd_torch trainer (see "
+            "ROADMAP.md)")
     if args.test and args.checkpoint is None:
         raise ValueError("--test requires --checkpoint")
 
@@ -200,11 +215,12 @@ class Setup:
     iobb_list: List[float]
 
 
-def prepare(args) -> Setup:
-    """Refuse what is not ported, resolve the device (no card, no run
-    unless --device cpu), generate the synthetic set if asked, open the
-    logs and split the data (one fold)."""
-    _refuse(args)
+def prepare(args, unported=()) -> Setup:
+    """Refuse what is not ported (and the flags named in ``unported``),
+    resolve the device (no card, no run unless --device cpu), generate
+    the synthetic set if asked, open the logs and split the data (one
+    fold)."""
+    _refuse(args, unported)
     device = resolve_device(args.device)
     from gssd_torch.data import (BaseTransform, DataSplitter, LesionDataset,
                                  make_synthetic_dataset)
@@ -226,6 +242,82 @@ def prepare(args) -> Setup:
                  _floats(args.ap_list), _floats(args.iobb_list))
 
 
+# the iterations (counted from the first of the run) that --profile_dir
+# traces: from the first, up to but not including the second, or through
+# the last iteration of the run
+PROFILE_WINDOW = (20, 30)
+
+
+def train_batches(args, setup: Setup, train_tf, collate_fn: Callable):
+    """The training batch stream of fold 0 for ``--aug_method`` and
+    ``--num_workers``, each batch's tensors on the device ->
+    (iterator, the loaders to close, a line naming the path).
+
+    The multi-process loader and the device cache start at batch
+    ``--resume`` (or ``--start_iter``), so a resumed run sees the batches
+    the uninterrupted one would have; the thread loader restarts its
+    stream. Host images travel to the card in the model's compute dtype
+    (the model's first op casts to it, so the bits are the same)."""
+    from gssd_torch.data import (BatchLoader, DeviceAugmentation, DeviceCacheLoader,
+                                 LesionDataset, MPBatchLoader, collate_raw, device_prefetch)
+
+    device, ids = setup.device, setup.splitter.data_cv_train[0]
+    start = args.resume or getattr(args, "start_iter", 0) or 0
+    aug_method = getattr(args, "aug_method", "host")
+    if aug_method == "device_cached":
+        cached = DeviceCacheLoader(
+            LesionDataset(args.datapath, ids), args.batch_size, size=args.ssd_dim,
+            max_gt=args.max_gt, seed=args.seed, pixeljitter=args.gt_pixel_jitter,
+            ratio=args.expand_ratio, mean=args.means, use_normalize=args.use_normalize,
+            start_batch=start, device=device)
+        return (device_prefetch(cached, device), [],
+                f"device_cached: {len(ids)} slices, {cached.cache.nbytes / 2**20:.1f} MiB "
+                f"uint8 on {cached.cache.device}, from batch {start}")
+    on_device = aug_method == "device"
+    dataset = LesionDataset(args.datapath, ids, transform=None if on_device else train_tf,
+                            load_to_ram=args.load_data_to_ram)
+    collate_fn = collate_raw if on_device else collate_fn
+    if args.num_workers > 1:
+        loader = MPBatchLoader(dataset, args.batch_size, args.max_gt, seed=args.seed,
+                               collate_fn=collate_fn, num_workers=args.num_workers,
+                               start_batch=start)
+        how = f"{args.num_workers} worker processes, from batch {start}"
+    else:
+        loader = BatchLoader(dataset, args.batch_size, args.max_gt, seed=args.seed,
+                             collate_fn=collate_fn)
+        how = "one thread, from the stream's first batch"
+    cast = {"image": torch.bfloat16} if args.compute_dtype == "bfloat16" else None
+    batches = device_prefetch(loader, device, cast=cast)
+    if on_device:
+        aug = DeviceAugmentation(
+            size=args.ssd_dim, src_size=dataset.pull_image(0).shape[1],
+            pixeljitter=args.gt_pixel_jitter, ratio=args.expand_ratio, mean=args.means,
+            use_normalize=args.use_normalize, seed=args.seed, max_gt=args.max_gt,
+            device=device)
+        batches = (aug(b["raw_image"], b["boxes_list"], b["labels_list"]) for b in batches)
+    return batches, [loader], f"{aug_method}: {how}"
+
+
+def _profile_start(device):
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def _profile_stop(prof, directory: str, first: int, last: int) -> str:
+    prof.stop()
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, f"trace_iter{first}-{last}.json")
+    prof.export_chrome_trace(path)
+    print(f"profiler trace of iterations {first}-{last} written to {path}", flush=True)
+    return path
+
+
 def run(args, setup: Setup, model, optimizer, train_fn: Callable, valid_fn: Callable,
         evaluate: Callable, train_tf, valid_tf, collate_fn: Callable,
         parts: Tuple[Tuple[str, str], ...]) -> Dict[str, Any]:
@@ -237,7 +329,9 @@ def run(args, setup: Setup, model, optimizer, train_fn: Callable, valid_fn: Call
     losses; ``evaluate(dataset, tag, iteration)`` the AP/IoBB dict, logged;
     ``train_tf`` and ``valid_tf`` are the transforms of the training and
     validation-loss loaders, ``collate_fn`` stacks their items; ``parts``
-    names the loss parts to print as (label, key)."""
+    names the loss parts to print as (label, key). ``wait_ms`` of a
+    record is the host time blocked on the next batch, ``ms`` the step
+    after it, synchronised."""
     from gssd_torch.data import BatchLoader, LesionDataset
     from gssd_torch.train.checkpoint import (checkpoint_path, load_weights_partial,
                                              restore_checkpoint, save_checkpoint)
@@ -258,59 +352,71 @@ def run(args, setup: Setup, model, optimizer, train_fn: Callable, valid_fn: Call
         start_iter = args.resume
         print(f"resumed from iteration {args.resume} (step {step})")
 
-    train_set = LesionDataset(args.datapath, setup.splitter.data_cv_train[0], transform=train_tf,
-                              load_to_ram=args.load_data_to_ram)
-    loaders = [BatchLoader(train_set, args.batch_size, args.max_gt, seed=args.seed,
-                           collate_fn=collate_fn),
-               BatchLoader(LesionDataset(args.datapath, setup.splitter.data_cv_eval[0],
-                                         transform=valid_tf),
-                           args.batch_size, args.max_gt, seed=args.seed + 100,
-                           collate_fn=collate_fn)]
-    loader, valid_loader = map(iter, loaders)
+    batches, loaders, path = train_batches(args, setup, train_tf, collate_fn)
+    print(f"input: {path}", flush=True)
+    loaders.append(BatchLoader(LesionDataset(args.datapath, setup.splitter.data_cv_eval[0],
+                                             transform=valid_tf),
+                               args.batch_size, args.max_gt, seed=args.seed + 100,
+                               collate_fn=collate_fn))
+    valid_loader = iter(loaders[-1])
 
     def split(rec):
         return " ".join(f"{label}={rec[key]:.4f}" for label, key in parts)
 
-    records, valid, evals = [], [], []
+    def iteration(it):
+        nonlocal step
+        t0 = time.perf_counter()
+        batch = next(batches)
+        t1 = time.perf_counter()
+        m = train_fn(batch, step)
+        step += 1
+        rec = {"iter": it, **{k: (v if isinstance(v, float) else float(v.item()))
+                              for k, v in m.items()}}
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        rec["ms"] = (time.perf_counter() - t1) * 1e3
+        rec["wait_ms"] = (t1 - t0) * 1e3
+        records.append(rec)
+        print(f"iter {it}: loss={rec['loss']:.4f} ({split(rec)}) lr={rec['lr']:.2e} "
+              f"{rec['ms']:.1f} ms/step input_wait={rec['wait_ms']:.1f} ms", flush=True)
+        if getattr(args, "log_iters", True) and it % 10 == 0:
+            keys = ("loss", *(key for _, key in parts), "lr", "grad_norm")
+            logger.log_scalars("loss", it, {k: rec[k] for k in keys})
+
+        last = it == args.max_iter - 1
+        if ((it % args.val_every == 0 and it > start_iter) or last) and it >= args.speedrun:
+            vm = valid_fn(to_device(next(valid_loader), device))
+            vrec = {k: float(v.item()) for k, v in vm.items()}
+            valid.append({"iter": it, **vrec})
+            logger.log_scalars("eval_loss", it, vrec, file="valid")
+            print(f"iter {it} valid: loss={vrec['loss']:.4f} ({split(vrec)})", flush=True)
+            res_v = evaluate(setup.valid_set, "eval_ap_cv0", it)
+            res_t = evaluate(setup.test_set, "test_ap_cv0", it)
+            ckpt = save_checkpoint(model, optimizer, step, ckpt_dir, args.model_name, it, 0)
+            logger.log_scalars("eval_ap", it, res_v, file="valid")
+            logger.log_scalars("test_ap", it, res_t, file="test")
+            print(f"iter {it} valid: {json.dumps(res_v)}")
+            print(f"iter {it} test:  {json.dumps(res_t)}")
+            print(f"checkpoint -> {ckpt}", flush=True)
+            evals.append({"iter": it, "valid": res_v, "test": res_t, "checkpoint": ckpt})
+
+    records, valid, evals, traces = [], [], [], []
+    prof = None
     try:
         for it in range(start_iter, args.max_iter):
-            t0 = time.perf_counter()
-            batch = to_device(next(loader), device)
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            t1 = time.perf_counter()
-            m = train_fn(batch, step)
-            step += 1
-            rec = {"iter": it, **{k: (v if isinstance(v, float) else float(v.item()))
-                                  for k, v in m.items()}}
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            rec["ms"] = (time.perf_counter() - t1) * 1e3
-            rec["wait_ms"] = (t1 - t0) * 1e3
-            records.append(rec)
-            print(f"iter {it}: loss={rec['loss']:.4f} ({split(rec)}) lr={rec['lr']:.2e} "
-                  f"{rec['ms']:.1f} ms/step input_wait={rec['wait_ms']:.1f} ms", flush=True)
-            if getattr(args, "log_iters", True) and it % 10 == 0:
-                keys = ("loss", *(key for _, key in parts), "lr", "grad_norm")
-                logger.log_scalars("loss", it, {k: rec[k] for k in keys})
-
-            last = it == args.max_iter - 1
-            if ((it % args.val_every == 0 and it > start_iter) or last) and it >= args.speedrun:
-                vm = valid_fn(to_device(next(valid_loader), device))
-                vrec = {k: float(v.item()) for k, v in vm.items()}
-                valid.append({"iter": it, **vrec})
-                logger.log_scalars("eval_loss", it, vrec, file="valid")
-                print(f"iter {it} valid: loss={vrec['loss']:.4f} ({split(vrec)})", flush=True)
-                res_v = evaluate(setup.valid_set, "eval_ap_cv0", it)
-                res_t = evaluate(setup.test_set, "test_ap_cv0", it)
-                path = save_checkpoint(model, optimizer, step, ckpt_dir, args.model_name, it, 0)
-                logger.log_scalars("eval_ap", it, res_v, file="valid")
-                logger.log_scalars("test_ap", it, res_t, file="test")
-                print(f"iter {it} valid: {json.dumps(res_v)}")
-                print(f"iter {it} test:  {json.dumps(res_t)}")
-                print(f"checkpoint -> {path}", flush=True)
-                evals.append({"iter": it, "valid": res_v, "test": res_t, "checkpoint": path})
+            if args.profile_dir and it - start_iter == PROFILE_WINDOW[0]:
+                prof, first = _profile_start(device), it
+            if prof is None:
+                iteration(it)
+                continue
+            with torch.profiler.record_function("train_iteration"):
+                iteration(it)
+            if it + 1 - start_iter == PROFILE_WINDOW[1] or it == args.max_iter - 1:
+                traces.append(_profile_stop(prof, args.profile_dir, first, it))
+                prof = None
     finally:
+        if prof is not None:
+            prof.stop()
         for lo in loaders:
             lo.close()
         logger.close()
@@ -322,7 +428,30 @@ def run(args, setup: Setup, model, optimizer, train_fn: Callable, valid_fn: Call
           f"device {device})", flush=True)
     return {"records": records, "valid": valid, "evals": evals, "median_step_ms": median,
             "weights": evals[-1]["checkpoint"] if evals else None, "step": step,
-            "model": model, "optimizer": optimizer}
+            "traces": traces, "model": model, "optimizer": optimizer}
+
+
+def warm_eval(args, model, priors, loss_cfg, infer_step, device) -> None:
+    """--warmup_eval: build the CUDA kernels, then run the validation-loss
+    step on a batch of ``--batch_size`` and the inference forward on one
+    of ``--eval_batch`` (zeros), so that the first evaluation pays for
+    neither. Eval mode: the model's state does not change."""
+    from gssd_torch.ops.kernels import KERNELS, build
+    from gssd_torch.train.steps import eval_step
+
+    if device.type == "cuda":
+        build(KERNELS.values())
+    size, channels = args.ssd_dim, model_config(args).in_channels
+    b, g = args.batch_size, args.max_gt
+    eval_step(model, priors, {
+        "image": torch.zeros((b, size, size, channels), device=device),
+        "boxes": torch.tensor([0.3, 0.3, 0.6, 0.6], device=device).repeat(b, g, 1),
+        "labels": torch.zeros((b, g), dtype=torch.int32, device=device),
+        "valid": torch.ones((b, g), dtype=torch.bool, device=device)}, loss_cfg)
+    infer_step(torch.zeros((args.eval_batch, size, size, channels)))
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    print("eval executables warmed", flush=True)
 
 
 def main(argv=None) -> Dict[str, Any]:
@@ -331,8 +460,9 @@ def main(argv=None) -> Dict[str, Any]:
     evaluation the iteration, the valid and test AP/IoBB and the
     checkpoint, "median_step_ms": median ms/step after the first step,
     "weights": the last checkpoint written (None if none), "step": SGD
-    steps taken in all, "model", "optimizer"}; with --test, {"test": the
-    AP/IoBB of the checkpoint}."""
+    steps taken in all, "traces": the --profile_dir trace files written,
+    "model", "optimizer"}; with --test, {"test": the AP/IoBB of the
+    checkpoint}."""
     args = parse_args(argv)
     setup = prepare(args)
 
@@ -366,6 +496,9 @@ def main(argv=None) -> Dict[str, Any]:
         logger.log_histogram(f"{tag}/scores_filtered", iteration, sink["filtered"])
         return res
 
+    if (args.warmup_eval and not args.test and args.val_every <= args.max_iter
+            and args.speedrun <= args.max_iter):
+        warm_eval(args, model, priors_t, loss_cfg, infer_step, device)
     aug = SSDAugmentation(pixeljitter=args.gt_pixel_jitter, ratio=args.expand_ratio,
                           size=args.ssd_dim, mean=args.means,
                           use_normalize=args.use_normalize, p_only=args.p_only,

@@ -14,9 +14,12 @@ N`` evaluates checkpoint N on the test set. The loop, checkpoints and
 logs are ``gssd_torch.train.trainer``'s.
 
 Runs on the GPU (``--device cuda``, the default) and refuses to start
-without one unless ``--device cpu`` is given. Cross-validation folds,
-the multi-process loader and ``--visualize`` are not ported yet
-(ROADMAP.md) and raise. The stem's wide-conv kernels run only when
+without one unless ``--device cpu`` is given. ``--num_workers > 1``
+builds the batches in forked worker processes, a stream that
+``--resume`` continues exactly. Cross-validation folds and
+``--visualize`` are not ported yet (ROADMAP.md) and raise; so do
+``--profile_dir`` and ``--warmup_eval``, which the JAX package's
+PixelLink trainer does not have. The stem's wide-conv kernels run only when
 ``gssd_torch.ops.layers.USE_WIDE_CONV_KERNEL`` is set in-process, as
 ``USE_PALLAS_WIDE_CONV`` is in the JAX package.
 
@@ -109,12 +112,14 @@ def build_parser():
     p.add_argument("--speedrun", default=1, type=int)
     p.add_argument("--cross_validation", default=1, type=int)
     p.add_argument("--num_test_subjects", default=10, type=int)
-    p.add_argument("--resume", default=None, type=int)
+    p.add_argument("--resume", default=None, type=int,
+                   help="iteration to resume from; --num_workers > 1 also resumes the "
+                        "batch stream exactly")
     p.add_argument("--seed", default=1115, type=int)
     p.add_argument("--output", default="output", type=str)
     p.add_argument("--model_name", default="pixellink", type=str)
     p.add_argument("--profile_dir", default=None, type=str,
-                   help="a trace of steps 20-30 into this directory (not ported yet: refused)")
+                   help="refused: the JAX package's PixelLink trainer has no trace")
     p.add_argument("--test", default=False, type=str2bool)
     p.add_argument("--checkpoint", default=None, type=int)
     p.add_argument("--confidence_threshold", default=0.01, type=float)
@@ -124,7 +129,7 @@ def build_parser():
     p.add_argument("--eval_batch", default=16, type=int,
                    help="inference batch of the AP/IoBB evaluation")
     p.add_argument("--warmup_eval", default=False, type=str2bool,
-                   help="prepare the evaluation at startup (not ported yet: refused)")
+                   help="refused: the JAX package's PixelLink trainer has no warm-up")
     p.add_argument("--visualize", default=False, type=str2bool)
     p.add_argument("--reference_recipe", default=None, choices=["pixellink", "pixellink++"],
                    help="preset the published training flags; explicit flags still override")
@@ -160,7 +165,7 @@ def main(argv=None) -> Dict[str, Any]:
     ``gssd_torch.train.trainer.run`` returns, the records' loss parts
     being pixel_loss and link_loss."""
     args = parse_args(argv)
-    setup = prepare(args)
+    setup = prepare(args, unported=("profile_dir", "warmup_eval"))
 
     from gssd_torch.data import SSDAugmentation, collate_pixellink
     from gssd_torch.eval import run_detection_eval

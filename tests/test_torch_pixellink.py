@@ -415,8 +415,39 @@ def test_trainer_cli_trains_evaluates_resumes_and_tests(tmp_path, capsys, monkey
     assert tested == first["evals"][0]["test"]
 
 
-@pytest.mark.parametrize("flag", [
-    ["--cross_validation", "2"], ["--num_workers", "2"], ["--visualize", "True"]])
+@pytest.mark.parametrize("flag", [["--num_workers", "2"]])
+def test_trainer_cli_takes_the_input_paths(tmp_path, capsys, monkeypatch, flag):
+    """--num_workers 2: the worker processes' stream (the host augmentation
+    with the target maps), two steps with a checkpoint at iteration 1;
+    --resume 1 continues the stream exactly: its batch is the first
+    run's iteration-1 batch, bit for bit."""
+    from gssd_torch.data import make_synthetic_dataset
+    from gssd_torch.train import steps
+
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    seen = []
+    real = steps.pixellink_train_step
+
+    def recording(model, opt, batch, *a):
+        seen.append({k: v.clone() for k, v in batch.items()})
+        return real(model, opt, batch, *a)
+
+    monkeypatch.setattr(steps, "pixellink_train_step", recording)
+    data = tmp_path / "ml"
+    make_synthetic_dataset(str(data), num_subjects=6, slices_per_subject=1, image_size=64)
+    first = _cli(data, tmp_path / "run", *flag, "--max_iter", "2", "--val_every", "1",
+                 "--speedrun", "1")
+    resumed = _cli(data, tmp_path / "run", *flag, "--max_iter", "2", "--speedrun", "5",
+                   "--resume", "1")
+    assert "input: host: 2 worker processes, from batch 1" in capsys.readouterr().out
+    assert [r["iter"] for r in first["records"] + resumed["records"]] == [0, 1, 1]
+    assert len(seen) == 3 and set(seen[2]) >= {"image", "pixel_mask", "link_mask", "valid"}
+    for key, value in seen[2].items():
+        assert torch.equal(value, seen[1][key]), key
+    assert not torch.equal(seen[0]["image"], seen[1]["image"])
+
+
+@pytest.mark.parametrize("flag", [["--cross_validation", "2"], ["--visualize", "True"]])
 def test_trainer_cli_refuses_what_is_not_ported(flag):
     from gssd_torch import train_pixellink
 

@@ -145,9 +145,7 @@ def test_trainer_cli_then_serving_cli(tmp_path, capsys, monkeypatch):
     assert len(dets[0]["scores"]) == len(dets[0]["boxes"]) > 0
 
 
-@pytest.mark.parametrize("flag", [
-    ["--cross_validation", "2"], ["--num_workers", "2"], ["--visualize", "True"],
-    ["--aug_method", "device_cached"], ["--aug_method", "device"]])
+@pytest.mark.parametrize("flag", [["--cross_validation", "2"], ["--visualize", "True"]])
 def test_trainer_refuses_what_is_not_ported(flag):
     from gssd_torch.train import main
 
@@ -155,19 +153,82 @@ def test_trainer_refuses_what_is_not_ported(flag):
         main(["--device", "cpu", *flag])
 
 
+@pytest.fixture(scope="module")
+def small_data(tmp_path_factory):
+    from gssd_torch.data import make_synthetic_dataset
+
+    data = tmp_path_factory.mktemp("ml_small")
+    make_synthetic_dataset(str(data), num_subjects=6, slices_per_subject=1, image_size=64)
+    return str(data)
+
+
+def _one_step(data, out, *extra):
+    """One f32 GSSD++ step of the trainer CLI on the CPU at batch 1, no
+    evaluation (--speedrun past the run)."""
+    from gssd_torch.train import main
+
+    return main(["--reference_recipe", "gssd++", "--datapath", data, "--num_test_subjects", "1",
+                 "--batch_size", "1", "--max_iter", "1", "--speedrun", "5",
+                 "--compute_dtype", "float32", "--device", "cpu", "--output", str(out), *extra])
+
+
+@pytest.mark.parametrize("flag,stream", [
+    (["--num_workers", "2"], "host: 2 worker processes, from batch 0"),
+    (["--aug_method", "device_cached"], "device_cached: 4 slices"),
+    (["--aug_method", "device"], "device: one thread")])
+def test_trainer_takes_the_input_paths(small_data, tmp_path, capsys, monkeypatch, flag, stream):
+    """The JAX trainer's input paths: each flag runs one step through the
+    stream it names (a full-size batch of f32 images)."""
+    from gssd_torch.train import steps
+
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    seen = []
+    real = steps.train_step
+
+    def recording(model, opt, priors, batch, *a):
+        seen.append({k: (v.shape, v.dtype) for k, v in batch.items()})
+        return real(model, opt, priors, batch, *a)
+
+    monkeypatch.setattr(steps, "train_step", recording)
+    res = _one_step(small_data, tmp_path, *flag)
+    assert f"input: {stream}" in capsys.readouterr().out
+    assert len(res["records"]) == 1 and np.isfinite(res["records"][0]["loss"])
+    assert seen == [{"image": ((1, 300, 300, 12), torch.float32),
+                     "boxes": ((1, 16, 4), torch.float32), "labels": ((1, 16), torch.int32),
+                     "valid": ((1, 16), torch.bool)}]
+
+
 @pytest.mark.parametrize("cli,flag,default", [
     ("train", ["--profile_dir", "trace"], None), ("train", ["--warmup_eval", "True"], False),
     ("train_pixellink", ["--profile_dir", "trace"], None),
     ("train_pixellink", ["--warmup_eval", "True"], False),
     ("infer", ["--fold", "1"], 0)])
-def test_cli_takes_the_reference_flags_and_refuses_them(cli, flag, default):
+def test_cli_takes_the_reference_flags_and_refuses_them(cli, flag, default, small_data,
+                                                        tmp_path, capsys, monkeypatch):
     # the JAX CLIs' flags (train.py --profile_dir, --warmup_eval; infer.py
-    # --fold) parse with their defaults, and a run that sets one is refused
+    # --fold) parse with their defaults. The GSSD++ trainer runs the first
+    # two: a trace file of the traced iteration, the warm-up line. The
+    # PixelLink++ trainer (whose JAX counterpart has neither) and infer's
+    # --fold refuse them.
     import importlib
 
     mod = importlib.import_module("gssd_torch.train.trainer" if cli == "train"
                                   else f"gssd_torch.{cli}")
     assert getattr(mod.build_parser().parse_args([]), flag[0][2:]) == default
+    if cli == "train":
+        monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+        monkeypatch.setattr(mod, "PROFILE_WINDOW", (0, 1))
+        if flag[0] == "--profile_dir":
+            res = _one_step(small_data, tmp_path / "run", "--profile_dir", str(tmp_path / "tr"))
+            assert res["traces"] == [str(tmp_path / "tr" / "trace_iter0-0.json")]
+            trace = json.loads((tmp_path / "tr" / "trace_iter0-0.json").read_text())
+            names = {e.get("name") for e in trace["traceEvents"]}
+            assert "train_iteration" in names
+        else:
+            _one_step(small_data, tmp_path / "run", *flag, "--speedrun", "1",
+                      "--val_every", "1", "--eval_batch", "1")
+            assert "eval executables warmed" in capsys.readouterr().out
+        return
     argv = ["--device", "cpu", *flag] + (["--weights", "w.pt"] if cli == "infer" else [])
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         mod.main(argv)
