@@ -16,10 +16,11 @@ In order, failing (exit code 1) at the first phase that goes wrong:
    every training shape, batch 32: max |kernel - plain| must stay within
    KERNEL_TOL * max |plain| for every output; the attention kernels also
    keep their rounding contract (``gssd_torch/ops/kernels/flash_contract.py``):
-   mean |kernel - plain| / mean |plain| per output within its limit on
-   contract inputs, while a planted online-softmax forward, bf16-dS
-   backward and two-part dS split, in plain PyTorch on the card, must
-   read above it; so do the hat DCN kernels
+   mean |kernel - reference| / mean |reference| per output within its
+   limit on contract inputs (the forward against the contract computed
+   in f64, ``fwd_exact``; the backward against the plain version), while
+   a planted online-softmax forward, bf16-dS backward and two-part dS
+   split, in plain PyTorch on the card, must read above it; so do the hat DCN kernels
    (``gssd_torch/ops/kernels/dcn_contract.py``: forward at batch 8 and
    32, backward at batch 32; planted f32 corner weights, unrounded
    samples, g and dU, which must read above it on every output they
@@ -129,7 +130,32 @@ In order, failing (exit code 1) at the first phase that goes wrong:
    the resumed batches the same bits as the uninterrupted run's, the
    losses side by side); the cache's device warp at batch 32 against the
    same warp on the CPU in f64 within WARP_TOL, a TF32 warp above it; and
-   the prefetch's host wait with f32 and with bf16 images on the wire.
+   the prefetch's host wait with f32 and with bf16 images on the wire;
+21. GSSD++ at 512 (``--ssd_dim 512``: v2_512 anchors, 24,564 priors): the
+   attention sites read off one forward of the seeded model, each held
+   as in phases 3 and 15, the forward at the serving batch 8 and the
+   backward at the training batch 32 (KERNEL_TOL, the rounding contract
+   and its planted faults, timed beside the plain version and SDPA,
+   bounded), the hat DCN pair at its 64x64 site (1024
+   -> 512, 4 groups) at batch 8 and 32 within the DCN contract with its
+   planted faults; serving through ``gssd_torch.infer.main --ssd_dim
+   512`` (exactly 14 attention and 1 DCN launches a forward, ms/image,
+   the copy/forward/Detect split); bf16 on the card against f32 on the
+   CPU within E2E_TOL; training through ``gssd_torch.train.main --ssd_dim
+   512`` with ``device_cached`` and on the host path (14 + 14 attention
+   and 1 + 1 DCN launches a step, finite losses, median ms/step, slices/s,
+   peak memory, at the recipe's batch 32);
+22. k-fold cross-validation: ``gssd_torch.train.main --cross_validation
+   5`` at batch 32 (``device_cached``, FOLD_ITERS iterations, an
+   evaluation at the last): exactly 5 x (12 + 12) attention and 5 x (1 +
+   1) DCN launches an iteration plus the evaluation's forwards, five
+   ``_CV<f>`` checkpoints, the logged means the means of the five folds,
+   ms an iteration and slices/s (batch x 5); ``--test --checkpoint``
+   over the five folds (each in [0, 1], their mean); ``gssd_torch.infer
+   --fold 3`` serving ``_CV3``; ``--resume`` of the 5-fold run (every
+   fold's state, momenta and next batch the same bits as the
+   uninterrupted run's); ``gssd_torch.train_pixellink --cross_validation
+   2``, two steps: exact launches, finite losses, two checkpoints.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or outside a
@@ -267,15 +293,19 @@ def attn_inputs(g, B, n, dk, dv):
 
 def contract_fwd(q, k, v):
     """The forward kernel's rounding contract at one site: mean error
-    over mean value against the plain version on contract inputs (logits
-    exact in any order), and the same reading of a planted online-softmax
-    forward in plain PyTorch, which must exceed the limit."""
+    over mean value on contract inputs (logits exact in any order)
+    against the contract computed exactly (``flash_contract.fwd_exact``:
+    f64 softmax, P rounded once to bf16), and the same reading of a
+    planted online-softmax forward in plain PyTorch, which must exceed
+    the limit. (Against the f32 plain version an f32 softmax's flip of
+    one large bf16 element of P, on either side, reads above the limit
+    at few keys; ``tools/contract_batch.py`` shows both readings.)"""
     from gssd_torch.ops.kernels import flash_attn as fa
     from gssd_torch.ops.kernels import flash_contract as fc
 
     qc, kc, vc = fc.contract_inputs(q, k, v)
     got, _ = fa.flash_attention_fwd(qc, kc, vc)
-    want, _ = fa.flash_attention_fwd_plain(qc, kc, vc)
+    want, _ = fc.fwd_exact(qc, kc, vc)
     err, limit = fc.mean_rel_err(got, want), fc.mean_limit("o", want)
     planted = fc.mean_rel_err(fc.fwd_online_softmax(qc, kc, vc)[0], want)
     return dict(mean_rel_err=err, mean_limit=limit, planted_online_softmax=planted)
@@ -429,12 +459,12 @@ def check_flash_bwd():
             for n, dk, dv, count in ATTN_SITES]
 
 
-def dcn_inputs(batch=BATCH):
+def dcn_inputs(batch=BATCH, site=DCN_SITE):
     import torch
 
     from gssd_torch.ops.kernels import deform_hat as dh
 
-    s = DCN_SITE
+    s = site
     B, H, W, C, G, K, Cout = batch, s["H"], s["W"], s["C"], s["G"], s["K"], s["Cout"]
     g = torch.Generator(device="cuda").manual_seed(SEED)
     x = torch.randn(B, H, W, C, device="cuda", generator=g)
@@ -520,16 +550,17 @@ def check_dcn():
     return site
 
 
-def check_dcn_bwd():
+def check_dcn_bwd(batch=TRAIN_BATCH, site=DCN_SITE):
     """deform_conv_bwd against its plain version at the training site
-    (batch 32, 38x38, C 1024, G 4, Cout 512); each of the five gradients
-    within KERNEL_TOL of its own max, and both kernels within their
-    rounding contract at this batch (``dcn_contract``)."""
+    (batch 32, 38x38, C 1024, G 4, Cout 512, unless ``batch`` and ``site``
+    say otherwise); each of the five gradients within KERNEL_TOL of its
+    own max, and both kernels within their rounding contract at this
+    batch (``dcn_contract``)."""
     import torch
 
     from gssd_torch.ops.kernels import deform_hat as dh
 
-    x, py, px, m, wg, bias = dcn_inputs(TRAIN_BATCH)
+    x, py, px, m, wg, bias = dcn_inputs(batch, site)
     B, P, G, K = py.shape
     C, Cout = x.shape[-1], wg.shape[-1]
     gout = torch.randn(B, P, Cout, device="cuda",
@@ -552,9 +583,10 @@ def check_dcn_bwd():
     fwd_err = (out - ref).abs().max().item()
     check(math.isfinite(fwd_err) and fwd_err <= KERNEL_TOL * ref.abs().max().item(),
           f"deform_conv_fwd B={B}: max err {fwd_err}")
-    contract = dcn_contract(f"hat DCN B={B}", fwd=(fwd_args, out, ref), bwd=(args, got, want))
-    del ref, want
     H, W = x.shape[1], x.shape[2]
+    contract = dcn_contract(f"hat DCN B={B} {H}x{W}", fwd=(fwd_args, out, ref),
+                            bwd=(args, got, want))
+    del ref, want
     # the corner terms this data needs: 6 * C/G f32 operations (dS, the
     # sample, dx) per corner that lies inside the map
     n_in = 0
@@ -571,17 +603,19 @@ def check_dcn_bwd():
     fwd_bound = bound(2 * B * P * K * C * Cout,
                       nbytes_of(x, py, px, m, wg, bias) + B * P * Cout * 4)[0]
     site = dict(
-        B=B, **DCN_SITE, max_abs_err=max(errs), rel_err=max(rels), contract=contract,
+        B=B, **site, max_abs_err=max(errs), rel_err=max(rels), contract=contract,
         fwd_max_abs_err=fwd_err, fwd_ms=time_ms(lambda: dh.deform_conv_fwd(x, py, px, m, wg, bias), iters=5),
+        fwd_plain_ms=time_ms(lambda: dh.deform_conv_fwd_plain(*fwd_args), iters=2, warmup=1),
         fwd_bound_ms=fwd_bound,
         ms=time_ms(lambda: dh.deform_conv_bwd(*args), iters=5),
         plain_ms=time_ms(lambda: dh.deform_conv_bwd_plain(*args), iters=2, warmup=1),
         library_ms=None, bound_ms=b_ms, bound_by=b_by, ops=ops, f32_ops=f32_ops,
         bytes=nbytes, corners_in_map=n_in)
-    print(f"deform_conv_bwd B={B} 38x38 C={C} G={G} Cout={Cout}: rel err "
+    print(f"deform_conv_bwd B={B} {H}x{W} C={C} G={G} Cout={Cout}: rel err "
           f"{max(rels):.3g}, kernel {site['ms']:.4f} ms, plain {site['plain_ms']:.4f} ms, "
           f"bound {1e3 * b_ms:.2f} us ({b_by}); forward kernel at this batch "
-          f"{site['fwd_ms']:.4f} ms", flush=True)
+          f"{site['fwd_ms']:.4f} ms, plain {site['fwd_plain_ms']:.4f} ms, bound "
+          f"{fwd_bound:.4f} ms", flush=True)
     return site
 
 
@@ -806,8 +840,8 @@ def dcn_grads():
     return report
 
 
-def seeded_model(compute_dtype, seed=SEED):
-    """GSSD++ with random weights from ``seed`` that make every path
+def seeded_model(compute_dtype, seed=SEED, size=300):
+    """GSSD++ at input ``size`` with random weights from ``seed`` that make every path
     contribute: He-scaled convs (activations keep their scale through
     the ReLUs), BN running stats away from (0, 1), attention sigma 0.5
     with the spectral-norm vectors at their top singular pair, and an
@@ -823,7 +857,7 @@ def seeded_model(compute_dtype, seed=SEED):
     recipe = REFERENCE_RECIPES["gssd++"]
     keys = ("ssd_type", "use_self_attention", "use_self_attention_base",
             "groups_dcn", "num_dcn_layers", "dcn_cat_sab")
-    cfg = ModelConfig(compute_dtype=compute_dtype, **{k: recipe[k] for k in keys})
+    cfg = ModelConfig(compute_dtype=compute_dtype, size=size, **{k: recipe[k] for k in keys})
     model, priors = build_model(cfg, device="cpu", seed=seed)
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
@@ -849,36 +883,42 @@ def seeded_model(compute_dtype, seed=SEED):
     return model, priors
 
 
-def serve(tmp):
+def serve(tmp, size=300, data=None, attn_per_forward=12):
+    """The serving CLI at ``--ssd_dim size`` over 32 synthetic 512x512
+    slices (made here unless ``data`` holds them) in forwards of 8, from
+    seeded weights: exactly ``attn_per_forward`` attention and 1 hat DCN
+    launches a forward, the detections' JSON, the latency."""
     import torch
 
     from gssd_torch import infer
     from gssd_torch.data import make_synthetic_dataset
     from gssd_torch.ops.kernels import KERNELS
 
-    model, _ = seeded_model("bfloat16")
-    weights = os.path.join(tmp, "gssd_pp.pt")
+    model, _ = seeded_model("bfloat16", size=size)
+    weights = os.path.join(tmp, f"gssd_pp_{size}.pt")
     torch.save(model.state_dict(), weights)
-    data = os.path.join(tmp, "ml_ready")
-    t0 = time.perf_counter()
-    make_synthetic_dataset(data, num_subjects=8, slices_per_subject=4, image_size=512,
-                           seed=SEED)
-    print(f"synthetic data: {time.perf_counter() - t0:.1f} s", flush=True)
-    det_path = os.path.join(tmp, "detections.json")
+    if data is None:
+        data = os.path.join(tmp, "ml_ready")
+        t0 = time.perf_counter()
+        make_synthetic_dataset(data, num_subjects=8, slices_per_subject=4, image_size=512,
+                               seed=SEED)
+        print(f"synthetic data: {time.perf_counter() - t0:.1f} s", flush=True)
+    det_path = os.path.join(tmp, f"detections_{size}.json")
     n_images = 32
     n_batches = n_images // BATCH
     for k in KERNELS.values():
         k.launches = 0
     res = infer.main([
         "--reference_recipe", "gssd++", "--datapath", data, "--split", "all",
-        "--num_test_subjects", "2", "--eval_batch", str(BATCH),
+        "--num_test_subjects", "2", "--eval_batch", str(BATCH), "--ssd_dim", str(size),
         "--device", "cuda", "--compute_dtype", "bfloat16",
         "--weights", weights, "--det_output", det_path])
     launches = {name: k.launches for name, k in KERNELS.items()}
-    print(f"main-path launches over {n_batches} forwards: {launches}", flush=True)
+    print(f"main-path launches over {n_batches} forwards at {size}: {launches}", flush=True)
     want = {name: 0 for name in KERNELS}
-    want.update(flash_attn_fwd=12 * n_batches, deform_conv_fwd=n_batches)
-    check(launches == want, f"expected 12 flash and 1 DCN launch per forward, got {launches}")
+    want.update(flash_attn_fwd=attn_per_forward * n_batches, deform_conv_fwd=n_batches)
+    check(launches == want, f"expected {attn_per_forward} flash and 1 DCN launch per forward "
+                            f"at {size}, got {launches}")
     with open(det_path) as f:
         dets = json.load(f)
     check(len(dets) == n_images and all(set(d) == {"id", "scores", "boxes"} for d in dets),
@@ -886,7 +926,7 @@ def serve(tmp):
     lat = res["latency_ms"]
     check(len(lat) == n_batches - 1 and all(math.isfinite(t) and t > 0 for t in lat),
           f"bad latency record {lat}")
-    print(f"serving latency (excl. first batch, batch {BATCH}): "
+    print(f"serving latency at {size} (excl. first batch, batch {BATCH}): "
           f"{sum(lat) / len(lat):.3f} ms/image over {len(lat)} batches", flush=True)
     return launches, lat, data, weights
 
@@ -918,19 +958,20 @@ def serve_pallas(tmp, data, weights):
     return launches, lat
 
 
-def breakdown():
-    """Where one batch's serving time goes: the pageable host-to-device
-    copy (host clock), the forward and Detect/NMS (CUDA events)."""
+def breakdown(size=300):
+    """Where one batch's serving time goes at input ``size``: the
+    pageable host-to-device copy (host clock), the forward and Detect/NMS
+    (CUDA events)."""
     import numpy as np
     import torch
 
     from gssd_torch.config import DetectConfig
     from gssd_torch.ops.nms import detect
 
-    model, priors = seeded_model("bfloat16")
+    model, priors = seeded_model("bfloat16", size=size)
     model = model.to("cuda").eval()
     priors = torch.tensor(priors, device="cuda")
-    x = np.random.default_rng(SEED).uniform(0, 1, (BATCH, 300, 300, 12)).astype(np.float32)
+    x = np.random.default_rng(SEED).uniform(0, 1, (BATCH, size, size, 12)).astype(np.float32)
     with torch.inference_mode():
         copies = []
         for _ in range(5):
@@ -946,12 +987,12 @@ def breakdown():
             forward_ms=time_ms(lambda: model(xd), iters=10),
             detect_ms=time_ms(lambda: detect(out["loc"], conf, priors, DetectConfig()),
                               iters=5))
-    print(f"batch-{BATCH} breakdown: " + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()),
-          flush=True)
+    print(f"batch-{BATCH} breakdown at {size}: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()), flush=True)
     return parts
 
 
-def parity(data):
+def parity(data, size=300):
     import numpy as np
     import torch
 
@@ -959,12 +1000,12 @@ def parity(data):
 
     ids = DataSplitter(data, 1, 2).data_test[:1]
     raw = LesionDataset(data, ids).pull_image(0)
-    x, _, _ = BaseTransform(300)(raw)
-    x = np.transpose(x, (1, 2, 0, 3)).reshape(1, 300, 300, 12)
+    x, _, _ = BaseTransform(size)(raw)
+    x = np.transpose(x, (1, 2, 0, 3)).reshape(1, size, size, 12)
     xt = torch.from_numpy(np.ascontiguousarray(x))
     outs = {}
     for dtype, device in (("float32", "cpu"), ("bfloat16", "cuda")):
-        model, _ = seeded_model(dtype)
+        model, _ = seeded_model(dtype, size=size)
         model = model.to(device).eval()
         with torch.inference_mode():
             out = model(xt.to(device))
@@ -979,7 +1020,7 @@ def parity(data):
         err = (got - ref).abs().max().item()
         scale = ref.abs().max().item()
         errs[name] = err / scale
-        print(f"parity {name}: max |bf16 card - f32 cpu| = {err:.4g}, "
+        print(f"parity {name} at {size}: max |bf16 card - f32 cpu| = {err:.4g}, "
               f"max |f32| = {scale:.4g}, ratio {err / scale:.4g} (limit {E2E_TOL})", flush=True)
         check(err <= E2E_TOL * scale, f"{name}: bf16 card vs f32 cpu {err} > {E2E_TOL} * {scale}")
     return errs
@@ -2116,15 +2157,21 @@ def input_paths(tmp):
 
 
 @contextlib.contextmanager
-def recorded_steps(seen):
+def recorded_steps(seen, states=None):
     """gssd_torch.train.steps.train_step wrapped in-process for the block:
-    each step's batch is kept (a copy on the card) in ``seen``."""
+    each step's batch is kept (a copy on the card) in ``seen`` and, if
+    ``states`` is a list, the model's state and momenta before the step
+    in ``states``."""
     from gssd_torch.train import steps
 
     real = steps.train_step
 
     def recording(model, opt, priors, batch, *a):
         seen.append({k: v.clone() for k, v in batch.items()})
+        if states is not None:
+            states.append(({k: v.clone() for k, v in model.state_dict().items()},
+                           [opt.state[p]["momentum_buffer"].clone()
+                            for p in model.parameters() if p in opt.state]))
         return real(model, opt, priors, batch, *a)
 
     steps.train_step = recording
@@ -2256,6 +2303,310 @@ def wire_dtype_wait(data):
     return out
 
 
+# ---- GSSD++ at 512 (v2_512 anchors, the DCN at 64 x 64) ----
+
+SIZE_512 = 512
+# the hat DCN site of the 512 model: slice_and_cat(conv4_3, attn_g) at 64x64
+DCN_SITE_512 = dict(H=64, W=64, C=1024, G=4, K=9, Cout=512)
+# training steps of each 512 run
+ITERS_512 = 5
+
+
+def attention_sites(size):
+    """(N = M tokens, dk, dv, launches per forward) of every attention
+    site of GSSD++ at input ``size``, read off one forward of the seeded
+    model at batch 1 on the card through a recording wrapper of the
+    forward kernel's boundary; largest N first."""
+    import collections
+
+    import torch
+
+    from gssd_torch.ops.kernels import flash_attn as fa
+
+    model, priors = seeded_model("bfloat16", size=size)
+    model = model.to("cuda").eval()
+    seen, real = [], fa.flash_attention_fwd
+
+    def recording(q, k, v):
+        seen.append((q.shape[1], k.shape[1], q.shape[2], v.shape[2]))
+        return real(q, k, v)
+
+    fa.flash_attention_fwd = recording
+    try:
+        with torch.inference_mode():
+            model(torch.zeros(1, size, size, 12, device="cuda"))
+    finally:
+        fa.flash_attention_fwd = real
+    counts = collections.Counter(seen)
+    sources = len(model.cfg.anchor_config.feature_maps)
+    check(all(n == m for n, m, _, _ in counts),
+          f"an attention site at {size} has N != M: {sorted(counts)}")
+    sites = [(n, dk, dv, c) for (n, _, dk, dv), c in sorted(counts.items(), reverse=True)]
+    print(f"attention sites at {size} (N = M, dk, dv, per forward): {sites}; "
+          f"{len(priors)} priors", flush=True)
+    check(len(seen) == 2 * sources,
+          f"{len(seen)} attention calls a forward at {size}, {sources} sources")
+    del model
+    return sites
+
+
+def check_512(sites):
+    """The attention kernels at the 512 model's sites, as phases 3 and 15
+    hold them at 300 (``attn_site``: KERNEL_TOL, the rounding contract
+    and its planted faults, timed beside the plain version and SDPA,
+    bounded): the forward at the serving batch 8, the backward at the
+    training batch 32; and the hat DCN pair at its 64x64 site (batch 8
+    and 32, ``check_dcn_bwd``: KERNEL_TOL, ``dcn_contract`` with its
+    planted faults, timed, bounded)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    attn = []
+    for n, dk, dv, count in sites:
+        big = n >= 1024
+        fwd = attn_site(g, BATCH, n, dk, dv, count, False, iters=5 if big else 10,
+                        plain_iters=2 if big else 5)
+        bwd = attn_site(g, TRAIN_BATCH, n, dk, dv, count, True, iters=3 if big else 10,
+                        plain_iters=1 if big else 3)
+        attn.append(dict(fwd=fwd, bwd=bwd, N=n, M=n, dk=dk, dv=dv, per_forward=count))
+        torch.cuda.empty_cache()
+    dcn = [check_dcn_bwd(batch, DCN_SITE_512) for batch in (BATCH, TRAIN_BATCH)]
+    torch.cuda.empty_cache()
+    return {"attention": attn, "hat_dcn_64": dcn}
+
+
+def train_512(tmp, attn_per_forward):
+    """The trainer CLI at ``--ssd_dim 512`` on the card, ITERS_512 steps
+    at the recipe's batch 32 with ``--aug_method device_cached`` and on
+    the host path (one thread): exactly ``attn_per_forward`` + as many
+    attention and 1 + 1 hat DCN launches a step, finite losses; median
+    ms/step, slices/s and the peak memory allocated."""
+    import torch
+
+    from gssd_torch import train as trainer
+
+    out, batch = {}, TRAIN_BATCH
+    per_step = dict(flash_attn_fwd=attn_per_forward, flash_attn_bwd=attn_per_forward,
+                    deform_conv_fwd=1, deform_conv_bwd=1)
+    for path, extra in (("device_cached", ["--aug_method", "device_cached"]), ("host", [])):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        res = trainer.main(train_argv(tmp, "hat", batch, ITERS_512, f"run512_{path}")
+                           + ["--ssd_dim", str(SIZE_512)] + extra)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launches = _launches()
+        want = {k: per_step.get(k, 0) * ITERS_512 for k in launches}
+        check(launches == want, f"512 training ({path}): launches {launches}, expected {want}")
+        losses = [r["loss"] for r in res["records"]]
+        check(len(losses) == ITERS_512 and all(math.isfinite(v) for v in losses),
+              f"512 training ({path}): non-finite or missing losses {losses}")
+        median = res["median_step_ms"]
+        out[path] = dict(batch=batch, steps=ITERS_512, median_ms_per_step=median,
+                         slices_per_s=batch / median * 1e3, peak_memory_gib=peak,
+                         ms_per_step=[r["ms"] for r in res["records"]],
+                         input_wait_ms=[r["wait_ms"] for r in res["records"]], losses=losses,
+                         launches=launches)
+        print(f"512 training ({path}, batch {batch}): median {median:.2f} ms/step after the "
+              f"first, {batch / median * 1e3:.1f} slices/s, median input wait "
+              f"{sorted(out[path]['input_wait_ms'][1:])[(ITERS_512 - 1) // 2]:.1f} ms, peak "
+              f"memory {peak:.2f} GiB; launches {launches}; losses {losses}", flush=True)
+    return out
+
+
+def gssd_512(tmp, data):
+    """Phase 21: the 512 model's kernel shapes, serving, parity and
+    training on the card."""
+    t0 = time.perf_counter()
+    sites = attention_sites(SIZE_512)
+    per_forward = sum(c for *_, c in sites)
+    kernels = check_512(sites)
+    launches, lat, _, _ = serve(tmp, SIZE_512, data, per_forward)
+    parts = breakdown(SIZE_512)
+    errs = parity(data, SIZE_512)
+    training = train_512(tmp, per_forward)
+    return {"attention_sites": sites, "kernels": kernels, "serving_launches": launches,
+            "latency_ms_per_image": lat, "breakdown_ms_per_batch": parts,
+            "parity_rel_err": errs, "training": training,
+            "seconds": time.perf_counter() - t0}
+
+
+# ---- k-fold cross-validation ----
+
+FOLDS = 5
+FOLD_ITERS = 3
+FOLD_EVAL_BATCH = 16
+INFER_FOLD = 3  # the fold whose checkpoint gssd_torch.infer --fold serves
+PL_FOLDS = 2
+
+
+def _eval_forwards(splitter, eval_batch):
+    """Forwards of one evaluation over every fold: a validation-loss batch,
+    the fold's validation set and the test set in chunks of eval_batch."""
+    test = -(-len(splitter.data_test) // eval_batch)
+    return sum(1 + -(-len(ids) // eval_batch) + test for ids in splitter.data_cv_eval)
+
+
+def folds_phase(tmp):
+    """Phase 22. The GSSD++ trainer with ``--cross_validation FOLDS`` at
+    batch 32 (``device_cached``, FOLD_ITERS iterations, an evaluation at
+    the last): exactly FOLDS x (12 + 12) attention and FOLDS x (1 + 1) hat
+    DCN launches an iteration plus the evaluation's forwards, finite
+    losses, a checkpoint a fold, the logged means the means of the folds;
+    ``--test`` over the folds' checkpoints; ``gssd_torch.infer --fold
+    INFER_FOLD`` serving that fold's checkpoint; ``--resume`` restoring every fold's state and its
+    next batch bit for bit; PixelLink++ with PL_FOLDS folds, two steps."""
+    import torch
+
+    from gssd_torch import infer
+    from gssd_torch import train as trainer
+    from gssd_torch import train_pixellink
+    from gssd_torch.data import DataSplitter, make_synthetic_dataset
+    from gssd_torch.parallel.folds import fold_mean
+
+    t0 = time.perf_counter()
+    data = os.path.join(tmp, "train_ml")
+    out_dir = os.path.join(tmp, "run_folds")
+    common = ["--cross_validation", str(FOLDS), "--aug_method", "device_cached",
+              "--eval_batch", str(FOLD_EVAL_BATCH)]
+    argv = (train_argv(tmp, "hat", TRAIN_BATCH, FOLD_ITERS, "run_folds") + common
+            + ["--val_every", str(FOLD_ITERS), "--speedrun", str(FOLD_ITERS - 1)])
+    last = FOLD_ITERS - 1
+    seen = []
+    _reset_launches()
+    with recorded_steps(seen):
+        res = trainer.main(argv)
+    launches = _launches()
+    splitter = DataSplitter(data, FOLDS, 4)
+    steps, fwd = FOLDS * FOLD_ITERS, _eval_forwards(splitter, FOLD_EVAL_BATCH)
+    hat = ROUTE_LAUNCHES["hat"]
+    want = {k: 0 for k in launches}
+    want.update(flash_attn_fwd=hat["flash_attn_fwd"] * (steps + fwd),
+                flash_attn_bwd=hat["flash_attn_bwd"] * steps,
+                deform_conv_fwd=steps + fwd, deform_conv_bwd=steps)
+    print(f"{FOLDS}-fold training launches over {FOLD_ITERS} iterations and one evaluation "
+          f"({fwd} forwards): {launches}", flush=True)
+    check(launches == want, f"{FOLDS} folds: launches {launches}, expected {want}")
+    recs = res["records"]
+    check(len(recs) == FOLD_ITERS and all(len(r["folds"]) == FOLDS and all(
+        math.isfinite(f["loss"]) for f in r["folds"]) for r in recs),
+        f"{FOLDS} folds: missing or non-finite losses {[r.get('folds') for r in recs]}")
+    ev = res["evals"]
+    check([e["iter"] for e in ev] == [last], f"{FOLDS} folds: evaluations {ev}")
+    paths = [p["checkpoint"] for p in ev[0]["folds"]]
+    check([os.path.basename(p) for p in paths]
+          == [f"GSSD_plusplus_{last}_CV{f}.pt" for f in range(FOLDS)]
+          and all(os.path.exists(p) for p in paths), f"{FOLDS} folds: checkpoints {paths}")
+    for split in ("valid", "test"):
+        folds = [p[split] for p in ev[0]["folds"]]
+        check(all(set(r) == AP_KEYS and all(0 <= v <= 1 for v in r.values()) for r in folds),
+              f"{FOLDS} folds {split} AP/IoBB malformed: {folds}")
+        check(ev[0][split] == fold_mean(folds),
+              f"{FOLDS} folds: the {split} mean {ev[0][split]} is not the folds' mean")
+    median_ms, slices = res["median_step_ms"], res["slices_per_s"]
+    print(f"{FOLDS} folds at batch {TRAIN_BATCH}: median {median_ms:.2f} ms an "
+          f"iteration after the first ({FOLDS} steps), {slices:.1f} slices/s; "
+          f"iterations {[round(r['ms'], 1) for r in recs]} ms; mean valid {ev[0]['valid']}, "
+          f"test {ev[0]['test']}", flush=True)
+
+    tested = trainer.main(argv + ["--test", "True", "--checkpoint", str(last)])
+    check(len(tested["folds"]) == FOLDS and all(
+        set(r) == AP_KEYS and all(0 <= v <= 1 for v in r.values()) for r in tested["folds"])
+        and tested["test"] == fold_mean(tested["folds"]),
+        f"--test over {FOLDS} folds: {tested}")
+    same = tested["folds"] == [p["test"] for p in ev[0]["folds"]]
+    print(f"--test --checkpoint {last} over {FOLDS} folds: mean {tested['test']}; the same as "
+          f"the training run's evaluation: {same}", flush=True)
+
+    _reset_launches()
+    served = infer.main(["--reference_recipe", "gssd++", "--datapath", data,
+                         "--num_test_subjects", "4", "--cross_validation", str(FOLDS),
+                         "--fold", str(INFER_FOLD), "--checkpoint", str(last),
+                         "--output", out_dir,
+                         "--eval_batch", str(BATCH), "--device", "cuda",
+                         "--compute_dtype", "bfloat16",
+                         "--det_output", os.path.join(tmp, "detections_fold.json")])
+    n_test, infer_launches = len(splitter.data_test), _launches()
+    n_fwd = -(-n_test // BATCH)
+    check(served["weights"] == paths[INFER_FOLD] and len(served["detections"]) == n_test
+          and infer_launches["flash_attn_fwd"] == hat["flash_attn_fwd"] * n_fwd
+          and infer_launches["deform_conv_fwd"] == n_fwd,
+          f"infer --fold {INFER_FOLD}: weights {served['weights']}, {len(served['detections'])} "
+          f"detections, launches {infer_launches}")
+    print(f"infer --fold {INFER_FOLD} served {served['weights']}: {n_test} slices, launches "
+          f"{infer_launches}", flush=True)
+
+    # --resume: the uninterrupted run's last iteration again, from its
+    # checkpoint: each fold's state before the step and its batch
+    again, states = [], []
+    with recorded_steps(again, states):
+        resumed = trainer.main(train_argv(tmp, "hat", TRAIN_BATCH, FOLD_ITERS, "run_folds")
+                               + common + ["--resume", str(last), "--speedrun", "100"])
+    check(len(again) == FOLDS and [m.step for m in resumed["folds"]] == [FOLD_ITERS + 1] * FOLDS,
+          f"--resume: {len(again)} steps, steps {[m.step for m in resumed['folds']]}")
+    resume_same = []
+    for f, member in enumerate(res["folds"]):
+        want_sd = member.model.state_dict()
+        got_sd, got_mom = states[f]
+        want_mom = [member.optimizer.state[p]["momentum_buffer"]
+                    for p in member.model.parameters()]
+        state_same = (set(got_sd) == set(want_sd)
+                      and all(torch.equal(got_sd[k], v) for k, v in want_sd.items())
+                      and len(got_mom) == len(want_mom)
+                      and all(torch.equal(a, b) for a, b in zip(got_mom, want_mom)))
+        batch_same = all(torch.equal(again[f][k], seen[last * FOLDS + f][k])
+                         for k in ("image", "boxes", "valid"))
+        resume_same.append({"state": state_same, "batch": batch_same})
+    print(f"--resume {last} of {FOLDS} folds: state and next batch the same bits per fold "
+          f"{resume_same}", flush=True)
+    check(all(r["state"] and r["batch"] for r in resume_same),
+          f"--resume of {FOLDS} folds is not exact: {resume_same}")
+    del seen, again, states, res, resumed
+    torch.cuda.empty_cache()
+
+    pl_data = os.path.join(tmp, "pl_folds_ml")
+    make_synthetic_dataset(pl_data, num_subjects=6, slices_per_subject=1, image_size=512,
+                           seed=SEED)
+    _reset_launches()
+    pl = train_pixellink.main(pl_argv(tmp, pl_data, "pl_folds", "--cross_validation",
+                                      str(PL_FOLDS), "--num_test_subjects", "1",
+                                      "--max_iter", "2", "--val_every", "2", "--speedrun", "1"))
+    pl_launches = _launches()
+    pl_split = DataSplitter(pl_data, PL_FOLDS, 1)
+    pl_steps, pl_fwd = PL_FOLDS * 2, _eval_forwards(pl_split, 16)
+    pl_want = {k: 0 for k in pl_launches}
+    pl_want.update(flash_attn_fwd=PL_STEP_LAUNCHES["flash_attn_fwd"] * pl_steps
+                   + PL_FORWARD_LAUNCHES["flash_attn_fwd"] * pl_fwd,
+                   flash_attn_bwd=PL_STEP_LAUNCHES["flash_attn_bwd"] * pl_steps,
+                   deform_conv_fwd=pl_steps + pl_fwd, deform_conv_bwd=pl_steps)
+    pl_recs, pl_ev = pl["records"], pl["evals"]
+    pl_paths = [p["checkpoint"] for p in pl_ev[0]["folds"]] if pl_ev else []
+    print(f"pixellink++ {PL_FOLDS} folds: launches {pl_launches}; losses "
+          f"{[[f['loss'] for f in r['folds']] for r in pl_recs]}; checkpoints {pl_paths}",
+          flush=True)
+    check(pl_launches == pl_want, f"pixellink++ folds: launches {pl_launches}, want {pl_want}")
+    check(len(pl_recs) == 2 and all(math.isfinite(f["loss"]) for r in pl_recs
+                                    for f in r["folds"])
+          and len(pl_paths) == PL_FOLDS and all(os.path.exists(p) for p in pl_paths),
+          f"pixellink++ folds: records {pl_recs}, checkpoints {pl_paths}")
+    return {
+        "folds": FOLDS, "batch": TRAIN_BATCH, "iterations": FOLD_ITERS,
+        "launches": launches, "eval_forwards": fwd,
+        "ms_per_iteration": [r["ms"] for r in recs],
+        "input_wait_ms": [r["wait_ms"] for r in recs],
+        "fold_losses": [[f["loss"] for f in r["folds"]] for r in recs],
+        "median_ms_per_iteration": median_ms, "slices_per_s": slices,
+        "evaluation": {"valid": ev[0]["valid"], "test": ev[0]["test"],
+                       "folds": [{k: p[k] for k in ("valid", "test")} for p in ev[0]["folds"]]},
+        "test": tested, "test_same_as_training_eval": same,
+        "infer_fold": {"fold": INFER_FOLD, "weights": served["weights"], "launches": infer_launches},
+        "resume_same_bits": resume_same,
+        "pixellink": {"folds": PL_FOLDS, "launches": pl_launches,
+                      "losses": [[f["loss"] for f in r["folds"]] for r in pl_recs],
+                      "checkpoints": pl_paths},
+        "seconds": time.perf_counter() - t0}
+
+
 def _kernel_numbers(site):
     return {k: site[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms")}
@@ -2332,6 +2683,8 @@ def main() -> int:
             warp_res = warp_check(train_data)
             wire = wire_dtype_wait(train_data)
             inputs_s = time.perf_counter() - t_in
+            big = gssd_512(tmp, data)
+            folds = folds_phase(tmp)
         dcn_grad_cos = dcn_grads()
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
@@ -2459,8 +2812,10 @@ def main() -> int:
     for entry in kernels:
         if entry["name"].startswith("flash_attn"):
             entry["pixellink_sites"] = pl_sites["attention"]
+            entry["sites_512"] = big["kernels"]["attention"]
         elif entry["name"].startswith("deform_conv"):
             entry["pixellink_site"] = pl_sites["hat_dcn_75"]
+            entry["sites_512"] = big["kernels"]["hat_dcn_64"]
     recs = train_res["records"]
     print(json.dumps({"pixellink": {"batch": PL_BATCH, "steps": PL_ITERS,
                                     "ms_per_step": [r["ms"] for r in pl["records"]],
@@ -2492,6 +2847,9 @@ def main() -> int:
                                       "warp": warp_res, "wire_wait_ms": wire,
                                       "nproc": os.cpu_count(), "seconds": inputs_s,
                                       "power": smi}}))
+    print(json.dumps({"gssd512": {k: v for k, v in big.items() if k != "kernels"},
+                      "power": smi}))
+    print(json.dumps({"folds": folds, "power": smi}))
     print(json.dumps({"repeatability": {"bit_equal_calls": repeat_calls,
                                         "deterministic_step": det_step, "batch": DET_BATCH,
                                         "power": smi}}))

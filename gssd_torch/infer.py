@@ -8,18 +8,26 @@ per-image latency of each batch (host to device copy, forward, Detect
 and the copy back); the first batch, which builds the CUDA kernels and
 warms the allocator, is left out of the summary.
 
+The weights: ``--weights`` (a file), or a trainer checkpoint as the
+JAX package's ``infer.py`` finds it, ``--checkpoint N`` of fold
+``--fold f`` under ``--output`` and ``--model_name``:
+``<output>/checkpoints/<model_name>/<model_name>_<N>_CV<f>.pt``. A fold
+must lie below ``--cross_validation``.
+
 Runs on the GPU (``--device cuda``, the default) and refuses to start
 without one unless ``--device cpu`` is given.
 
-Example (GSSD++):
-  python -m gssd_torch.infer --reference_recipe gssd++ \
-      --datapath <ml_ready> --weights gssd_pp.pt --det_output dets.json
+Example (GSSD++, fold 3 of a 5-fold run):
+  python -m gssd_torch.infer --reference_recipe gssd++ --cross_validation 5 \
+      --datapath <ml_ready> --output runs/gssd_pp --checkpoint 60000 --fold 3 \
+      --det_output dets.json
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 from typing import Any, Dict
 
@@ -46,7 +54,7 @@ def build_parser():
     p.add_argument("--num_test_subjects", default=10, type=int)
     p.add_argument("--split", default="test", choices=["test", "all"])
     p.add_argument("--fold", default=0, type=int,
-                   help="the cross-validation fold's checkpoint (not ported yet: only 0)")
+                   help="the cross-validation fold whose --checkpoint to serve")
     # model
     p.add_argument("--ssd_type", default="gssd", choices=["gssd", "ssd"])
     p.add_argument("--ssd_dim", default=300, type=int)
@@ -78,6 +86,11 @@ def build_parser():
                    help="a .pt state_dict or trainer checkpoint of the port, "
                         "or an .npz of flat '/'-joined flax variables of the "
                         "JAX package")
+    p.add_argument("--checkpoint", default=None, type=int,
+                   help="serve the trainer's checkpoint of this iteration (and --fold) "
+                        "under --output and --model_name")
+    p.add_argument("--output", default="output", type=str)
+    p.add_argument("--model_name", default="gssd", type=str)
     p.add_argument("--device", default="cuda", type=str)
     p.add_argument("--det_output", default="detections.json", type=str)
     return p
@@ -121,9 +134,25 @@ def parse_args(argv=None):
     if args.reference_recipe is not None:
         parser.set_defaults(**REFERENCE_RECIPES[args.reference_recipe])
         args = parser.parse_args(argv)
-    if args.weights is None:
-        parser.error("--weights is required")
+    if (args.weights is None) == (args.checkpoint is None):
+        parser.error("give one of --weights and --checkpoint")
+    if args.fold and args.checkpoint is None:
+        parser.error("--fold picks a trainer checkpoint: give --checkpoint")
+    if not 0 <= args.fold < args.cross_validation:
+        raise ValueError(f"--fold {args.fold}: a {args.cross_validation}-fold split "
+                         f"(--cross_validation) has folds 0..{args.cross_validation - 1}")
     return args
+
+
+def weights_path(args) -> str:
+    """``--weights``, or the trainer checkpoint ``--checkpoint`` of fold
+    ``--fold``."""
+    if args.weights is not None:
+        return args.weights
+    from gssd_torch.train.checkpoint import checkpoint_path
+
+    return checkpoint_path(os.path.join(args.output, "checkpoints"), args.model_name,
+                           args.checkpoint, args.fold)
 
 
 def model_config(args) -> ModelConfig:
@@ -163,10 +192,6 @@ def load_weights(model: torch.nn.Module, path: str) -> None:
 
 def main(argv=None) -> Dict[str, Any]:
     args = parse_args(argv)
-    if args.fold != 0:
-        raise NotImplementedError("--fold other than 0: k-fold cross-validation is not ported "
-                                  "to gssd_torch yet (see ROADMAP.md, Queue A); use the JAX "
-                                  "infer.py")
     device = resolve_device(args.device)
 
     from gssd_torch.data import BaseTransform, DataSplitter, LesionDataset
@@ -174,7 +199,9 @@ def main(argv=None) -> Dict[str, Any]:
     from gssd_torch.train.steps import make_infer_step
 
     model, priors = build_model(model_config(args), device="cpu")
-    load_weights(model, args.weights)
+    weights = weights_path(args)
+    print(f"weights: {weights}", flush=True)
+    load_weights(model, weights)
     model = model.to(device).eval()
     infer_step = make_infer_step(model, torch.tensor(priors, device=device),
                                  DetectConfig(num_classes=args.num_classes))
@@ -233,7 +260,7 @@ def main(argv=None) -> Dict[str, Any]:
               f"(excl. first batch, batch={bs}, device={device})")
     print(f"wrote {len(results)} slices, {n_det} detections "
           f"-> {args.det_output}")
-    return {"detections": results, "latency_ms": lat_ms}
+    return {"detections": results, "latency_ms": lat_ms, "weights": weights}
 
 
 if __name__ == "__main__":

@@ -22,6 +22,14 @@ split into three bf16 parts) read <= ~3e-7; an online softmax reads
 (``tests/test_torch_flash_contract.py`` on the CPU, ``chip_smoke.py``
 and ``tests/test_torch_cuda.py`` on the card).
 
+``fwd_exact`` is the forward's contract computed exactly (f64 softmax,
+P rounded once to bf16, P.V in f64), the reference ``chip_smoke.py``
+holds the forward kernel to. Any f32 softmax, the plain version's
+too, puts the odd element of P on the other side of a bf16 rounding
+boundary than the exact value; where that element is large and the
+output small (few keys, small batch), that one flip moves the mean past
+the limit (one row of 128 outputs at N = 16, batch 8: ~3.6e-5).
+
 The emulations are plain PyTorch on any device: ``fwd_exp2`` and
 ``bwd_split(parts=3)`` keep the contract, ``fwd_online_softmax``,
 ``bwd_split(parts=2)`` and ``bwd_split(parts=1)`` (a bf16 dS) break it.
@@ -53,10 +61,12 @@ def contract_inputs(*tensors: torch.Tensor) -> Tuple[torch.Tensor, ...]:
 
 
 def mean_rel_err(got: torch.Tensor, want: torch.Tensor, scale: float = None) -> float:
-    """mean |got - want| / mean |want| in f32 (``scale`` replaces the
-    denominator where ``want`` is zero in exact arithmetic)."""
-    err = (got.float() - want.float()).abs().mean().item()
-    den = want.float().abs().mean().item() if scale is None else scale
+    """mean |got - want| / mean |want| in f32, or in f64 against an f64
+    ``want`` (``scale`` replaces the denominator where ``want`` is zero
+    in exact arithmetic)."""
+    dtype = torch.float64 if want.dtype == torch.float64 else torch.float32
+    err = (got.to(dtype) - want).abs().mean().item()
+    den = want.to(dtype).abs().mean().item() if scale is None else scale
     return err / den if den > 0 else (0.0 if err == 0 else math.inf)
 
 
@@ -101,6 +111,30 @@ def split_bf16(x: torch.Tensor, parts: int) -> List[torch.Tensor]:
         out.append(part)
         rest = rest - part.float()
     return out
+
+
+def round_bf16_exact(x: torch.Tensor) -> torch.Tensor:
+    """f64 ``x`` rounded once to bf16's 8 significant bits, to nearest
+    even, in f64 (no f32 step between, so no double rounding; values
+    below bf16's normal range keep 8 bits, which moves no sum here)."""
+    m, e = torch.frexp(x)
+    return torch.ldexp(torch.round(m * 256.0), e - 8)
+
+
+def fwd_exact(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward's contract computed exactly: logits and softmax in
+    f64, P rounded once to bf16 (``round_bf16_exact``), P.V summed in
+    f64; (o, lse) in f64. One batch element at a time, so the f64
+    logits of the largest sites stay small."""
+    out, lses = [], []
+    for b in range(q.shape[0]):
+        s = torch.matmul(q[b].double(), k[b].double().transpose(0, 1))
+        lse = torch.logsumexp(s, dim=-1)
+        p = round_bf16_exact(torch.exp(s - lse[:, None]))
+        out.append(torch.matmul(p, v[b].double()))
+        lses.append(lse)
+        del s, p
+    return torch.stack(out), torch.stack(lses)
 
 
 def fwd_exp2(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -17,7 +17,9 @@ keys, leaves as numpy arrays) onto the port's ``state_dict`` names:
   Cout] / ``bias`` and ``l2norm/weight``.
 
 Unknown leaves raise here; ``load_jax_variables`` loads strictly, so a
-missing or surplus key or a wrong shape raises too.
+missing or surplus key or a wrong shape raises too. ``load_jax_fold``
+loads one fold of a fold-stacked tree (``gssd_tpu.parallel.folds.
+stack_states``: every leaf with a leading fold axis).
 """
 
 from __future__ import annotations
@@ -78,3 +80,14 @@ def load_jax_variables(model: torch.nn.Module, variables: Mapping) -> None:
     """Load flax variables into ``model`` strictly (missing, surplus or
     misshapen entries raise)."""
     model.load_state_dict(from_jax_variables(variables), strict=True)
+
+
+def load_jax_fold(model: torch.nn.Module, stacked: Mapping, fold: int) -> None:
+    """Load fold ``fold`` of fold-stacked flax variables (each leaf
+    [K, ...], the numpy tree of a ``stack_states`` state's variables)
+    into ``model``, strictly."""
+    def take(tree):
+        return {k: take(v) if isinstance(v, Mapping) else np.array(np.asarray(v)[fold])
+                for k, v in tree.items()}
+
+    load_jax_variables(model, take(stacked))

@@ -1,43 +1,56 @@
 """Trainer CLI of the port: ``python -m gssd_torch.train``.
 
-One fold of the JAX package's ``train.py``, with its flag names: the
-training input path of ``--aug_method`` and ``--num_workers``, SGD with
-the published LR steps (x0.1 on dcn_* with ``--modify_dcn_lr``) and,
-every ``--val_every`` iterations from ``--speedrun`` on (and at the last
-iteration), the validation loss, the AP/IoBB evaluation of the
-validation and test sets and a checkpoint
-``<output>/checkpoints/<model_name>/<model_name>_<iter>_CV0.pt`` (step,
-model state, optimizer momenta; ``python -m gssd_torch.infer --weights``
-reads it too). ``--resume N`` restores checkpoint N and continues from
+The JAX package's ``train.py``, with its flag names: k-fold
+cross-validation (``--cross_validation K``, K independent folds through
+``gssd_torch.parallel.folds``), the training input path of
+``--aug_method`` and ``--num_workers``, SGD with the published LR steps
+(x0.1 on dcn_* with ``--modify_dcn_lr``) and, every ``--val_every``
+iterations from ``--speedrun`` on (and at the last iteration), the
+validation loss, the AP/IoBB evaluation of each fold's validation set
+and of the test set (logged per fold as ``eval_ap_cv<f>`` and
+``test_ap_cv<f>``, and as their means over the folds) and one checkpoint
+a fold, ``<output>/checkpoints/<model_name>/<model_name>_<iter>_CV<f>.pt``
+(step, model state, optimizer momenta; ``python -m gssd_torch.infer
+--weights`` reads it too, ``--checkpoint N --fold f`` finds it).
+``--resume N`` restores every fold's checkpoint N and continues from
 iteration N at the stored step's LR; ``--test True --checkpoint N``
-evaluates checkpoint N on the test set. Each iteration prints loss,
-loss_l, loss_c, lr, ms/step (the step from the batch on the device to
-the updated weights, synchronised) and the time spent waiting for the
-batch. Logs go to ``<output>/logs/<model_name>/`` (tab-separated text;
-TensorBoard too where it imports).
+evaluates each fold's checkpoint N on the test set and prints the mean
+over the folds. An iteration takes one SGD step of every fold, fold 0
+first; it prints the fold-mean loss parts (and with K > 1 each fold's
+loss), lr, the ms from the first batch on the device to the last fold's
+updated weights (synchronised) and the time spent waiting for the
+batches; slices/s count ``batch_size * K``. Logs go to
+``<output>/logs/<model_name>/`` (tab-separated text; TensorBoard too
+where it imports).
 
-Input paths (fold 0): ``--aug_method host`` augments on the host, in one
-thread or, with ``--num_workers > 1``, in forked worker processes whose
-stream is a function of (seed, batch index); ``device`` loads the raw
-slices the same ways and augments them on the card; ``device_cached``
-keeps the training split on the card and ships only each batch's
-indices and scalars. Every path reaches the step through
-``device_prefetch`` (pinned buffers, a side stream, two batches in
-flight). ``--profile_dir`` writes a ``torch.profiler`` trace of
+Per fold f (as the JAX trainer seeds them): the model from
+``fold_seed(seed, f)`` (``--seed`` itself for fold 0, so that a one-fold
+run is unchanged), the training stream and its augmentation from
+``seed + f``, the validation-loss stream from ``seed + 100 + f``.
+
+Input paths (each fold its own): ``--aug_method host`` augments on the
+host, in one thread or, with ``--num_workers > 1``, in forked worker
+processes whose stream is a function of (seed, batch index); ``device``
+loads the raw slices the same ways and augments them on the card;
+``device_cached`` keeps the fold's training split on the card and ships
+only each batch's indices and scalars. Every path reaches the step
+through ``device_prefetch`` (pinned buffers, a side stream, two batches
+in flight). ``--profile_dir`` writes a ``torch.profiler`` trace of
 iterations start+20 to start+30; ``--warmup_eval`` builds the CUDA
-kernels and runs the evaluation once at startup.
+kernels and runs every fold's evaluation step once at startup.
 
 ``prepare`` (device, data split, logs) and ``run`` (the loop,
 evaluation, checkpoints, resume, test mode) are shared with the
 PixelLink++ trainer, ``gssd_torch.train_pixellink``.
 
 Runs on the GPU (``--device cuda``, the default) and refuses to start
-without one unless ``--device cpu`` is given. Cross-validation folds and
-``--visualize`` are not ported yet (ROADMAP.md) and raise.
+without one unless ``--device cpu`` is given. ``--visualize`` is not
+ported yet (ROADMAP.md) and raises.
 
-Example (GSSD++ on synthetic data):
+Example (GSSD++ on synthetic data, 5 folds):
   python -m gssd_torch.train --reference_recipe gssd++ --synthetic True \
-      --batch_size 32 --max_iter 100 --aug_method device_cached --output runs/gssd_pp
+      --cross_validation 5 --batch_size 32 --max_iter 100 \
+      --aug_method device_cached --output runs/gssd_pp
 """
 
 from __future__ import annotations
@@ -48,7 +61,7 @@ import json
 import os
 import statistics
 import time
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -164,10 +177,9 @@ def parse_args(argv=None):
 
 
 def _refuse(args, unported=()) -> None:
-    """Raise for what the port does not do: k-fold, --visualize, and the
-    flags a trainer names in ``unported``."""
-    todo = {"--cross_validation > 1": args.cross_validation > 1,
-            "--visualize": args.visualize,
+    """Raise for what the port does not do: --visualize, and the flags a
+    trainer names in ``unported``."""
+    todo = {"--visualize": args.visualize,
             **{f"--{name}": bool(getattr(args, name)) for name in unported}}
     asked = [name for name, on in todo.items() if on]
     if asked:
@@ -176,6 +188,8 @@ def _refuse(args, unported=()) -> None:
             "ROADMAP.md)")
     if args.test and args.checkpoint is None:
         raise ValueError("--test requires --checkpoint")
+    if args.cross_validation < 1:
+        raise ValueError(f"--cross_validation {args.cross_validation}: at least 1 fold")
 
 
 def _floats(text: str):
@@ -201,14 +215,15 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
 
 @dataclasses.dataclass
 class Setup:
-    """What every trainer of the port builds before its model: the device,
-    the logger, the data split and the evaluation sets."""
+    """What every trainer of the port builds before its models: the
+    device, the logger, the data split and the evaluation sets (one
+    validation set a fold)."""
 
     device: torch.device
     logger: Any
     splitter: Any
     base_tf: Any
-    valid_set: Any
+    valid_sets: List[Any]
     test_set: Any
     ckpt_dir: str
     ap_list: List[float]
@@ -218,8 +233,8 @@ class Setup:
 def prepare(args, unported=()) -> Setup:
     """Refuse what is not ported (and the flags named in ``unported``),
     resolve the device (no card, no run unless --device cpu), generate
-    the synthetic set if asked, open the logs and split the data (one
-    fold)."""
+    the synthetic set if asked, open the logs and split the data into
+    ``--cross_validation`` folds and the test set."""
     _refuse(args, unported)
     device = resolve_device(args.device)
     from gssd_torch.data import (BaseTransform, DataSplitter, LesionDataset,
@@ -236,7 +251,7 @@ def prepare(args, unported=()) -> Setup:
     splitter = DataSplitter(args.datapath, args.cross_validation, args.num_test_subjects)
     return Setup(device, logger, splitter,
                  BaseTransform(args.ssd_dim, args.means, args.p_only, args.use_normalize),
-                 LesionDataset(args.datapath, splitter.data_cv_eval[0]),
+                 [LesionDataset(args.datapath, ids) for ids in splitter.data_cv_eval],
                  LesionDataset(args.datapath, splitter.data_test),
                  os.path.join(args.output, "checkpoints"),
                  _floats(args.ap_list), _floats(args.iobb_list))
@@ -248,10 +263,11 @@ def prepare(args, unported=()) -> Setup:
 PROFILE_WINDOW = (20, 30)
 
 
-def train_batches(args, setup: Setup, train_tf, collate_fn: Callable):
-    """The training batch stream of fold 0 for ``--aug_method`` and
-    ``--num_workers``, each batch's tensors on the device ->
-    (iterator, the loaders to close, a line naming the path).
+def train_batches(args, setup: Setup, train_tf, collate_fn: Callable, fold: int = 0):
+    """The training batch stream of ``fold`` (its training split, seed
+    ``--seed + fold``) for ``--aug_method`` and ``--num_workers``, each
+    batch's tensors on the device -> (iterator, the loaders to close, a
+    line naming the path).
 
     The multi-process loader and the device cache start at batch
     ``--resume`` (or ``--start_iter``), so a resumed run sees the batches
@@ -261,13 +277,14 @@ def train_batches(args, setup: Setup, train_tf, collate_fn: Callable):
     from gssd_torch.data import (BatchLoader, DeviceAugmentation, DeviceCacheLoader,
                                  LesionDataset, MPBatchLoader, collate_raw, device_prefetch)
 
-    device, ids = setup.device, setup.splitter.data_cv_train[0]
+    device, ids = setup.device, setup.splitter.data_cv_train[fold]
+    seed = args.seed + fold
     start = args.resume or getattr(args, "start_iter", 0) or 0
     aug_method = getattr(args, "aug_method", "host")
     if aug_method == "device_cached":
         cached = DeviceCacheLoader(
             LesionDataset(args.datapath, ids), args.batch_size, size=args.ssd_dim,
-            max_gt=args.max_gt, seed=args.seed, pixeljitter=args.gt_pixel_jitter,
+            max_gt=args.max_gt, seed=seed, pixeljitter=args.gt_pixel_jitter,
             ratio=args.expand_ratio, mean=args.means, use_normalize=args.use_normalize,
             start_batch=start, device=device)
         return (device_prefetch(cached, device), [],
@@ -278,12 +295,12 @@ def train_batches(args, setup: Setup, train_tf, collate_fn: Callable):
                             load_to_ram=args.load_data_to_ram)
     collate_fn = collate_raw if on_device else collate_fn
     if args.num_workers > 1:
-        loader = MPBatchLoader(dataset, args.batch_size, args.max_gt, seed=args.seed,
+        loader = MPBatchLoader(dataset, args.batch_size, args.max_gt, seed=seed,
                                collate_fn=collate_fn, num_workers=args.num_workers,
                                start_batch=start)
         how = f"{args.num_workers} worker processes, from batch {start}"
     else:
-        loader = BatchLoader(dataset, args.batch_size, args.max_gt, seed=args.seed,
+        loader = BatchLoader(dataset, args.batch_size, args.max_gt, seed=seed,
                              collate_fn=collate_fn)
         how = "one thread, from the stream's first batch"
     cast = {"image": torch.bfloat16} if args.compute_dtype == "bfloat16" else None
@@ -292,7 +309,7 @@ def train_batches(args, setup: Setup, train_tf, collate_fn: Callable):
         aug = DeviceAugmentation(
             size=args.ssd_dim, src_size=dataset.pull_image(0).shape[1],
             pixeljitter=args.gt_pixel_jitter, ratio=args.expand_ratio, mean=args.means,
-            use_normalize=args.use_normalize, seed=args.seed, max_gt=args.max_gt,
+            use_normalize=args.use_normalize, seed=seed, max_gt=args.max_gt,
             device=device)
         batches = (aug(b["raw_image"], b["boxes_list"], b["labels_list"]) for b in batches)
     return batches, [loader], f"{aug_method}: {how}"
@@ -318,87 +335,118 @@ def _profile_stop(prof, directory: str, first: int, last: int) -> str:
     return path
 
 
-def run(args, setup: Setup, model, optimizer, train_fn: Callable, valid_fn: Callable,
-        evaluate: Callable, train_tf, valid_tf, collate_fn: Callable,
-        parts: Tuple[Tuple[str, str], ...]) -> Dict[str, Any]:
+def run(args, setup: Setup, make_fold: Callable, collate_fn: Callable,
+        parts: Tuple[Tuple[str, str], ...], warm: Optional[Callable] = None) -> Dict[str, Any]:
     """The loop every trainer of the port shares, or with --test the
-    evaluation of a checkpoint.
+    evaluation of every fold's checkpoint.
 
-    ``train_fn(batch, step)`` takes one SGD step and returns its metrics
-    (device scalars, "lr" a float); ``valid_fn(batch)`` the validation
-    losses; ``evaluate(dataset, tag, iteration)`` the AP/IoBB dict, logged;
-    ``train_tf`` and ``valid_tf`` are the transforms of the training and
-    validation-loss loaders, ``collate_fn`` stacks their items; ``parts``
-    names the loss parts to print as (label, key). ``wait_ms`` of a
-    record is the host time blocked on the next batch, ``ms`` the step
-    after it, synchronised."""
+    ``make_fold(f)`` builds fold f's ``FoldMember`` (its model, optimizer,
+    step and evaluation closures and the transforms of its loaders; see
+    ``gssd_torch.parallel.folds``); ``collate_fn`` stacks the loaders'
+    items; ``parts`` names the loss parts to print as (label, key);
+    ``warm(members)``, if given, runs once before the first iteration.
+    A record's ``wait_ms`` is the host time blocked on the folds' next
+    batches, ``ms`` the K steps after it, synchronised; its metrics are
+    the means over the folds, ``folds`` holds each fold's."""
     from gssd_torch.data import BatchLoader, LesionDataset
+    from gssd_torch.parallel.folds import fold_mean, fold_train_step
     from gssd_torch.train.checkpoint import (checkpoint_path, load_weights_partial,
                                              restore_checkpoint, save_checkpoint)
 
     device, logger, ckpt_dir = setup.device, setup.logger, setup.ckpt_dir
+    k = args.cross_validation
     if args.test:
-        load_weights_partial(model, checkpoint_path(ckpt_dir, args.model_name,
-                                                    args.checkpoint, 0))
-        res = evaluate(setup.test_set, "test_ap_cv0", args.checkpoint)
-        print(f"[fold 0] {res}")
-        print("test mean over folds:", json.dumps(res), flush=True)
+        # one model serves every fold's checkpoint in turn: a checkpoint of
+        # the port holds the whole state, and what a partial load skips
+        # keeps the initialisation of --seed, as the JAX trainer's does
+        member, results = make_fold(0), []
+        for f in range(k):
+            load_weights_partial(member.model, checkpoint_path(ckpt_dir, args.model_name,
+                                                               args.checkpoint, f))
+            res = member.evaluate(setup.test_set, f"test_ap_cv{f}", args.checkpoint)
+            print(f"[fold {f}] {res}")
+            results.append(res)
+        mean = fold_mean(results)
+        print("test mean over folds:", json.dumps(mean), flush=True)
         logger.close()
-        return {"test": res}
+        return {"test": mean, "folds": results}
 
-    step, start_iter = 0, getattr(args, "start_iter", 0)
+    members = [make_fold(f) for f in range(k)]
+    start_iter = getattr(args, "start_iter", 0)
     if args.resume is not None:
-        step = restore_checkpoint(model, optimizer, ckpt_dir, args.model_name, args.resume, 0)
+        for m in members:
+            m.step = restore_checkpoint(m.model, m.optimizer, ckpt_dir, args.model_name,
+                                        args.resume, m.fold)
         start_iter = args.resume
-        print(f"resumed from iteration {args.resume} (step {step})")
+        steps = members[0].step if k == 1 else [m.step for m in members]
+        print(f"resumed from iteration {args.resume} (step {steps})")
+    if warm is not None:
+        warm(members)
 
-    batches, loaders, path = train_batches(args, setup, train_tf, collate_fn)
-    print(f"input: {path}", flush=True)
-    loaders.append(BatchLoader(LesionDataset(args.datapath, setup.splitter.data_cv_eval[0],
-                                             transform=valid_tf),
-                               args.batch_size, args.max_gt, seed=args.seed + 100,
-                               collate_fn=collate_fn))
-    valid_loader = iter(loaders[-1])
+    streams, valid_streams, loaders = [], [], []
+    for m in members:
+        batches, fold_loaders, path = train_batches(args, setup, m.train_tf, collate_fn, m.fold)
+        print(f"input{'' if k == 1 else f' (fold {m.fold})'}: {path}", flush=True)
+        valid_loader = BatchLoader(
+            LesionDataset(args.datapath, setup.splitter.data_cv_eval[m.fold],
+                          transform=m.valid_tf),
+            args.batch_size, args.max_gt, seed=args.seed + 100 + m.fold, collate_fn=collate_fn)
+        streams.append(batches)
+        valid_streams.append(iter(valid_loader))
+        loaders += fold_loaders + [valid_loader]
 
     def split(rec):
         return " ".join(f"{label}={rec[key]:.4f}" for label, key in parts)
 
+    def scalars(metrics):
+        return {key: (v if isinstance(v, float) else float(v.item())) for key, v in metrics.items()}
+
     def iteration(it):
-        nonlocal step
         t0 = time.perf_counter()
-        batch = next(batches)
+        batches = [next(s) for s in streams]
         t1 = time.perf_counter()
-        m = train_fn(batch, step)
-        step += 1
-        rec = {"iter": it, **{k: (v if isinstance(v, float) else float(v.item()))
-                              for k, v in m.items()}}
+        folds = [scalars(m) for m in fold_train_step(members, batches)]
         if device.type == "cuda":
             torch.cuda.synchronize(device)
-        rec["ms"] = (time.perf_counter() - t1) * 1e3
-        rec["wait_ms"] = (t1 - t0) * 1e3
+        rec = {"iter": it, **fold_mean(folds), "folds": folds,
+               "ms": (time.perf_counter() - t1) * 1e3, "wait_ms": (t1 - t0) * 1e3}
         records.append(rec)
-        print(f"iter {it}: loss={rec['loss']:.4f} ({split(rec)}) lr={rec['lr']:.2e} "
-              f"{rec['ms']:.1f} ms/step input_wait={rec['wait_ms']:.1f} ms", flush=True)
+        each = "" if k == 1 else " folds [" + " ".join(f"{f['loss']:.4f}" for f in folds) + "]"
+        print(f"iter {it}: loss={rec['loss']:.4f} ({split(rec)}){each} lr={rec['lr']:.2e} "
+              f"{rec['ms']:.1f} ms/{'step' if k == 1 else f'iteration ({k} steps)'} "
+              f"input_wait={rec['wait_ms']:.1f} ms", flush=True)
         if getattr(args, "log_iters", True) and it % 10 == 0:
             keys = ("loss", *(key for _, key in parts), "lr", "grad_norm")
-            logger.log_scalars("loss", it, {k: rec[k] for k in keys})
+            logger.log_scalars("loss", it, {key: rec[key] for key in keys})
 
         last = it == args.max_iter - 1
         if ((it % args.val_every == 0 and it > start_iter) or last) and it >= args.speedrun:
-            vm = valid_fn(to_device(next(valid_loader), device))
-            vrec = {k: float(v.item()) for k, v in vm.items()}
-            valid.append({"iter": it, **vrec})
+            vfolds = [scalars(m.valid_fn(to_device(next(vs), device)))
+                      for m, vs in zip(members, valid_streams)]
+            vrec = fold_mean(vfolds)
+            valid.append({"iter": it, **vrec, "folds": vfolds})
             logger.log_scalars("eval_loss", it, vrec, file="valid")
             print(f"iter {it} valid: loss={vrec['loss']:.4f} ({split(vrec)})", flush=True)
-            res_v = evaluate(setup.valid_set, "eval_ap_cv0", it)
-            res_t = evaluate(setup.test_set, "test_ap_cv0", it)
-            ckpt = save_checkpoint(model, optimizer, step, ckpt_dir, args.model_name, it, 0)
-            logger.log_scalars("eval_ap", it, res_v, file="valid")
-            logger.log_scalars("test_ap", it, res_t, file="test")
-            print(f"iter {it} valid: {json.dumps(res_v)}")
-            print(f"iter {it} test:  {json.dumps(res_t)}")
-            print(f"checkpoint -> {ckpt}", flush=True)
-            evals.append({"iter": it, "valid": res_v, "test": res_t, "checkpoint": ckpt})
+            per_fold = []
+            for m in members:
+                res_v = m.evaluate(setup.valid_sets[m.fold], f"eval_ap_cv{m.fold}", it)
+                res_t = m.evaluate(setup.test_set, f"test_ap_cv{m.fold}", it)
+                ckpt = save_checkpoint(m.model, m.optimizer, m.step, ckpt_dir, args.model_name,
+                                       it, m.fold)
+                per_fold.append({"valid": res_v, "test": res_t, "checkpoint": ckpt})
+                if k > 1:
+                    print(f"iter {it} fold {m.fold} valid: {json.dumps(res_v)} test: "
+                          f"{json.dumps(res_t)}")
+            mean_v = fold_mean([p["valid"] for p in per_fold])
+            mean_t = fold_mean([p["test"] for p in per_fold])
+            logger.log_scalars("eval_ap", it, mean_v, file="valid")
+            logger.log_scalars("test_ap", it, mean_t, file="test")
+            print(f"iter {it} valid: {json.dumps(mean_v)}")
+            print(f"iter {it} test:  {json.dumps(mean_t)}")
+            for p in per_fold:
+                print(f"checkpoint -> {p['checkpoint']}", flush=True)
+            evals.append({"iter": it, "valid": mean_v, "test": mean_t,
+                          "checkpoint": per_fold[0]["checkpoint"], "folds": per_fold})
 
     records, valid, evals, traces = [], [], [], []
     prof = None
@@ -423,32 +471,38 @@ def run(args, setup: Setup, model, optimizer, train_fn: Callable, valid_fn: Call
 
     steps = [r["ms"] for r in records[1:]] or [r["ms"] for r in records]
     median = statistics.median(steps) if steps else float("nan")
-    print(f"median {median:.1f} ms/step after the first step, "
-          f"{args.batch_size / median * 1e3:.1f} slices/s (batch {args.batch_size}, "
-          f"device {device})", flush=True)
+    slices = args.batch_size * k / median * 1e3
+    what = "step" if k == 1 else f"iteration ({k} folds)"
+    print(f"median {median:.1f} ms/{what} after the first, {slices:.1f} slices/s (batch "
+          f"{args.batch_size}{'' if k == 1 else f' x {k} folds'}, device {device})", flush=True)
     return {"records": records, "valid": valid, "evals": evals, "median_step_ms": median,
-            "weights": evals[-1]["checkpoint"] if evals else None, "step": step,
-            "traces": traces, "model": model, "optimizer": optimizer}
+            "slices_per_s": slices,
+            "weights": evals[-1]["checkpoint"] if evals else None, "step": members[0].step,
+            "traces": traces, "model": members[0].model, "optimizer": members[0].optimizer,
+            "folds": members}
 
 
-def warm_eval(args, model, priors, loss_cfg, infer_step, device) -> None:
-    """--warmup_eval: build the CUDA kernels, then run the validation-loss
-    step on a batch of ``--batch_size`` and the inference forward on one
-    of ``--eval_batch`` (zeros), so that the first evaluation pays for
-    neither. Eval mode: the model's state does not change."""
+def warm_eval(args, members, device) -> None:
+    """--warmup_eval: build the CUDA kernels, then run every fold's
+    validation-loss step on a batch of ``--batch_size`` and fold 0's
+    inference step on one of ``--eval_batch`` (zeros), as the JAX
+    trainer warms its vmapped evaluation step and fold 0's inference, so
+    that the first evaluation pays for neither. Eval mode: no model's
+    state changes."""
     from gssd_torch.ops.kernels import KERNELS, build
-    from gssd_torch.train.steps import eval_step
 
     if device.type == "cuda":
         build(KERNELS.values())
     size, channels = args.ssd_dim, model_config(args).in_channels
     b, g = args.batch_size, args.max_gt
-    eval_step(model, priors, {
+    batch = {
         "image": torch.zeros((b, size, size, channels), device=device),
         "boxes": torch.tensor([0.3, 0.3, 0.6, 0.6], device=device).repeat(b, g, 1),
         "labels": torch.zeros((b, g), dtype=torch.int32, device=device),
-        "valid": torch.ones((b, g), dtype=torch.bool, device=device)}, loss_cfg)
-    infer_step(torch.zeros((args.eval_batch, size, size, channels)))
+        "valid": torch.ones((b, g), dtype=torch.bool, device=device)}
+    for member in members:
+        member.valid_fn(batch)
+    members[0].infer(torch.zeros((args.eval_batch, size, size, channels)))
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     print("eval executables warmed", flush=True)
@@ -456,55 +510,67 @@ def warm_eval(args, model, priors, loss_cfg, infer_step, device) -> None:
 
 def main(argv=None) -> Dict[str, Any]:
     """Train (or, with --test, evaluate a checkpoint). Returns {"records":
-    one dict per iteration, "valid": the validation losses, "evals": per
-    evaluation the iteration, the valid and test AP/IoBB and the
-    checkpoint, "median_step_ms": median ms/step after the first step,
-    "weights": the last checkpoint written (None if none), "step": SGD
-    steps taken in all, "traces": the --profile_dir trace files written,
-    "model", "optimizer"}; with --test, {"test": the AP/IoBB of the
-    checkpoint}."""
+    one dict per iteration (the fold means, and "folds": each fold's),
+    "valid": the validation losses, "evals": per evaluation the
+    iteration, the fold-mean valid and test AP/IoBB, fold 0's checkpoint
+    and "folds": each fold's AP/IoBB and checkpoint, "median_step_ms":
+    median ms an iteration after the first, "slices_per_s": batch x K
+    over it, "weights": fold 0's last checkpoint (None if none), "step":
+    SGD steps taken by each fold, "traces": the --profile_dir trace files
+    written, "model", "optimizer": fold 0's, "folds": every fold's
+    ``FoldMember``}; with --test, {"test": the mean over the folds of the
+    checkpoints' AP/IoBB, "folds": each fold's}."""
     args = parse_args(argv)
     setup = prepare(args)
 
     from gssd_torch.data import SSDAugmentation, collate
     from gssd_torch.eval import run_detection_eval
     from gssd_torch.models import build_model
+    from gssd_torch.parallel.folds import FoldMember, fold_seed
     from gssd_torch.train.optim import make_optimizer
     from gssd_torch.train.steps import eval_step, make_infer_step, train_step
 
     device, logger = setup.device, setup.logger
-    model, priors = build_model(model_config(args), device="cpu", seed=args.seed)
-    model = model.to(device)
-    priors_t = torch.tensor(priors, device=device)
     loss_cfg = LossConfig(num_classes=args.num_classes, overlap_thresh=args.jaccard_threshold,
                           neg_pos_ratio=args.ohnm_neg_ratio, max_gt_boxes=args.max_gt)
     optim_cfg = OptimConfig(lr=args.lr, momentum=args.momentum,
                             weight_decay=args.weight_decay, gamma=args.gamma,
                             stepvalues=tuple(args.stepvalues), clip=args.clip,
                             modify_dcn_lr=args.modify_dcn_lr)
-    optimizer = make_optimizer(model, optim_cfg)
-    infer_step = make_infer_step(model, priors_t, DetectConfig(num_classes=args.num_classes))
+    def make_fold(f):
+        model, priors = build_model(model_config(args), device="cpu",
+                                    seed=fold_seed(args.seed, f))
+        model = model.to(device)
+        priors_t = torch.tensor(priors, device=device)
+        optimizer = make_optimizer(model, optim_cfg)
+        infer_step = make_infer_step(model, priors_t, DetectConfig(num_classes=args.num_classes))
 
-    def evaluate(dataset, tag, iteration):
-        sink: Dict[str, np.ndarray] = {}
-        res = run_detection_eval(
-            lambda batch: infer_step(batch).cpu().numpy(), dataset, setup.base_tf,
-            setup.ap_list, setup.iobb_list, args.confidence_threshold, args.use_07_metric,
-            args.eval_batch, score_sink=sink)
-        logger.log_scalars(tag, iteration, res, file="test")
-        logger.log_histogram(f"{tag}/scores_raw", iteration, sink["raw"])
-        logger.log_histogram(f"{tag}/scores_filtered", iteration, sink["filtered"])
-        return res
+        def evaluate(dataset, tag, iteration):
+            sink: Dict[str, np.ndarray] = {}
+            res = run_detection_eval(
+                lambda batch: infer_step(batch).cpu().numpy(), dataset, setup.base_tf,
+                setup.ap_list, setup.iobb_list, args.confidence_threshold,
+                args.use_07_metric, args.eval_batch, score_sink=sink)
+            logger.log_scalars(tag, iteration, res, file="test")
+            logger.log_histogram(f"{tag}/scores_raw", iteration, sink["raw"])
+            logger.log_histogram(f"{tag}/scores_filtered", iteration, sink["filtered"])
+            return res
 
-    if (args.warmup_eval and not args.test and args.val_every <= args.max_iter
-            and args.speedrun <= args.max_iter):
-        warm_eval(args, model, priors_t, loss_cfg, infer_step, device)
-    aug = SSDAugmentation(pixeljitter=args.gt_pixel_jitter, ratio=args.expand_ratio,
-                          size=args.ssd_dim, mean=args.means,
-                          use_normalize=args.use_normalize, p_only=args.p_only,
-                          seed=args.seed)
-    return run(args, setup, model, optimizer,
-               lambda batch, step: train_step(model, optimizer, priors_t, batch, loss_cfg,
-                                              optim_cfg, step),
-               lambda batch: eval_step(model, priors_t, batch, loss_cfg),
-               evaluate, aug, setup.base_tf, collate, (("l", "loss_l"), ("c", "loss_c")))
+        aug = SSDAugmentation(pixeljitter=args.gt_pixel_jitter, ratio=args.expand_ratio,
+                              size=args.ssd_dim, mean=args.means,
+                              use_normalize=args.use_normalize, p_only=args.p_only,
+                              seed=args.seed + f)
+        return FoldMember(
+            f, model, optimizer,
+            lambda batch, step: train_step(model, optimizer, priors_t, batch, loss_cfg,
+                                           optim_cfg, step),
+            lambda batch: eval_step(model, priors_t, batch, loss_cfg),
+            evaluate, aug, setup.base_tf, infer=infer_step)
+
+    def warm(members):
+        warm_eval(args, members, device)
+
+    warming = (args.warmup_eval and not args.test and args.val_every <= args.max_iter
+               and args.speedrun <= args.max_iter)
+    return run(args, setup, make_fold, collate, (("l", "loss_l"), ("c", "loss_c")),
+               warm if warming else None)

@@ -1,25 +1,28 @@
 """PixelLink++ trainer of the port: ``python -m gssd_torch.train_pixellink``.
 
-One fold of the JAX package's ``train_pixellink.py``, with its flag
-names and recipes (``--reference_recipe pixellink++``: batch 16, lr
+The JAX package's ``train_pixellink.py``, with its flag names and
+recipes (``--reference_recipe pixellink++``: batch 16, lr
 5e-4, no LR steps, x0.1 LR on dcn_*, attention recomputed in the
 backward): host augmentation with the pixel/link target maps, the 2:1
 weighted pixel and link loss, and every ``--val_every`` iterations from
 ``--speedrun`` on (and at the last iteration) the validation loss, the
 AP/IoBB evaluation of the validation and test sets through the
-union-find mask decoder, and a checkpoint
-``<output>/checkpoints/<model_name>/<model_name>_<iter>_CV0.pt``.
-``--resume N`` continues from checkpoint N; ``--test True --checkpoint
-N`` evaluates checkpoint N on the test set. The loop, checkpoints and
-logs are ``gssd_torch.train.trainer``'s.
+union-find mask decoder, and a checkpoint a fold
+``<output>/checkpoints/<model_name>/<model_name>_<iter>_CV<f>.pt``.
+``--cross_validation K`` trains K independent folds side by side
+(``gssd_torch.parallel.folds``; fold f's augmentation seeded with
+``seed + f``, its validation targets' with ``seed + 100 + f``, as in the
+JAX trainer) and logs the means over the folds. ``--resume N`` continues
+every fold from checkpoint N; ``--test True --checkpoint N`` evaluates
+each fold's checkpoint N on the test set and prints their mean. The
+loop, checkpoints and logs are ``gssd_torch.train.trainer``'s.
 
 Runs on the GPU (``--device cuda``, the default) and refuses to start
 without one unless ``--device cpu`` is given. ``--num_workers > 1``
 builds the batches in forked worker processes, a stream that
-``--resume`` continues exactly. Cross-validation folds and
-``--visualize`` are not ported yet (ROADMAP.md) and raise; so do
-``--profile_dir`` and ``--warmup_eval``, which the JAX package's
-PixelLink trainer does not have. The stem's wide-conv kernels run only when
+``--resume`` continues exactly. ``--visualize`` is not ported yet
+(ROADMAP.md) and raises; so do ``--profile_dir`` and ``--warmup_eval``,
+which the JAX package's PixelLink trainer does not have. The stem's wide-conv kernels run only when
 ``gssd_torch.ops.layers.USE_WIDE_CONV_KERNEL`` is set in-process, as
 ``USE_PALLAS_WIDE_CONV`` is in the JAX package.
 
@@ -161,8 +164,8 @@ def pixellink_config(args) -> PixelLinkConfig:
 
 
 def main(argv=None) -> Dict[str, Any]:
-    """Train (or, with --test, evaluate a checkpoint); returns what
-    ``gssd_torch.train.trainer.run`` returns, the records' loss parts
+    """Train (or, with --test, evaluate each fold's checkpoint); returns
+    what ``gssd_torch.train.trainer.run`` returns, the records' loss parts
     being pixel_loss and link_loss."""
     args = parse_args(argv)
     setup = prepare(args, unported=("profile_dir", "warmup_eval"))
@@ -170,27 +173,16 @@ def main(argv=None) -> Dict[str, Any]:
     from gssd_torch.data import SSDAugmentation, collate_pixellink
     from gssd_torch.eval import run_detection_eval
     from gssd_torch.models.pixellink import build_pixellink
+    from gssd_torch.parallel.folds import FoldMember, fold_seed
     from gssd_torch.train.optim import make_optimizer
     from gssd_torch.train.steps import (make_pixellink_forward, pixellink_eval_step,
                                         pixellink_train_step)
 
     plc = pixellink_config(args)
-    model = build_pixellink(plc, args.cascade_fuse, args.batch_norm, args.compute_dtype,
-                            args.dcn_impl, device="cpu", seed=args.seed).to(setup.device)
     optim_cfg = OptimConfig(lr=args.lr, momentum=args.momentum,
                             weight_decay=args.weight_decay, gamma=args.gamma,
                             stepvalues=tuple(args.stepvalues), clip=args.clip,
                             modify_dcn_lr=args.modify_dcn_lr)
-    optimizer = make_optimizer(model, optim_cfg)
-    forward = make_pixellink_forward(model, setup.device)
-
-    def evaluate(dataset, tag, iteration):
-        res = run_detection_eval(
-            forward, dataset, setup.base_tf, setup.ap_list, setup.iobb_list,
-            args.confidence_threshold, args.use_07_metric, args.eval_batch,
-            use_pixel_link=True, img_size=args.ssd_dim, pl_cfg=plc)
-        setup.logger.log_scalars(tag, iteration, res, file="test")
-        return res
 
     def augmentation(jitter, seed):
         return SSDAugmentation(pixeljitter=jitter, ratio=args.expand_ratio,
@@ -199,14 +191,32 @@ def main(argv=None) -> Dict[str, Any]:
                                seed=seed, pixel_link_size=args.ssd_dim,
                                pixel_link_version=args.version)
 
-    # the validation loss needs the target maps too: the augmentation
-    # without jitter, as in the JAX trainer
-    return run(args, setup, model, optimizer,
-               lambda batch, step: pixellink_train_step(model, optimizer, batch, plc,
-                                                        optim_cfg, step),
-               lambda batch: pixellink_eval_step(model, batch, plc),
-               evaluate, augmentation(args.gt_pixel_jitter, args.seed),
-               augmentation(0.0, args.seed + 100), collate_pixellink,
+    def make_fold(f):
+        model = build_pixellink(plc, args.cascade_fuse, args.batch_norm, args.compute_dtype,
+                                args.dcn_impl, device="cpu",
+                                seed=fold_seed(args.seed, f)).to(setup.device)
+        optimizer = make_optimizer(model, optim_cfg)
+        forward = make_pixellink_forward(model, setup.device)
+
+        def evaluate(dataset, tag, iteration):
+            res = run_detection_eval(
+                forward, dataset, setup.base_tf, setup.ap_list, setup.iobb_list,
+                args.confidence_threshold, args.use_07_metric, args.eval_batch,
+                use_pixel_link=True, img_size=args.ssd_dim, pl_cfg=plc)
+            setup.logger.log_scalars(tag, iteration, res, file="test")
+            return res
+
+        # the validation loss needs the target maps too: the augmentation
+        # without jitter, as in the JAX trainer
+        return FoldMember(
+            f, model, optimizer,
+            lambda batch, step: pixellink_train_step(model, optimizer, batch, plc,
+                                                     optim_cfg, step),
+            lambda batch: pixellink_eval_step(model, batch, plc), evaluate,
+            augmentation(args.gt_pixel_jitter, args.seed + f),
+            augmentation(0.0, args.seed + 100 + f))
+
+    return run(args, setup, make_fold, collate_pixellink,
                (("pixel", "pixel_loss"), ("link", "link_loss")))
 
 

@@ -1,7 +1,9 @@
 """The attention kernels' rounding contract on the CPU: the mean-error
 check (``flash_contract.mean_rel_err`` against ``MEAN_TOL``) passes the
 exact reorderings a kernel may make and rejects the usual violations,
-measured against the plain versions the card checks use.
+measured against the plain versions, and for the forward also against
+the contract computed in f64 (``fwd_exact``), the reference the card
+check holds the forward kernel to.
 
 - exact: exp2 in place of exp in the forward; dS split into three bf16
   parts for the dQ and dK products (the split sums back to dS exactly);
@@ -110,3 +112,33 @@ def test_contract_inputs_make_the_logits_exact():
     q, k, _, _ = fc.contract_inputs(*_inputs(3, 2, 50, 40, 128, 16))
     s32 = torch.matmul(q.float(), k.float().transpose(1, 2))
     assert torch.equal(s32.double(), torch.matmul(q.double(), k.double().transpose(1, 2)))
+
+
+def test_exact_rounding_is_the_bf16_cast():
+    # on f32 values, round_bf16_exact is the f32 -> bf16 cast (nearest
+    # even), ties and values across 33 binades included
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy((rng.random(100_000) * 2.0 ** rng.integers(-30, 3, 100_000))
+                         .astype(np.float32))
+    ties = torch.tensor([1 + 2 ** -8, 1 + 3 * 2 ** -8, 0.5 + 2 ** -9, 2 ** -20 * (1 + 2 ** -8)])
+    x = torch.cat([x, ties])
+    assert torch.equal(fc.round_bf16_exact(x.double()), x.bfloat16().double())
+
+
+@pytest.mark.parametrize("name", ["plain", "exp2", "online_softmax"])
+def test_forward_readings_against_the_exact_contract(site, name):
+    # the reference the card holds the forward kernel to: the plain
+    # version and the exp2 softmax keep the contract against it (their
+    # f32 softmaxes flip the odd bf16 element of P: ~1.7e-6 here), the
+    # online softmax does not; its lse is the plain version's
+    q, k, v, _, o, lse, _ = site
+    want, want_lse = fc.fwd_exact(q, k, v)
+    assert want.dtype == torch.float64 and want.shape == o.shape
+    assert fc.mean_rel_err(lse, want_lse) < 1e-7
+    got = {"plain": o, "exp2": fc.fwd_exp2(q, k, v)[0],
+           "online_softmax": fc.fwd_online_softmax(q, k, v)[0]}[name]
+    err = fc.mean_rel_err(got, want)
+    if name == "online_softmax":
+        assert err > 10 * fc.mean_limit("o", want)
+    else:
+        assert err < fc.mean_limit("o", want) / 4

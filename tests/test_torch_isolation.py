@@ -49,6 +49,7 @@ def test_imports_with_jax_blocked():
         "import gssd_torch.eval.pixellink_decode, gssd_torch.ops.pixellink_loss\n"
         "import gssd_torch.data.pixellink_targets, gssd_torch.data.dataset\n"
         "import gssd_torch.data.augment_device, gssd_torch.data.device_cache\n"
+        "import gssd_torch.parallel, gssd_torch.parallel.folds\n"
         "loaded = [m for m in sys.modules if m.split('.')[0] in "
         f"{BLOCKED!r} and sys.modules[m] is not None]\n"
         "assert not loaded, loaded\n"

@@ -448,11 +448,31 @@ def test_trainer_cli_takes_the_input_paths(tmp_path, capsys, monkeypatch, flag):
 
 
 @pytest.mark.parametrize("flag", [["--cross_validation", "2"], ["--visualize", "True"]])
-def test_trainer_cli_refuses_what_is_not_ported(flag):
+def test_trainer_cli_refuses_what_is_not_ported(flag, tmp_path, capsys, monkeypatch):
+    """--visualize is not ported and raises. --cross_validation 2 trains two
+    folds side by side at a 64 x 64 input: one step each, an evaluation
+    and a checkpoint a fold, the logged AP/IoBB the means of the folds'."""
     from gssd_torch import train_pixellink
+    from gssd_torch.data import make_synthetic_dataset
+    from gssd_torch.parallel.folds import fold_mean
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        train_pixellink.main(["--device", "cpu", *flag])
+    if flag[0] == "--visualize":
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            train_pixellink.main(["--device", "cpu", *flag])
+        return
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    data = tmp_path / "ml"
+    make_synthetic_dataset(str(data), num_subjects=6, slices_per_subject=1, image_size=64)
+    res = _cli(data, tmp_path / "run", *flag, "--max_iter", "1", "--speedrun", "0")
+    (rec,) = res["records"]
+    assert len(rec["folds"]) == 2 and all(np.isfinite(f["loss"]) for f in rec["folds"])
+    assert rec["loss"] == pytest.approx(np.mean([f["loss"] for f in rec["folds"]]), rel=1e-12)
+    (ev,) = res["evals"]
+    assert [p["checkpoint"].rsplit("_", 1)[1] for p in ev["folds"]] == ["CV0.pt", "CV1.pt"]
+    assert all(os.path.exists(p["checkpoint"]) for p in ev["folds"])
+    for split in ("valid", "test"):
+        assert ev[split] == fold_mean([p[split] for p in ev["folds"]])
+    assert "iter 0 fold 1 valid:" in capsys.readouterr().out
 
 
 def test_recipe_sets_the_published_flags():

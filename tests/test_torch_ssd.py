@@ -28,9 +28,9 @@ GSSD_PP = dict(ssd_type="gssd", batch_norm=True, use_fuseconv=True,
                compute_dtype="float32", dcn_impl="xla")
 
 
-def _seeded_variables(model, rng):
+def _seeded_variables(model, rng, size=300):
     shapes = jax.eval_shape(
-        lambda: model.init(jax.random.PRNGKey(0), jnp.zeros((1, 300, 300, 12)),
+        lambda: model.init(jax.random.PRNGKey(0), jnp.zeros((1, size, size, 12)),
                            train=False))
 
     def draw(path, s):
@@ -76,20 +76,32 @@ def gssd_pp():
     return model, _seeded_variables(model, np.random.default_rng(7))
 
 
-def test_full_width_forward_matches_jax(gssd_pp):
-    jmodel, variables = gssd_pp
-    x = np.random.default_rng(0).uniform(0, 1, (1, 300, 300, 12)).astype(np.float32)
+# input size -> (priors, the DCN site's side): v2 at 300, v2_512 at 512
+SIZES = {300: (8732, 38), 512: (24564, 64)}
+
+
+@pytest.mark.parametrize("size", sorted(SIZES))
+def test_full_width_forward_matches_jax(gssd_pp, size):
+    if size == 300:
+        jmodel, variables = gssd_pp
+    else:
+        jmodel, jpriors = jax_build_model(JaxModelConfig(**GSSD_PP, size=size))
+        variables = _seeded_variables(jmodel, np.random.default_rng(7), size)
+    x = np.random.default_rng(0).uniform(0, 1, (1, size, size, 12)).astype(np.float32)
     want = jax.jit(jmodel.apply)(variables, jnp.asarray(x))
 
-    model, priors = build_model(ModelConfig(**GSSD_PP), device="cpu")
+    model, priors = build_model(ModelConfig(**GSSD_PP, size=size), device="cpu")
     load_jax_variables(model, variables)
     with torch.inference_mode():
         got = model.eval()(torch.from_numpy(x))
 
-    assert got["loc"].shape == (1, priors.shape[0], 4) == (1, 8732, 4)
-    assert got["conf"].shape == (1, 8732, 2)
+    n_priors, side = SIZES[size]
+    assert got["loc"].shape == (1, priors.shape[0], 4) == (1, n_priors, 4)
+    assert got["conf"].shape == (1, n_priors, 2)
+    if size != 300:  # the port's anchors are JAX's v2_512 table
+        np.testing.assert_allclose(priors, np.asarray(jpriors), rtol=0, atol=1e-7)
     offs_want = np.asarray(want["offsets"][0])
-    assert got["offsets"][0].shape == offs_want.shape == (1, 38, 38, 4, 9, 2)
+    assert got["offsets"][0].shape == offs_want.shape == (1, side, side, 4, 9, 2)
     assert np.abs(offs_want).max() > 0.5  # the DCN samples off-grid
     # f32 on both sides; only the summation order of the convolutions
     # differs (including the JAX package's default pair-mode grouped

@@ -145,14 +145,6 @@ def test_trainer_cli_then_serving_cli(tmp_path, capsys, monkeypatch):
     assert len(dets[0]["scores"]) == len(dets[0]["boxes"]) > 0
 
 
-@pytest.mark.parametrize("flag", [["--cross_validation", "2"], ["--visualize", "True"]])
-def test_trainer_refuses_what_is_not_ported(flag):
-    from gssd_torch.train import main
-
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        main(["--device", "cpu", *flag])
-
-
 @pytest.fixture(scope="module")
 def small_data(tmp_path_factory):
     from gssd_torch.data import make_synthetic_dataset
@@ -160,6 +152,41 @@ def small_data(tmp_path_factory):
     data = tmp_path_factory.mktemp("ml_small")
     make_synthetic_dataset(str(data), num_subjects=6, slices_per_subject=1, image_size=64)
     return str(data)
+
+
+@pytest.mark.parametrize("flag", [["--cross_validation", "2"], ["--visualize", "True"]])
+def test_trainer_refuses_what_is_not_ported(flag, small_data, tmp_path, monkeypatch):
+    """--visualize is not ported and raises. --cross_validation 2 runs:
+    one iteration steps two folds, each its own model (fold 1's built
+    from fold_seed(seed, 1)) and optimizer, on its own batch; the record
+    holds the mean of the two folds' losses."""
+    from gssd_torch.parallel.folds import fold_seed
+    from gssd_torch.train import main
+
+    if flag[0] == "--visualize":
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            main(["--device", "cpu", *flag])
+        return
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    res = main(["--reference_recipe", "gssd", "--datapath", small_data, "--num_test_subjects",
+                "1", "--batch_size", "1", "--max_iter", "1", "--speedrun", "5",
+                "--compute_dtype", "float32", "--device", "cpu", "--output", str(tmp_path),
+                *flag])
+    (rec,) = res["records"]
+    losses = [f["loss"] for f in rec["folds"]]
+    assert len(losses) == 2 and all(np.isfinite(losses)) and losses[0] != losses[1]
+    assert rec["loss"] == pytest.approx(np.mean(losses), rel=1e-12)
+    folds = res["folds"]
+    assert [m.fold for m in folds] == [0, 1] and [m.step for m in folds] == [1, 1]
+    assert folds[0].optimizer is not folds[1].optimizer
+    # after one step each fold's weights still lie far nearer their own
+    # initialisation than the other fold's
+    name = "vgg_1.conv.weight"
+    init = [build_model(m.model.cfg, device="cpu", seed=fold_seed(1111, m.fold))[0]
+            .state_dict()[name] for m in folds]
+    for m in folds:
+        dist = [(m.model.state_dict()[name] - w).norm() for w in init]
+        assert dist[m.fold] < dist[1 - m.fold] / 3, dist
 
 
 def _one_step(data, out, *extra):
@@ -208,8 +235,9 @@ def test_cli_takes_the_reference_flags_and_refuses_them(cli, flag, default, smal
     # the JAX CLIs' flags (train.py --profile_dir, --warmup_eval; infer.py
     # --fold) parse with their defaults. The GSSD++ trainer runs the first
     # two: a trace file of the traced iteration, the warm-up line. The
-    # PixelLink++ trainer (whose JAX counterpart has neither) and infer's
-    # --fold refuse them.
+    # PixelLink++ trainer (whose JAX counterpart has neither) refuses them.
+    # infer --fold 1 serves the trainer's checkpoint of fold 1 (_CV1) and
+    # refuses a fold beyond --cross_validation.
     import importlib
 
     mod = importlib.import_module("gssd_torch.train.trainer" if cli == "train"
@@ -229,9 +257,35 @@ def test_cli_takes_the_reference_flags_and_refuses_them(cli, flag, default, smal
                       "--val_every", "1", "--eval_batch", "1")
             assert "eval executables warmed" in capsys.readouterr().out
         return
-    argv = ["--device", "cpu", *flag] + (["--weights", "w.pt"] if cli == "infer" else [])
+    if cli == "infer":
+        from gssd_torch.train.checkpoint import save_checkpoint
+
+        model, _ = build_model(mod.model_config(mod.parse_args(
+            ["--reference_recipe", "gssd", "--weights", "w.pt"])), device="cpu", seed=5)
+        opt = make_optimizer(model, OptimConfig())
+        ckpts = str(tmp_path / "run" / "checkpoints")
+        saved = [save_checkpoint(model, opt, 0, ckpts, "GSSD", 7, f) for f in (0, 1)]
+        with torch.no_grad():  # fold 0's checkpoint holds other weights
+            for p in model.parameters():
+                p.mul_(0.5)
+        save_checkpoint(model, opt, 0, ckpts, "GSSD", 7, 0)
+        argv = ["--reference_recipe", "gssd", "--datapath", small_data, "--device", "cpu",
+                "--num_test_subjects", "1", "--compute_dtype", "float32", "--eval_batch", "1",
+                "--confidence_threshold", "0.0", "--output", str(tmp_path / "run"),
+                "--checkpoint", "7", "--cross_validation", "2"]
+        dets = []
+        for fold in ("1", "0"):
+            out = tmp_path / f"dets{fold}.json"
+            mod.main(argv + ["--fold", fold, "--det_output", str(out)])
+            dets.append(json.loads(out.read_text()))
+        assert f"weights: {saved[1]}" in capsys.readouterr().out
+        assert [d["id"] for d in dets[0]] == ["synth005_0"] and len(dets[0][0]["scores"]) > 0
+        assert dets[0] != dets[1]
+        with pytest.raises(ValueError, match="--fold 2"):
+            mod.main(argv + ["--fold", "2"])
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        mod.main(argv)
+        mod.main(["--device", "cpu", *flag])
 
 
 def test_remat_attention_step_equals_plain_step():
