@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """GPU smoke run of the port (gssd_torch) on one card: the serving path,
 the training step, the three DCN routes, the trainer's evaluation,
-checkpoints and resume, and PixelLink++ (4s) with the stem kernels.
+checkpoints and resume, and PixelLink++ (4s and 2s) with the stem kernels.
 
     python3 chip_smoke.py        # from the root of a checkout
 
@@ -17,8 +17,8 @@ In order, failing (exit code 1) at the first phase that goes wrong:
    KERNEL_TOL * max |plain| for every output; the attention kernels also
    keep their rounding contract (``gssd_torch/ops/kernels/flash_contract.py``):
    mean |kernel - reference| / mean |reference| per output within its
-   limit on contract inputs (the forward against the contract computed
-   in f64, ``fwd_exact``; the backward against the plain version), while
+   limit on contract inputs (against the contract computed in f64:
+   ``fwd_exact``, ``bwd_exact``), while
    a planted online-softmax forward, bf16-dS backward and two-part dS
    split, in plain PyTorch on the card, must read above it; so do the hat DCN kernels
    (``gssd_torch/ops/kernels/dcn_contract.py``: forward at batch 8 and
@@ -155,7 +155,31 @@ In order, failing (exit code 1) at the first phase that goes wrong:
    --fold 3`` serving ``_CV3``; ``--resume`` of the 5-fold run (every
    fold's state, momenta and next batch the same bits as the
    uninterrupted run's); ``gssd_torch.train_pixellink --cross_validation
-   2``, two steps: exact launches, finite losses, two checkpoints.
+   2``, two steps: exact launches, finite losses, two checkpoints;
+23. PixelLink++ 2s (``--version 2s``): its attention sites read off one
+   forward (the 4s ones of phase 15 and N = M = 22,500, dk 16, dv 64 at
+   conv2_2), the new one held forward and backward at batch 16 as phase
+   15 holds the others (the plain and f64 references one image at a
+   time: ``per_image``), the hat DCN pair at its 150x150 site (256 ->
+   128, 4 groups, batch 16) and the sampler's three kernels there within
+   their contracts; with the wide-conv switch on, training through
+   ``gssd_torch.train_pixellink.main --version 2s`` at batch 16 on
+   ``hat`` (PL_ITERS steps, exactly 2 + 2 stem, 20 + 10 attention and
+   1 + 1 hat DCN launches a step, the peak memory), its evaluation and
+   ``--test --checkpoint`` (2 stem, 10 attention, 1 DCN launches a
+   batch; the host decode's share); bf16 card vs f32 CPU logits and
+   loss; in a child process, one ``hat`` step at batch 2 twice from the
+   same state with the same gradient bits; PL_PALLAS_ITERS steps on
+   ``pallas`` (9 + 9 + 9 sampler launches a step, no hat DCN, the peak
+   memory);
+24. GSSD++ at 512 on the sampler's routes: the three deform_sample
+   kernels at the 64x64 site (forward at batch 8 and 32, dx and dA/dB at
+   32) as phase 9 holds them; serving with ``--dcn_impl pallas`` at
+   batch 8 (14 attention and 9 deform_sample_fwd launches a forward);
+   ROUTE_ITERS training steps at batch 32 (``device_cached``) on
+   ``pallas`` (14 + 14 attention, 9 + 9 + 9 sampler launches a step) and
+   ``fused`` (14 + 14 attention, 9 deform_sample_dx), ms/step and the
+   peak memory.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or outside a
@@ -222,6 +246,8 @@ ATTN_SITES = [(1444, 64, 256, 2), (361, 128, 512, 2), (100, 64, 256, 2),
 DCN_SITE = dict(H=38, W=38, C=1024, G=4, K=9, Cout=512)
 # PixelLink++ (4s)'s DCN site: slice_and_cat(conv3_3, attn_g) at 75x75
 PL_DCN_SITE = dict(H=75, W=75, C=512, G=4, K=9, Cout=256)
+# PixelLink++ 2s's: slice_and_cat(conv2_2, attn_g) at 150x150
+PL2_DCN_SITE = dict(H=150, W=150, C=256, G=4, K=9, Cout=128)
 
 
 class SmokeFailure(RuntimeError):
@@ -291,7 +317,31 @@ def attn_inputs(g, B, n, dk, dv):
     return randn(B, n, dk), randn(B, n, dk), randn(B, n, dv), randn(B, n, dv)
 
 
-def contract_fwd(q, k, v):
+# a plain or f64 reference whose f32 logits over the whole batch would
+# pass this many bytes runs one image at a time (``per_image``): at the
+# 22,500-key sites of PixelLink++ 2s, batch 16, they are 32.4 GB
+PER_IMAGE_BYTES = 8 * 2**30
+
+
+def per_image(fn):
+    """``fn`` applied one batch element at a time, its outputs (a tensor
+    or a tuple of tensors) joined along the batch."""
+    import torch
+
+    def run(*args):
+        outs = [fn(*(a[b:b + 1] for a in args)) for b in range(args[0].shape[0])]
+        if isinstance(outs[0], tuple):
+            return tuple(torch.cat(parts) for parts in zip(*outs))
+        return torch.cat(outs)
+
+    return run
+
+
+def whole(fn):
+    return fn
+
+
+def contract_fwd(q, k, v, each=whole):
     """The forward kernel's rounding contract at one site: mean error
     over mean value on contract inputs (logits exact in any order)
     against the contract computed exactly (``flash_contract.fwd_exact``:
@@ -307,26 +357,39 @@ def contract_fwd(q, k, v):
     got, _ = fa.flash_attention_fwd(qc, kc, vc)
     want, _ = fc.fwd_exact(qc, kc, vc)
     err, limit = fc.mean_rel_err(got, want), fc.mean_limit("o", want)
-    planted = fc.mean_rel_err(fc.fwd_online_softmax(qc, kc, vc)[0], want)
+    planted = fc.mean_rel_err(each(fc.fwd_online_softmax)(qc, kc, vc)[0], want)
     return dict(mean_rel_err=err, mean_limit=limit, planted_online_softmax=planted)
 
 
-def contract_bwd(q, k, v, do):
-    """The backward kernel's contract at one site (dq, dk, dv), and the
-    readings of a planted bf16-dS and a planted two-part-split backward."""
+def contract_bwd(q, k, v, do, each=whole):
+    """The backward kernel's contract at one site (dq, dk, dv): mean error
+    over mean value on contract inputs against the contract computed
+    exactly (``flash_contract.bwd_exact``: f64, each gradient rounded
+    once to bf16), and the readings of a planted bf16-dS and a planted
+    two-part-split backward against it, which must exceed the limits;
+    the plain version's readings beside them, reported only (its f32 dQ
+    sums over the keys drift from the exact ones as the keys grow: 1.9e-6
+    of the mean at 22,500 keys, where the kernel reads 4.2e-7;
+    ``tools/flash_bwd_witness.py``). The plain references through
+    ``each`` (``whole`` or ``per_image``)."""
     from gssd_torch.ops.kernels import flash_attn as fa
     from gssd_torch.ops.kernels import flash_contract as fc
 
     qc, kc, vc, doc = fc.contract_inputs(q, k, v, do)
     m = kc.shape[1]
-    o, lse = fa.flash_attention_fwd_plain(qc, kc, vc)
-    want = fa.flash_attention_bwd_plain(qc, kc, vc, o, lse, doc)
+    o, lse = each(fa.flash_attention_fwd_plain)(qc, kc, vc)
+    want = fc.bwd_exact(qc, kc, vc, o, lse, doc)
     got = fa.flash_attention_bwd(qc, kc, vc, o, lse, doc)
     errs, limits = fc.bwd_mean_errs(got, want, m), fc.bwd_mean_limits(want, m)
     del got
-    planted = {name: fc.bwd_mean_errs(fc.bwd_split(qc, kc, vc, o, lse, doc, parts), want, m)
+    plain = fc.bwd_mean_errs(each(fa.flash_attention_bwd_plain)(qc, kc, vc, o, lse, doc),
+                             want, m)
+    planted = {name: fc.bwd_mean_errs(
+                   each(lambda *t, parts=parts: fc.bwd_split(*t, parts))(qc, kc, vc, o, lse, doc),
+                   want, m)
                for name, parts in (("bf16_ds", 1), ("two_part_split", 2))}
-    return dict(mean_rel_errs=errs, mean_limits=limits, planted=planted)
+    return dict(mean_rel_errs=errs, mean_limits=limits, plain_mean_rel_errs=plain,
+                planted=planted)
 
 
 # a planted two-part dS split moves dq and dk by ~2e-6 of their mean: it
@@ -356,6 +419,24 @@ def check_contract(site, label, m):
                   f"{label}: a planted {fault} reads {errs}, within {site['mean_limits']}")
 
 
+def sdpa_timed(make, big, iters):
+    """(ms, None) of the call ``make()`` returns, SDPA's forward or its
+    backward, timed as the yardstick (``time_ms``); at a site whose logits
+    need ``per_image`` (``big``) only the backends that stream the keys
+    may take it (not the math one, which builds the [B, N, M] map): (None,
+    the reason) where none takes the shape."""
+    if not big:
+        return time_ms(make(), iters=iters), None
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    try:
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                          SDPBackend.CUDNN_ATTENTION]):
+            return time_ms(make(), iters=iters), None
+    except RuntimeError as e:
+        return None, str(e).splitlines()[0][:300]
+
+
 def attn_site(g, B, n, dk, dv, count, backward, iters=10, plain_iters=5):
     """One attention site: the kernel against its plain version (max
     error within KERNEL_TOL of max, per output; with one key the softmax
@@ -363,7 +444,9 @@ def attn_site(g, B, n, dk, dv, count, backward, iters=10, plain_iters=5):
     held to the largest max), its contract (``check_contract``), timed
     beside the plain version and SDPA (forward, or its backward through
     autograd), with the bound of the function and PR 4's bound of the
-    design."""
+    design. Where the batch's f32 logits pass PER_IMAGE_BYTES the plain
+    and f64 references, and the plain version's time, run one image at a
+    time (``per_image``)."""
     import torch
     import torch.nn.functional as F
 
@@ -371,12 +454,14 @@ def attn_site(g, B, n, dk, dv, count, backward, iters=10, plain_iters=5):
 
     q, k, v, do = attn_inputs(g, B, n, dk, dv)
     label = f"flash_attn_{'bwd' if backward else 'fwd'} B={B} N={n} dk={dk} dv={dv}"
+    big = B * n * n * 4 > PER_IMAGE_BYTES
+    each = per_image if big else whole
     o, lse = fa.flash_attention_fwd(q, k, v)
     torch.cuda.synchronize()
     q4, k4, v4 = (t[:, None].detach().clone().requires_grad_(backward) for t in (q, k, v))
     ops, exps = attn_work(B, n, n, dk, dv, backward)
     if not backward:
-        o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v)
+        o_ref, lse_ref = each(fa.flash_attention_fwd_plain)(q, k, v)
         err = (o - o_ref).abs().max().item()
         scale = o_ref.abs().max().item()
         lse_err = (lse - lse_ref).abs().max().item()
@@ -386,15 +471,16 @@ def attn_site(g, B, n, dk, dv, count, backward, iters=10, plain_iters=5):
               f"{label}: lse max err {lse_err}")
         del o_ref, lse_ref
         nbytes = nbytes_of(q, k, v, o, lse)
-        site = dict(max_abs_err=err, rel_err=err / scale, lse_err=lse_err, **contract_fwd(q, k, v))
+        site = dict(max_abs_err=err, rel_err=err / scale, lse_err=lse_err,
+                    **contract_fwd(q, k, v, each))
         run = lambda: fa.flash_attention_fwd(q, k, v)
-        plain = lambda: fa.flash_attention_fwd_plain(q, k, v)
-        library = lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=1.0)
+        plain = lambda: each(fa.flash_attention_fwd_plain)(q, k, v)
+        library = lambda: lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=1.0)
         old_bound = bound(ops, nbytes)[0]
     else:
         got = fa.flash_attention_bwd(q, k, v, o, lse, do)
         torch.cuda.synchronize()
-        want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
+        want = each(fa.flash_attention_bwd_plain)(q, k, v, o, lse, do)
         top = max(t.float().abs().max().item() for t in want)
         errs, rels = [], []
         for name, a, b in zip("qkv", got, want):
@@ -407,35 +493,43 @@ def attn_site(g, B, n, dk, dv, count, backward, iters=10, plain_iters=5):
         del want
         nbytes = nbytes_of(q, k, v, do, o, lse, *got)
         del got
-        site = dict(max_abs_err=max(errs), rel_err=max(rels), **contract_bwd(q, k, v, do))
-        out4 = F.scaled_dot_product_attention(q4, k4, v4, scale=1.0)
+        site = dict(max_abs_err=max(errs), rel_err=max(rels),
+                    **contract_bwd(q, k, v, do, each))
         run = lambda: fa.flash_attention_bwd(q, k, v, o, lse, do)
-        plain = lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
-        library = lambda: torch.autograd.grad(out4, (q4, k4, v4), do[:, None], retain_graph=True)
+        plain = lambda: each(fa.flash_attention_bwd_plain)(q, k, v, o, lse, do)
+
+        def library():
+            out4 = F.scaled_dot_product_attention(q4, k4, v4, scale=1.0)
+            return lambda: torch.autograd.grad(out4, (q4, k4, v4), do[:, None],
+                                               retain_graph=True)
         old_bound = bound(2 * B * n * n * (dk + 2 * dv), nbytes, 2 * B * n * n * 2 * dk)[0]
     check_contract(site, label, n)
     b_ms, b_by, b_term = attn_bound(ops, exps, nbytes)
+    lib_ms, lib_none = sdpa_timed(library, big, iters)
     site.update(B=B, N=n, M=n, dk=dk, dv=dv, count=count, ms=time_ms(run, iters=iters),
                 plain_ms=time_ms(plain, iters=plain_iters, warmup=1),
-                library_ms=time_ms(library, iters=iters), bound_ms=b_ms, bound_by=b_by,
+                plain_per_image=big, library_ms=lib_ms, library_none_because=lib_none,
+                bound_ms=b_ms, bound_by=b_by,
                 bound_term=b_term, old_bound_ms=old_bound, ops=ops, exps=exps, bytes=nbytes)
     if backward:
         # the forward at this batch too, beside SDPA's forward and its bound
         fwd_ops, _ = attn_work(B, n, n, dk, dv, False)
         fwd_bytes = nbytes_of(q, k, v, o, lse)
         site.update(fwd_ms=time_ms(lambda: fa.flash_attention_fwd(q, k, v), iters=iters),
-                    fwd_library_ms=time_ms(
-                        lambda: F.scaled_dot_product_attention(q4.detach(), k4.detach(),
-                                                               v4.detach(), scale=1.0),
-                        iters=iters),
+                    fwd_library_ms=sdpa_timed(
+                        lambda: lambda: F.scaled_dot_product_attention(
+                            q4.detach(), k4.detach(), v4.detach(), scale=1.0),
+                        big, iters)[0],
                     fwd_bound_ms=attn_bound(fwd_ops, exps, fwd_bytes)[0],
                     fwd_old_bound_ms=bound(fwd_ops, fwd_bytes)[0], fwd_ops=fwd_ops,
                     fwd_bytes=fwd_bytes)
     mean = site.get("mean_rel_err", site.get("mean_rel_errs"))
     print(f"{label}: max rel err {site['rel_err']:.3g}, contract mean err {mean}, kernel "
-          f"{site['ms']:.4f} ms, plain {site['plain_ms']:.4f} ms, sdpa {site['library_ms']:.4f} "
-          f"ms, bound {site['bound_ms']:.4f} ms ({b_term}; PR 4's {old_bound:.4f})"
-          + (f"; forward at this batch {site['fwd_ms']:.4f} ms, sdpa {site['fwd_library_ms']:.4f}"
+          f"{site['ms']:.4f} ms, plain {site['plain_ms']:.4f} ms"
+          f"{' (one image at a time)' if big else ''}, sdpa {site['library_ms']} "
+          f"ms{f' ({lib_none})' if lib_none else ''}, bound {site['bound_ms']:.4f} ms "
+          f"({b_term}; the first design's {old_bound:.4f})"
+          + (f"; forward at this batch {site['fwd_ms']:.4f} ms, sdpa {site['fwd_library_ms']}"
              if backward else ""), flush=True)
     return site
 
@@ -550,6 +644,17 @@ def check_dcn():
     return site
 
 
+def dcn_bwd_inputs(batch=TRAIN_BATCH, site=DCN_SITE):
+    """The backward's operands at a DCN site: ``dcn_inputs``' x, py, px,
+    m, wg and a seeded f32 output gradient g [B, P, Cout]."""
+    import torch
+
+    x, py, px, m, wg, _ = dcn_inputs(batch, site)
+    gout = torch.randn(batch, py.shape[1], wg.shape[-1], device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(SEED + 2))
+    return x, py, px, m, wg, gout
+
+
 def check_dcn_bwd(batch=TRAIN_BATCH, site=DCN_SITE):
     """deform_conv_bwd against its plain version at the training site
     (batch 32, 38x38, C 1024, G 4, Cout 512, unless ``batch`` and ``site``
@@ -560,12 +665,11 @@ def check_dcn_bwd(batch=TRAIN_BATCH, site=DCN_SITE):
 
     from gssd_torch.ops.kernels import deform_hat as dh
 
-    x, py, px, m, wg, bias = dcn_inputs(batch, site)
+    bias = dcn_inputs(batch, site)[5]
+    args = dcn_bwd_inputs(batch, site)
+    x, py, px, m, wg, gout = args
     B, P, G, K = py.shape
     C, Cout = x.shape[-1], wg.shape[-1]
-    gout = torch.randn(B, P, Cout, device="cuda",
-                       generator=torch.Generator(device="cuda").manual_seed(SEED + 2))
-    args = (x, py, px, m, wg, gout)
     fwd_args = (x, py, px, m, wg, bias)
     out = dh.deform_conv_fwd(*fwd_args)
     got = dh.deform_conv_bwd(*args)
@@ -689,19 +793,25 @@ def sample_work(a, b, Cg):
     return fwd, dab_mac, dab_f32
 
 
-def check_sample():
-    """The three deform_sample kernels against their plain versions: fwd
-    at the 38x38 site at batch 8 and 32 and at PixelLink++'s 75x75 site
-    (batch 16), dx and dA/dB at batch 32 and at 75x75; each
+def check_sample(cases=None):
+    """The three deform_sample kernels against their plain versions at
+    each of ``cases``, (label, batch, site, with the backward's two): by
+    default fwd at the 38x38 site at batch 8 and 32 and at PixelLink++'s
+    75x75 site (batch 16), dx and dA/dB at batch 32 and at 75x75; each
     output within SAMPLE_TOL[kernel] of its own max, the forward the
     plain version's bits and dx the dense order's sum bit for bit. Times
     kernel, plain version and one torch.einsum of the same function (the
     yardstick); bounds for the work these hat rows need, beside the dense
-    contraction's."""
+    contraction's. Results keyed fwd_<label>, dx_<label>, dab_<label>
+    (dx and dab for the label b32)."""
     import torch
 
     from gssd_torch.ops.kernels import deform_sample as ds
 
+    if cases is None:
+        cases = ((f"b{BATCH}", BATCH, DCN_SITE, False),
+                 (f"b{TRAIN_BATCH}", TRAIN_BATCH, DCN_SITE, True),
+                 ("75", PL_BATCH, PL_DCN_SITE, True))
     sites = {}
 
     def compare(name, got, want):
@@ -715,9 +825,7 @@ def check_sample():
             errs.append((err, err / scale))
         return max(e for e, _ in errs), max(r for _, r in errs)
 
-    for label, batch, s in ((f"b{BATCH}", BATCH, DCN_SITE),
-                            (f"b{TRAIN_BATCH}", TRAIN_BATCH, DCN_SITE),
-                            ("75", PL_BATCH, PL_DCN_SITE)):
+    for label, batch, s, backward in cases:
         a, b, x, gout = sample_inputs(batch, s)
         Cg = s["C"] // s["G"]
         n_mac = batch * s["G"] * s["H"] * s["W"] * s["H"] * s["W"] * Cg
@@ -741,7 +849,9 @@ def check_sample():
                                iters=3, warmup=1),
             bound_ms=b_ms, bound_by=b_by, f32_ops=fwd_f32,
             dense_bound_ms=bound(2 * n_mac, nbytes)[0], dense_ops=2 * n_mac)
-        if batch == BATCH:
+        if not backward:
+            del a, b, x, gout, out
+            torch.cuda.empty_cache()
             continue
         dx = ds.abx_dx(a, b, gout)
         torch.cuda.synchronize()
@@ -786,10 +896,9 @@ def check_sample():
             dense_bound_ms=bound(4 * n_mac, nbytes)[0], dense_ops=4 * n_mac)
         del a, b, x, gout, out, da, db
         torch.cuda.empty_cache()
-    print(f"deform_sample_fwd: the plain version's bits at hat rows (batch {BATCH}, "
-          f"{TRAIN_BATCH}, 75x75); deform_sample_dx: the dense order's sum bit for bit "
-          f"(batch {TRAIN_BATCH}, 75x75)",
-          flush=True)
+    print(f"deform_sample_fwd: the plain version's bits at hat rows "
+          f"({', '.join(c[0] for c in cases)}); deform_sample_dx: the dense order's sum bit "
+          f"for bit ({', '.join(c[0] for c in cases if c[3])})", flush=True)
     for name, site in sites.items():
         print(f"deform_sample_{name} B={site['B']} {site['H']}x{site['W']} "
               f"Cg={site['C'] // site['G']}: rel err {site['rel_err']:.3g}, kernel "
@@ -931,9 +1040,11 @@ def serve(tmp, size=300, data=None, attn_per_forward=12):
     return launches, lat, data, weights
 
 
-def serve_pallas(tmp, data, weights):
-    """The serving CLI with --dcn_impl pallas over the 32 slices of the
-    serving phase (four forwards of 8), launches counted."""
+def serve_pallas(tmp, data, weights, size=300, attn_per_forward=12):
+    """The serving CLI at ``--ssd_dim size`` with --dcn_impl pallas over
+    the 32 slices of the serving phase (four forwards of 8), launches
+    counted: exactly ``attn_per_forward`` attention and 9
+    deform_sample_fwd launches a forward."""
     from gssd_torch import infer
     from gssd_torch.ops.kernels import KERNELS
 
@@ -943,17 +1054,17 @@ def serve_pallas(tmp, data, weights):
     res = infer.main([
         "--reference_recipe", "gssd++", "--datapath", data, "--split", "all",
         "--num_test_subjects", "2", "--eval_batch", str(BATCH), "--dcn_impl", "pallas",
-        "--device", "cuda", "--compute_dtype", "bfloat16", "--weights", weights,
-        "--det_output", os.path.join(tmp, "detections_pallas.json")])
+        "--ssd_dim", str(size), "--device", "cuda", "--compute_dtype", "bfloat16",
+        "--weights", weights, "--det_output", os.path.join(tmp, f"detections_pallas_{size}.json")])
     launches = {name: k.launches for name, k in KERNELS.items()}
-    print(f"pallas serving launches over {n_batches} forwards: {launches}", flush=True)
+    print(f"pallas serving launches over {n_batches} forwards at {size}: {launches}", flush=True)
     want = {name: 0 for name in KERNELS}
-    want.update(flash_attn_fwd=12 * n_batches, deform_sample_fwd=9 * n_batches)
-    check(launches == want, f"expected 12 flash and 9 deform_sample_fwd launches per "
-                            f"forward, got {launches}")
+    want.update(flash_attn_fwd=attn_per_forward * n_batches, deform_sample_fwd=9 * n_batches)
+    check(launches == want, f"expected {attn_per_forward} flash and 9 deform_sample_fwd "
+                            f"launches per forward at {size}, got {launches}")
     check(len(res["detections"]) == 8 * n_batches, "pallas serving: wrong detection count")
     lat = res["latency_ms"]
-    print(f"pallas serving latency (excl. first batch, batch {BATCH}): "
+    print(f"pallas serving latency at {size} (excl. first batch, batch {BATCH}): "
           f"{sum(lat) / len(lat):.3f} ms/image over {len(lat)} batches", flush=True)
     return launches, lat
 
@@ -1365,17 +1476,23 @@ STEM_DW_TOL = 2e-5
 # above the limit the planted two-part split must read
 STEM_F32_BATCH = 2
 STEM_F32_PLANTED_MIN = 5
-# launches of one PixelLink++ train step (remat recomputes the 8
-# attention forwards) and of one forward (valid loss, evaluation, --test)
-PL_STEP_LAUNCHES = dict(stem_conv_fwd=2, stem_conv_bwd=2, flash_attn_fwd=16,
-                        flash_attn_bwd=8, deform_conv_fwd=1, deform_conv_bwd=1)
-PL_FORWARD_LAUNCHES = dict(stem_conv_fwd=2, flash_attn_fwd=8, deform_conv_fwd=1)
+# attention sites of PixelLink++ by --version: 4s has 8, 2s also
+# attn_base_0 and attn_0 at conv2_2 (150 x 150)
+PL_SITES = {"4s": 8, "2s": 10}
+# launches of one PixelLink++ train step (remat recomputes the attention
+# forwards) and of one forward (valid loss, evaluation, --test)
+PL_STEP_LAUNCHES = {v: dict(stem_conv_fwd=2, stem_conv_bwd=2, flash_attn_fwd=2 * n,
+                            flash_attn_bwd=n, deform_conv_fwd=1, deform_conv_bwd=1)
+                    for v, n in PL_SITES.items()}
+PL_FORWARD_LAUNCHES = {v: dict(stem_conv_fwd=2, flash_attn_fwd=n, deform_conv_fwd=1)
+                       for v, n in PL_SITES.items()}
 # the same step on the pallas DCN route: the sampler's three kernels once
 # per tap (9) in place of the hat DCN pair
 PL_PALLAS_ITERS = 3
-PL_PALLAS_STEP_LAUNCHES = dict(stem_conv_fwd=2, stem_conv_bwd=2, flash_attn_fwd=16,
-                               flash_attn_bwd=8, deform_sample_fwd=9, deform_sample_dx=9,
-                               deform_sample_dab=9)
+PL_PALLAS_STEP_LAUNCHES = {v: dict(stem_conv_fwd=2, stem_conv_bwd=2, flash_attn_fwd=2 * n,
+                                   flash_attn_bwd=n, deform_sample_fwd=9, deform_sample_dx=9,
+                                   deform_sample_dab=9)
+                           for v, n in PL_SITES.items()}
 PL_AP_KEYS = {"ap50", "iobb50"}
 
 
@@ -1645,45 +1762,54 @@ def wide_conv(on=True):
         layers.USE_WIDE_CONV_KERNEL = saved
 
 
-def pixellink(tmp, data):
-    """PixelLink++ through ``gssd_torch.train_pixellink.main`` with the
-    wide-conv switch on: PL_ITERS train steps (exactly PL_STEP_LAUNCHES
-    each, finite losses); a run with its evaluation and a checkpoint at
-    iteration 1; ``--test --checkpoint 1`` (the AP/IoBB keys in [0, 1],
-    exactly PL_FORWARD_LAUNCHES per batch); then one step with the switch
-    off: no stem_conv launch."""
+def pixellink(tmp, data, version="4s"):
+    """PixelLink++ (``--version``) through ``gssd_torch.train_pixellink.main``
+    with the wide-conv switch on: PL_ITERS train steps (exactly
+    PL_STEP_LAUNCHES[version] each, finite losses, the peak memory
+    allocated); a run with its evaluation and a checkpoint at iteration
+    1; ``--test --checkpoint 1`` (the AP/IoBB keys in [0, 1], exactly
+    PL_FORWARD_LAUNCHES[version] per batch); then (4s) as many steps with
+    the switch off: no stem_conv launch."""
+    import torch
+
     from gssd_torch import train_pixellink
     from gssd_torch.data import DataSplitter
     from gssd_torch.eval import ap_iobb
 
+    tag = f"pixellink++ {version}"
+    per_step, per_forward = PL_STEP_LAUNCHES[version], PL_FORWARD_LAUNCHES[version]
+    v = ["--version", version]
     with wide_conv():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
         _reset_launches()
-        res = train_pixellink.main(pl_argv(tmp, data, "pl_run", "--max_iter", str(PL_ITERS),
-                                           "--speedrun", "100000"))
+        res = train_pixellink.main(pl_argv(tmp, data, f"pl_run_{version}", "--max_iter",
+                                           str(PL_ITERS), "--speedrun", "100000", *v))
         launches = _launches()
-        print(f"pixellink++ training launches over {PL_ITERS} steps: {launches}", flush=True)
-        want = {name: PL_STEP_LAUNCHES.get(name, 0) * PL_ITERS for name in launches}
-        check(launches == want, f"pixellink++: expected {PL_STEP_LAUNCHES} per step, got "
-                                f"{launches}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"{tag} training launches over {PL_ITERS} steps: {launches}", flush=True)
+        want = {name: per_step.get(name, 0) * PL_ITERS for name in launches}
+        check(launches == want, f"{tag}: expected {per_step} per step, got {launches}")
         losses = [r["loss"] for r in res["records"]]
         check(len(losses) == PL_ITERS and all(math.isfinite(v) for v in losses),
-              f"pixellink++: non-finite or missing losses {losses}")
+              f"{tag}: non-finite or missing losses {losses}")
         median = res["median_step_ms"]
-        print(f"pixellink++ training: median {median:.2f} ms/step after the first step, "
-              f"{PL_BATCH / median * 1e3:.1f} slices/s at batch {PL_BATCH}; losses {losses}; "
+        print(f"{tag} training: median {median:.2f} ms/step after the first step, "
+              f"{PL_BATCH / median * 1e3:.1f} slices/s at batch {PL_BATCH}; peak memory "
+              f"{peak:.2f} GiB; losses {losses}; "
               f"input wait {[round(r['wait_ms'], 1) for r in res['records']]} ms", flush=True)
 
         t0 = time.perf_counter()
-        ev = train_pixellink.main(pl_argv(tmp, data, "pl_eval", "--max_iter", "2",
-                                          "--val_every", "1", "--speedrun", "1"))
+        ev = train_pixellink.main(pl_argv(tmp, data, f"pl_eval_{version}", "--max_iter", "2",
+                                          "--val_every", "1", "--speedrun", "1", *v))
         eval_s = time.perf_counter() - t0
         check([e["iter"] for e in ev["evals"]] == [1] and os.path.exists(ev["weights"]),
-              f"pixellink++: expected an evaluation and a checkpoint at iteration 1, got "
+              f"{tag}: expected an evaluation and a checkpoint at iteration 1, got "
               f"{ev['evals']}")
         for split in ("valid", "test"):
             r = ev["evals"][0][split]
             check(set(r) == PL_AP_KEYS and all(0.0 <= v <= 1.0 for v in r.values()),
-                  f"pixellink++ {split} AP/IoBB malformed: {r}")
+                  f"{tag} {split} AP/IoBB malformed: {r}")
 
         n_test = len(DataSplitter(data, 1, 4).data_test)
         n_batches = -(-n_test // 16)
@@ -1701,22 +1827,28 @@ def pixellink(tmp, data):
         ap_iobb.mask_to_boxes = timed_decode
         t0 = time.perf_counter()
         try:
-            tested = train_pixellink.main(pl_argv(tmp, data, "pl_eval", "--test", "True",
-                                                  "--checkpoint", "1"))["test"]
+            tested = train_pixellink.main(pl_argv(tmp, data, f"pl_eval_{version}", "--test",
+                                                  "True", "--checkpoint", "1", *v))["test"]
         finally:
             ap_iobb.mask_to_boxes = real_decode
         test_s = time.perf_counter() - t0
         launches_test = _launches()
         check(set(tested) == PL_AP_KEYS and all(0.0 <= v <= 1.0 for v in tested.values()),
-              f"pixellink++ --test AP/IoBB malformed: {tested}")
-        want = {name: PL_FORWARD_LAUNCHES.get(name, 0) * n_batches for name in launches_test}
-        check(launches_test == want, f"pixellink++ --test: expected {PL_FORWARD_LAUNCHES} per "
+              f"{tag} --test AP/IoBB malformed: {tested}")
+        want = {name: per_forward.get(name, 0) * n_batches for name in launches_test}
+        check(launches_test == want, f"{tag} --test: expected {per_forward} per "
                                      f"batch over {n_batches} batches, got {launches_test}")
-        print(f"pixellink++ --test --checkpoint 1: {tested}; {n_test} images in {n_batches} "
+        print(f"{tag} --test --checkpoint 1: {tested}; {n_test} images in {n_batches} "
               f"batches, {test_s:.2f} s in all ({1e3 * test_s / n_test:.1f} ms/image, model "
               f"build included), of which the host decode {sum(decode_s):.2f} s "
               f"({1e3 * sum(decode_s) / len(decode_s):.1f} ms/image); the evaluation run took "
               f"{eval_s:.2f} s", flush=True)
+    out = {"launches": launches, "records": res["records"], "median_step_ms": median,
+           "peak_memory_gib": peak, "evaluation": ev["evals"][0], "eval_run_s": eval_s,
+           "test": tested, "test_s": test_s, "test_decode_s": sum(decode_s),
+           "test_images": n_test, "test_launches": launches_test}
+    if version != "4s":
+        return out
 
     # the switch off over as many steps as the switch-on run, so that the
     # two medians compare like with like
@@ -1725,49 +1857,54 @@ def pixellink(tmp, data):
                                        "--speedrun", "100000"))
     launches_off = _launches()
     check(launches_off["stem_conv_fwd"] == launches_off["stem_conv_bwd"] == 0
-          and launches_off["flash_attn_fwd"] == PL_STEP_LAUNCHES["flash_attn_fwd"] * PL_ITERS,
+          and launches_off["flash_attn_fwd"] == per_step["flash_attn_fwd"] * PL_ITERS,
           f"pixellink++ with the switch off: expected no stem_conv launch, got {launches_off}")
     median_off = off["median_step_ms"]
     print(f"pixellink++ with the switch off (cuDNN stem): launches {launches_off}; median "
           f"{median_off:.2f} ms/step after the first step over {PL_ITERS} steps (switch on: "
           f"{median:.2f}); steps {[round(r['ms'], 1) for r in off['records']]} ms", flush=True)
-    return {"launches": launches, "records": res["records"], "median_step_ms": median,
-            "evaluation": ev["evals"][0], "eval_run_s": eval_s, "test": tested,
-            "test_s": test_s, "test_decode_s": sum(decode_s), "test_images": n_test,
-            "test_launches": launches_test, "switch_off_launches": launches_off,
-            "switch_off_records": off["records"], "switch_off_median_step_ms": median_off}
+    return {**out, "switch_off_launches": launches_off, "switch_off_records": off["records"],
+            "switch_off_median_step_ms": median_off}
 
 
-def pixellink_pallas(tmp, data):
-    """PixelLink++ trained with ``--dcn_impl pallas`` (the separable
-    sampler at the 75x75 DCN site) and the wide-conv switch on:
-    PL_PALLAS_ITERS steps of exactly PL_PALLAS_STEP_LAUNCHES each, finite
-    losses, the median ms/step printed."""
+def pixellink_pallas(tmp, data, version="4s"):
+    """PixelLink++ (``--version``) trained with ``--dcn_impl pallas`` (the
+    separable sampler at the DCN site: 75x75 for 4s, 150x150 for 2s) and
+    the wide-conv switch on: PL_PALLAS_ITERS steps of exactly
+    PL_PALLAS_STEP_LAUNCHES[version] each, finite losses, the median
+    ms/step and the peak memory allocated printed."""
+    import torch
+
     from gssd_torch import train_pixellink
 
+    per_step = PL_PALLAS_STEP_LAUNCHES[version]
+    tag = f"pixellink++ {version} pallas"
     with wide_conv():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
         _reset_launches()
-        res = train_pixellink.main(pl_argv(tmp, data, "pl_pallas", "--max_iter",
+        res = train_pixellink.main(pl_argv(tmp, data, f"pl_pallas_{version}", "--max_iter",
                                            str(PL_PALLAS_ITERS), "--speedrun", "100000",
-                                           "--dcn_impl", "pallas"))
+                                           "--dcn_impl", "pallas", "--version", version))
         launches = _launches()
-    want = {name: PL_PALLAS_STEP_LAUNCHES.get(name, 0) * PL_PALLAS_ITERS for name in launches}
-    check(launches == want, f"pixellink++ pallas: expected {PL_PALLAS_STEP_LAUNCHES} per step, "
-                            f"got {launches}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    want = {name: per_step.get(name, 0) * PL_PALLAS_ITERS for name in launches}
+    check(launches == want, f"{tag}: expected {per_step} per step, got {launches}")
     losses = [r["loss"] for r in res["records"]]
     check(len(losses) == PL_PALLAS_ITERS and all(math.isfinite(v) for v in losses),
-          f"pixellink++ pallas: non-finite or missing losses {losses}")
-    print(f"pixellink++ --dcn_impl pallas (75x75 sampler): launches {launches}; median "
+          f"{tag}: non-finite or missing losses {losses}")
+    print(f"pixellink++ {version} --dcn_impl pallas: launches {launches}; median "
           f"{res['median_step_ms']:.2f} ms/step after the first step over {PL_PALLAS_ITERS} "
-          f"steps; steps {[round(r['ms'], 1) for r in res['records']]} ms; losses {losses}",
-          flush=True)
+          f"steps; steps {[round(r['ms'], 1) for r in res['records']]} ms; peak memory "
+          f"{peak:.2f} GiB; losses {losses}", flush=True)
     return {"launches": launches, "ms_per_step": [r["ms"] for r in res["records"]],
-            "losses": losses, "median_ms_per_step": res["median_step_ms"]}
+            "losses": losses, "median_ms_per_step": res["median_step_ms"],
+            "peak_memory_gib": peak}
 
 
-def seeded_pixellink(compute_dtype, seed=SEED):
-    """PixelLink++ (4s) with random weights from ``seed`` that make every
-    path contribute, as ``seeded_model`` does for GSSD++."""
+def seeded_pixellink(compute_dtype, seed=SEED, version="4s"):
+    """PixelLink++ (``version``) with random weights from ``seed`` that make
+    every path contribute, as ``seeded_model`` does for GSSD++."""
     import torch
 
     from gssd_torch.models.pixellink import PixelLink
@@ -1775,7 +1912,8 @@ def seeded_pixellink(compute_dtype, seed=SEED):
     from gssd_torch.ops.layers import BatchNorm, ConvBNRelu, SelfAttention, SNDense
     from gssd_torch.train_pixellink import parse_args, pixellink_config
 
-    cfg = pixellink_config(parse_args(["--reference_recipe", "pixellink++"]))
+    cfg = pixellink_config(parse_args(["--reference_recipe", "pixellink++",
+                                       "--version", version]))
     model = PixelLink(cfg, compute_dtype=compute_dtype, dcn_impl="hat", seed=seed)
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
@@ -1800,9 +1938,9 @@ def seeded_pixellink(compute_dtype, seed=SEED):
     return model
 
 
-def pixellink_batch(data, n, device):
+def pixellink_batch(data, n, device, version="4s"):
     """n slices of the synthetic set through the eval transform, with
-    their pixel/link target maps, as a device batch."""
+    their pixel/link target maps (``version``), as a device batch."""
     import numpy as np
 
     from gssd_torch.data import BaseTransform, DataSplitter, LesionDataset, collate_pixellink
@@ -1814,26 +1952,26 @@ def pixellink_batch(data, n, device):
     items = []
     for i in range(n):
         img, boxes, labels = ds[i]
-        t = make_pixel_link_targets(np.asarray(boxes), 300, "4s")
+        t = make_pixel_link_targets(np.asarray(boxes), 300, version)
         t["labels"] = labels
         items.append((img, boxes, t))
     return to_device(collate_pixellink(items), device)
 
 
-def pixellink_parity(data):
-    """PixelLink++ with the switch on: one image's pixel and link logits,
-    bf16 on the card (kernels) against f32 on the CPU (plain versions),
-    within E2E_TOL of max |f32|; one train-mode step's loss at batch 2
-    (forward and loss), within TRAIN_LOSS_TOL relative."""
+def pixellink_parity(data, version="4s"):
+    """PixelLink++ (``version``) with the switch on: one image's pixel and
+    link logits, bf16 on the card (kernels) against f32 on the CPU (plain
+    versions), within E2E_TOL of max |f32|; one train-mode step's loss at
+    batch 2 (forward and loss), within TRAIN_LOSS_TOL relative."""
     import torch
 
     from gssd_torch.train.steps import pixellink_forward_loss
 
-    batch = {dev: pixellink_batch(data, 2, dev) for dev in ("cpu", "cuda")}
+    batch = {dev: pixellink_batch(data, 2, dev, version) for dev in ("cpu", "cuda")}
     outs, losses = {}, {}
     with wide_conv():
         for dtype, dev in (("float32", "cpu"), ("bfloat16", "cuda")):
-            model = seeded_pixellink(dtype).to(dev)
+            model = seeded_pixellink(dtype, version=version).to(dev)
             with torch.inference_mode():
                 out = model.eval()(batch[dev]["image"][:1])
             outs[dtype] = {k: out[k].float().cpu() for k in ("pixel", "link")}
@@ -1848,12 +1986,12 @@ def pixellink_parity(data):
         err = (got - ref).abs().max().item()
         scale = ref.abs().max().item()
         errs[name] = err / scale
-        print(f"pixellink parity {name}: max |bf16 card - f32 cpu| = {err:.4g}, max |f32| = "
+        print(f"pixellink++ {version} parity {name}: max |bf16 card - f32 cpu| = {err:.4g}, max |f32| = "
               f"{scale:.4g}, ratio {err / scale:.4g} (limit {E2E_TOL})", flush=True)
         check(err <= E2E_TOL * scale, f"pixellink {name}: bf16 card vs f32 cpu {err} > "
                                       f"{E2E_TOL} * {scale}")
     rel = abs(losses["bfloat16"] - losses["float32"]) / abs(losses["float32"])
-    print(f"pixellink train loss at batch 2: f32 cpu {losses['float32']:.6g}, bf16 card "
+    print(f"pixellink++ {version} train loss at batch 2: f32 cpu {losses['float32']:.6g}, bf16 card "
           f"{losses['bfloat16']:.6g}, rel {rel:.4g} (limit {TRAIN_LOSS_TOL})", flush=True)
     check(math.isfinite(losses["bfloat16"]) and rel <= TRAIN_LOSS_TOL,
           f"pixellink train loss bf16 card vs f32 cpu: rel {rel} > {TRAIN_LOSS_TOL}")
@@ -1988,17 +2126,23 @@ def deterministic_step(data):
     print(json.dumps(out), flush=True)
 
 
-def deterministic_step_check(data):
-    """Runs ``deterministic_step`` in a child process (python3
-    chip_smoke.py --deterministic-step DATA) with
-    CUBLAS_WORKSPACE_CONFIG=:4096:8: under deterministic algorithms every
-    parameter's gradient must be the same bits in both runs."""
+def child_step(data, *model):
+    """The JSON line of ``python3 chip_smoke.py --deterministic-step DATA
+    [MODEL]`` run in a child process with CUBLAS_WORKSPACE_CONFIG=:4096:8
+    (it must be set before the process first uses cuBLAS)."""
     env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
     proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--deterministic-step",
-                           data], env=env, capture_output=True, text=True, timeout=600)
-    check(proc.returncode == 0, f"the deterministic step failed (exit {proc.returncode}):\n"
+                           data, *model], env=env, capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"the repeated step {model} failed (exit {proc.returncode}):\n"
                                 f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
-    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def deterministic_step_check(data):
+    """Runs ``deterministic_step`` in a child process (``child_step``):
+    under deterministic algorithms every parameter's gradient must be the
+    same bits in both runs."""
+    res = child_step(data)
     on, off = res["with_mode"], res["without_mode"]
     print(f"deterministic step (hat, batch {DET_BATCH}): with "
           f"torch.use_deterministic_algorithms(True) {len(on['differing'])} of {on['params']} "
@@ -2312,6 +2456,28 @@ DCN_SITE_512 = dict(H=64, W=64, C=1024, G=4, K=9, Cout=512)
 ITERS_512 = 5
 
 
+def record_attention(model, x):
+    """The (N, M, dk, dv) of every call of the attention forward boundary
+    in one forward of ``model`` on ``x`` (inference mode), in order."""
+    import torch
+
+    from gssd_torch.ops.kernels import flash_attn as fa
+
+    seen, real = [], fa.flash_attention_fwd
+
+    def recording(q, k, v):
+        seen.append((q.shape[1], k.shape[1], q.shape[2], v.shape[2]))
+        return real(q, k, v)
+
+    fa.flash_attention_fwd = recording
+    try:
+        with torch.inference_mode():
+            model(x)
+    finally:
+        fa.flash_attention_fwd = real
+    return seen
+
+
 def attention_sites(size):
     """(N = M tokens, dk, dv, launches per forward) of every attention
     site of GSSD++ at input ``size``, read off one forward of the seeded
@@ -2325,18 +2491,7 @@ def attention_sites(size):
 
     model, priors = seeded_model("bfloat16", size=size)
     model = model.to("cuda").eval()
-    seen, real = [], fa.flash_attention_fwd
-
-    def recording(q, k, v):
-        seen.append((q.shape[1], k.shape[1], q.shape[2], v.shape[2]))
-        return real(q, k, v)
-
-    fa.flash_attention_fwd = recording
-    try:
-        with torch.inference_mode():
-            model(torch.zeros(1, size, size, 12, device="cuda"))
-    finally:
-        fa.flash_attention_fwd = real
+    seen = record_attention(model, torch.zeros(1, size, size, 12, device="cuda"))
     counts = collections.Counter(seen)
     sources = len(model.cfg.anchor_config.feature_maps)
     check(all(n == m for n, m, _, _ in counts),
@@ -2375,41 +2530,48 @@ def check_512(sites):
     return {"attention": attn, "hat_dcn_64": dcn}
 
 
-def train_512(tmp, attn_per_forward):
-    """The trainer CLI at ``--ssd_dim 512`` on the card, ITERS_512 steps
-    at the recipe's batch 32 with ``--aug_method device_cached`` and on
-    the host path (one thread): exactly ``attn_per_forward`` + as many
-    attention and 1 + 1 hat DCN launches a step, finite losses; median
-    ms/step, slices/s and the peak memory allocated."""
+CACHED_512 = ("device_cached", ["--aug_method", "device_cached"])
+
+
+def train_512(tmp, attn_per_forward, impl="hat", paths=(CACHED_512, ("host", [])),
+              iters=ITERS_512):
+    """The trainer CLI at ``--ssd_dim 512`` on the card with DCN route
+    ``impl``, ``iters`` steps at the recipe's batch 32 on each input path
+    of ``paths`` (by default ``--aug_method device_cached`` and the host
+    path, one thread): exactly ROUTE_LAUNCHES[impl] a step with
+    ``attn_per_forward`` attention launches each way, finite losses;
+    median ms/step, slices/s and the peak memory allocated."""
     import torch
 
     from gssd_torch import train as trainer
 
     out, batch = {}, TRAIN_BATCH
-    per_step = dict(flash_attn_fwd=attn_per_forward, flash_attn_bwd=attn_per_forward,
-                    deform_conv_fwd=1, deform_conv_bwd=1)
-    for path, extra in (("device_cached", ["--aug_method", "device_cached"]), ("host", [])):
+    per_step = dict(ROUTE_LAUNCHES[impl], flash_attn_fwd=attn_per_forward,
+                    flash_attn_bwd=attn_per_forward)
+    for path, extra in paths:
+        tag = f"512 training ({impl}, {path})"
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         _reset_launches()
-        res = trainer.main(train_argv(tmp, "hat", batch, ITERS_512, f"run512_{path}")
+        run = f"run512_{path}" if impl == "hat" else f"run512_{impl}_{path}"
+        res = trainer.main(train_argv(tmp, impl, batch, iters, run)
                            + ["--ssd_dim", str(SIZE_512)] + extra)
         peak = torch.cuda.max_memory_allocated() / 2**30
         launches = _launches()
-        want = {k: per_step.get(k, 0) * ITERS_512 for k in launches}
-        check(launches == want, f"512 training ({path}): launches {launches}, expected {want}")
+        want = {k: per_step.get(k, 0) * iters for k in launches}
+        check(launches == want, f"{tag}: launches {launches}, expected {want}")
         losses = [r["loss"] for r in res["records"]]
-        check(len(losses) == ITERS_512 and all(math.isfinite(v) for v in losses),
-              f"512 training ({path}): non-finite or missing losses {losses}")
+        check(len(losses) == iters and all(math.isfinite(v) for v in losses),
+              f"{tag}: non-finite or missing losses {losses}")
         median = res["median_step_ms"]
-        out[path] = dict(batch=batch, steps=ITERS_512, median_ms_per_step=median,
+        out[path] = dict(batch=batch, steps=iters, median_ms_per_step=median,
                          slices_per_s=batch / median * 1e3, peak_memory_gib=peak,
                          ms_per_step=[r["ms"] for r in res["records"]],
                          input_wait_ms=[r["wait_ms"] for r in res["records"]], losses=losses,
                          launches=launches)
-        print(f"512 training ({path}, batch {batch}): median {median:.2f} ms/step after the "
+        print(f"{tag}, batch {batch}: median {median:.2f} ms/step after the "
               f"first, {batch / median * 1e3:.1f} slices/s, median input wait "
-              f"{sorted(out[path]['input_wait_ms'][1:])[(ITERS_512 - 1) // 2]:.1f} ms, peak "
+              f"{sorted(out[path]['input_wait_ms'][1:])[(iters - 1) // 2]:.1f} ms, peak "
               f"memory {peak:.2f} GiB; launches {launches}; losses {losses}", flush=True)
     return out
 
@@ -2575,9 +2737,9 @@ def folds_phase(tmp):
     pl_split = DataSplitter(pl_data, PL_FOLDS, 1)
     pl_steps, pl_fwd = PL_FOLDS * 2, _eval_forwards(pl_split, 16)
     pl_want = {k: 0 for k in pl_launches}
-    pl_want.update(flash_attn_fwd=PL_STEP_LAUNCHES["flash_attn_fwd"] * pl_steps
-                   + PL_FORWARD_LAUNCHES["flash_attn_fwd"] * pl_fwd,
-                   flash_attn_bwd=PL_STEP_LAUNCHES["flash_attn_bwd"] * pl_steps,
+    pl_want.update(flash_attn_fwd=PL_STEP_LAUNCHES["4s"]["flash_attn_fwd"] * pl_steps
+                   + PL_FORWARD_LAUNCHES["4s"]["flash_attn_fwd"] * pl_fwd,
+                   flash_attn_bwd=PL_STEP_LAUNCHES["4s"]["flash_attn_bwd"] * pl_steps,
                    deform_conv_fwd=pl_steps + pl_fwd, deform_conv_bwd=pl_steps)
     pl_recs, pl_ev = pl["records"], pl["evals"]
     pl_paths = [p["checkpoint"] for p in pl_ev[0]["folds"]] if pl_ev else []
@@ -2607,6 +2769,143 @@ def folds_phase(tmp):
         "seconds": time.perf_counter() - t0}
 
 
+# ---- PixelLink++ 2s, and GSSD++ 512 on the sampler's routes ----
+
+# the attention site only 2s has: attn_base_0 and attn_0 at conv2_2
+# (150 x 150, 128 channels): N = M = 22,500, dk 16, dv 64
+PL2_ATTN_SITE = (22500, 16, 64, 2)
+
+
+def pixellink_2s_sites():
+    """The attention sites of PixelLink++ 2s (N = M, dk, dv, per forward),
+    read off one forward of the seeded 2s model at batch 1 on the card
+    (``record_attention``), largest N first."""
+    import collections
+
+    import torch
+
+    model = seeded_pixellink("bfloat16", version="2s").to("cuda").eval()
+    with wide_conv():
+        seen = record_attention(model, torch.zeros(1, 300, 300, 12, device="cuda"))
+    del model
+    check(all(n == m for n, m, _, _ in seen), f"a 2s attention site has N != M: {seen}")
+    counts = collections.Counter(seen)
+    sites = [(n, dk, dv, c) for (n, _, dk, dv), c in sorted(counts.items(), reverse=True)]
+    print(f"pixellink++ 2s attention sites (N = M, dk, dv, per forward): {sites}", flush=True)
+    check(sorted(sites) == sorted([PL2_ATTN_SITE] + PL_ATTN_SITES),
+          f"2s attention sites {sites}: expected {PL2_ATTN_SITE} and phase 15's {PL_ATTN_SITES}")
+    return sites
+
+
+def pl2_repeat_step(data):
+    """The child of ``pl2_repeat_check``: under
+    torch.use_deterministic_algorithms(True, warn_only=True), one
+    PixelLink++ 2s ``hat`` step (forward, loss, backward) at batch 2 from
+    seeded weights with the wide-conv switch on, twice from the same
+    state (reloaded: the step updates the spectral-norm vectors) and
+    batch. Prints one JSON line: the parameters whose gradients differ,
+    the launches of both steps, and the operations PyTorch warned have no
+    deterministic implementation."""
+    import copy
+    import warnings
+
+    import torch
+
+    from gssd_torch.train.steps import pixellink_forward_loss
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    with wide_conv():
+        model = seeded_pixellink("bfloat16", version="2s").to("cuda").train()
+        state = copy.deepcopy(model.state_dict())
+        batch = pixellink_batch(data, 2, "cuda", "2s")
+        names = [n for n, _ in model.named_parameters()]
+
+        def grads():
+            model.load_state_dict(state)
+            model.zero_grad(set_to_none=True)
+            loss, _ = pixellink_forward_loss(model, batch, model.cfg)
+            loss.backward()
+            return [None if p.grad is None else p.grad.clone() for p in model.parameters()]
+
+        _reset_launches()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            first, second = grads(), grads()
+    differing = [n for n, a, b in zip(names, first, second) if not _same_bits((a,), (b,))]
+    print(json.dumps({"differing": differing, "params": len(names), "launches": _launches(),
+                      "warned": sorted({str(w.message).splitlines()[0][:200] for w in caught})}),
+          flush=True)
+
+
+def pl2_repeat_check(data):
+    """Runs ``pl2_repeat_step`` in a child process (``child_step`` with
+    pixellink2s): both steps through the hat DCN and attention kernels,
+    every gradient the same bits."""
+    res = child_step(data, "pixellink2s")
+    print(f"pixellink++ 2s hat step at batch 2, twice from the same state: "
+          f"{len(res['differing'])} of {res['params']} gradients differ {res['differing'][:6]}; "
+          f"launches {res['launches']}; warned {res['warned']}", flush=True)
+    check(res["launches"]["deform_conv_bwd"] == 2 and res["launches"]["flash_attn_bwd"] == 20,
+          f"the 2s repeated step did not run the hat DCN and attention kernels: "
+          f"{res['launches']}")
+    check(not res["differing"], f"2s step: gradients differ between two runs: "
+                                f"{res['differing']}")
+    return res
+
+
+def pixellink_2s(tmp, data):
+    """Phase 23: PixelLink++ 2s on the card: its attention sites, the new
+    one held at batch 16 (``attn_site``), the hat DCN pair and the sampler
+    at 150x150 (batch 16), training on ``hat`` with its evaluation and
+    ``--test`` (``pixellink``), parity with the CPU, a repeated step, and
+    training on ``pallas``."""
+    import torch
+
+    t0 = time.perf_counter()
+    sites = pixellink_2s_sites()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    attn = []
+    for n, dk, dv, count in [PL2_ATTN_SITE]:
+        fwd = attn_site(g, PL_BATCH, n, dk, dv, count, False, iters=3, plain_iters=1)
+        bwd = attn_site(g, PL_BATCH, n, dk, dv, count, True, iters=3, plain_iters=1)
+        attn.append(dict(fwd=fwd, bwd=bwd, N=n, M=n, dk=dk, dv=dv, per_forward=count))
+        torch.cuda.empty_cache()
+    dcn = check_dcn_bwd(PL_BATCH, PL2_DCN_SITE)
+    torch.cuda.empty_cache()
+    sample = check_sample((("150", PL_BATCH, PL2_DCN_SITE, True),))
+    torch.cuda.empty_cache()
+    training = pixellink(tmp, data, "2s")
+    parity_res = pixellink_parity(data, "2s")
+    repeat = pl2_repeat_check(data)
+    pallas = pixellink_pallas(tmp, data, "2s")
+    return {"attention_sites": sites, "kernels": {"attention": attn, "hat_dcn_150": dcn,
+                                                  "sample_150": sample},
+            "training": training, "parity": parity_res, "repeat": repeat, "pallas": pallas,
+            "seconds": time.perf_counter() - t0}
+
+
+def gssd_512_routes(tmp, data, attn_per_forward):
+    """Phase 24: GSSD++ at 512 on the sampler's routes: the three
+    deform_sample kernels at the 64x64 site (``check_sample``: forward at
+    batch 8 and 32, dx and dA/dB at 32), serving on ``pallas`` at batch 8
+    with phase 21's weights, and ROUTE_ITERS training steps at batch 32
+    on ``pallas`` and ``fused`` (``device_cached``)."""
+    import torch
+
+    t0 = time.perf_counter()
+    sample = check_sample((("64_b8", BATCH, DCN_SITE_512, False),
+                           ("64_b32", TRAIN_BATCH, DCN_SITE_512, True)))
+    torch.cuda.empty_cache()
+    weights = os.path.join(tmp, f"gssd_pp_{SIZE_512}.pt")
+    check(os.path.exists(weights), f"phase 21's 512 weights are missing: {weights}")
+    launches, lat = serve_pallas(tmp, data, weights, SIZE_512, attn_per_forward)
+    training = {impl: train_512(tmp, attn_per_forward, impl, (CACHED_512,), ROUTE_ITERS)
+                for impl in ("pallas", "fused")}
+    return {"kernels": {"sample_64": sample}, "serving_launches": launches,
+            "latency_ms_per_image": lat, "training": training,
+            "seconds": time.perf_counter() - t0}
+
+
 def _kernel_numbers(site):
     return {k: site[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms")}
@@ -2630,7 +2929,7 @@ def main() -> int:
         return 1
 
     if sys.argv[1:2] == ["--deterministic-step"]:
-        deterministic_step(sys.argv[2])
+        (pl2_repeat_step if sys.argv[3:4] == ["pixellink2s"] else deterministic_step)(sys.argv[2])
         return 0
 
     t_start = time.perf_counter()
@@ -2685,6 +2984,8 @@ def main() -> int:
             inputs_s = time.perf_counter() - t_in
             big = gssd_512(tmp, data)
             folds = folds_phase(tmp)
+            pl2 = pixellink_2s(tmp, train_data)
+            routes512 = gssd_512_routes(tmp, data, sum(c for *_, c in big["attention_sites"]))
         dcn_grad_cos = dcn_grads()
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
@@ -2809,13 +3110,20 @@ def main() -> int:
              note=stem_note + "; one launch runs the dx kernel (not at conv1_1), the dW "
                               "partial sums and their reduction", sites=stem_sites),
     ]
+    sample_150, sample_64 = pl2["kernels"]["sample_150"], routes512["kernels"]["sample_64"]
     for entry in kernels:
         if entry["name"].startswith("flash_attn"):
             entry["pixellink_sites"] = pl_sites["attention"]
             entry["sites_512"] = big["kernels"]["attention"]
+            entry["sites_2s"] = pl2["kernels"]["attention"]
         elif entry["name"].startswith("deform_conv"):
             entry["pixellink_site"] = pl_sites["hat_dcn_75"]
             entry["sites_512"] = big["kernels"]["hat_dcn_64"]
+            entry["pixellink_2s_site"] = pl2["kernels"]["hat_dcn_150"]
+        elif entry["name"].startswith("deform_sample"):
+            part = entry["name"].removeprefix("deform_sample_")
+            entry["sites_150"] = [v for k, v in sample_150.items() if k.startswith(part)]
+            entry["sites_512"] = [v for k, v in sample_64.items() if k.startswith(part)]
     recs = train_res["records"]
     print(json.dumps({"pixellink": {"batch": PL_BATCH, "steps": PL_ITERS,
                                     "ms_per_step": [r["ms"] for r in pl["records"]],
@@ -2850,6 +3158,10 @@ def main() -> int:
     print(json.dumps({"gssd512": {k: v for k, v in big.items() if k != "kernels"},
                       "power": smi}))
     print(json.dumps({"folds": folds, "power": smi}))
+    print(json.dumps({"pixellink2s": {k: v for k, v in pl2.items() if k != "kernels"},
+                      "power": smi}))
+    print(json.dumps({"gssd512_routes": {k: v for k, v in routes512.items() if k != "kernels"},
+                      "power": smi}))
     print(json.dumps({"repeatability": {"bit_equal_calls": repeat_calls,
                                         "deterministic_step": det_step, "batch": DET_BATCH,
                                         "power": smi}}))

@@ -70,7 +70,11 @@
 //      of `splits` contiguous ranges of 64-pixel chunks); A = the samples
 //      (MN-major, from the scratch by TMA), B = gb (MN-major, TMA). Each
 //      block writes its f32 partial; the splits (enough for ~4 waves on
-//      the card: 4 at batch 32) spread dW's 144 tiles over every SM.
+//      the card, and enough that none sums more than 64 chunks: 12 at
+//      batch 32, 38x38) spread dW's 144 tiles over every SM. A longer
+//      chain of wgmmas drifts from the f32-exact sum in proportion to
+//      its length (tools/dw_witness.py: 3.8e-5 of mean |dW| over 512
+//      chunks, 5.1e-6 over 64).
 //   4. dw_reduce adds the partials in split order and rounds to bf16.
 // Why dW reads the samples from scratch instead of forming them again in
 // producer warps (as the forward does): kernel 1 already holds the four
@@ -81,7 +85,7 @@
 // Scratch: du and samp, B*P*G*K*Cg bf16 each (852 MB each at batch 32,
 // 38x38, C 1024), each (g, k) slice of samp padded to a multiple of 8
 // channels (a TMA box starts on 16 bytes); the dW partials, splits *
-// G*K*Cg*Cout f32 (75 MB there); the buckets 4 bytes a sample and 8 a
+// G*K*Cg*Cout f32 (226 MB there); the buckets 4 bytes a sample and 8 a
 // cell.
 
 #include "deform_gather.cuh"

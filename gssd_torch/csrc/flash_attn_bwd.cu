@@ -53,6 +53,14 @@
 // not fit, and keeping dV in shared memory would leave no room for the
 // K, V and dO tiles. Key rows past M and query rows past N come in as
 // zeros (TMA) and add nothing; their outputs are not stored.
+// dV's chain of wgmmas into its registers ends every DV_FLUSH query tiles
+// (1024 queries): the tensor cores' sums drift from the f32-exact sum in
+// proportion to the chain's length (tools/flash_bwd_witness.py: dV read
+// 2.65e-5 of its mean against the contract in f64 over the 22,500 queries
+// of PixelLink++ 2s, 6.1e-6 over 5625). Each thread adds its segment's
+// sum in f32 into its own elements of a scratch dv_run [B, M, dv] f32
+// (no other thread touches them; in tile order, so the same bits on
+// every run), and the walk's end adds the last segment and rounds once.
 
 #include "flash_sm90.cuh"
 
@@ -61,6 +69,7 @@ namespace {
 using namespace sm90;
 
 constexpr int QT = 64;          // queries per tile
+constexpr int DV_FLUSH = 16;    // query tiles a chain of dV wgmmas sums
 constexpr int MAX_STAGES = 3;
 constexpr int SMEM_LIMIT = 232448;
 constexpr int PART_BYTES = 64 * QT * 2;  // one bf16 part of dS^T, 64 keys x 64 queries
@@ -91,7 +100,7 @@ flash_bwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
                const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                const float* __restrict__ lse, const float* __restrict__ delta,
                float* __restrict__ dq_part, bf16* __restrict__ dk_out, bf16* __restrict__ dv_out,
-               int N, int M, int dk, int dv, int dvp, int stages) {
+               float* __restrict__ dv_run, int N, int M, int dk, int dv, int dvp, int stages) {
     extern __shared__ unsigned char smem_raw[];
     const int nwg = blockDim.x / 128;
     const Plan plan = make_plan<DK>(nwg, stages, dvp);
@@ -170,9 +179,10 @@ flash_bwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
     const float* lse_b = lse + (size_t)b * N;
     // The tensor cores sum a wgmma chain into its accumulator with their
     // own rounding, which drifts over hundreds of k-steps (dK read ~1e-5
-    // of its mean at N = 5625; dV ~6e-6, within its limit). Where
-    // registers allow, each sub-step's dK goes into a fresh accumulator
-    // added to the running one in f32, as the plain version's sums round.
+    // of its mean at N = 5625). Where registers allow, each sub-step's dK
+    // goes into a fresh accumulator added to the running one in f32, as
+    // the plain version's sums round; dV's chain is cut every DV_FLUSH
+    // tiles instead (the file's head).
     constexpr bool DK_TMP = !(DK == 128 && DVC == 256);
     // dS parts issued to the tensor cores before one wait (their bf16
     // fragments held in registers at once: 3 x SUB / 4)
@@ -344,19 +354,51 @@ flash_bwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
         }
         mbar_arrive(&empty[st]);
 
-        if (it % nqt == nqt - 1) {
+        const int tile = it % nqt;
+        if (tile % DV_FLUSH == DV_FLUSH - 1 && tile != nqt - 1) {
+            // the end of a segment of dV's chain: its sum into dv_run
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const int m = k0 + 64 * w + r + 8 * h;
+                if (m >= M) continue;
+                float* run = dv_run + ((size_t)b * M + m) * dv + pass * DVC;
+#pragma unroll
+                for (int c = 0; c < DVC / 8; ++c) {
+                    const int col = 8 * c + q2;
+                    if (pass * DVC + col < dv) {
+                        float2 sum = make_float2(dv_acc[4 * c + 2 * h], dv_acc[4 * c + 2 * h + 1]);
+                        if (tile >= DV_FLUSH) {
+                            const float2 prev = *reinterpret_cast<const float2*>(run + col);
+                            sum = make_float2(prev.x + sum.x, prev.y + sum.y);
+                        }
+                        *reinterpret_cast<float2*>(run + col) = sum;
+                    }
+                }
+            }
+#pragma unroll
+            for (int i = 0; i < DVC / 2; ++i) dv_acc[i] = 0.0f;
+        }
+
+        if (tile == nqt - 1) {
             // the end of a walk: its dV columns (and dK after the first)
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
                 const int m = k0 + 64 * w + r + 8 * h;
                 if (m >= M) continue;
                 bf16* vrow = dv_out + ((size_t)b * M + m) * dv + pass * DVC;
+                const float* run = dv_run + ((size_t)b * M + m) * dv + pass * DVC;
 #pragma unroll
                 for (int c = 0; c < DVC / 8; ++c) {
                     const int col = 8 * c + q2;
-                    if (pass * DVC + col < dv)
+                    if (pass * DVC + col < dv) {
+                        float2 sum = make_float2(dv_acc[4 * c + 2 * h], dv_acc[4 * c + 2 * h + 1]);
+                        if (nqt > DV_FLUSH) {
+                            const float2 prev = *reinterpret_cast<const float2*>(run + col);
+                            sum = make_float2(prev.x + sum.x, prev.y + sum.y);
+                        }
                         *reinterpret_cast<__nv_bfloat162*>(vrow + col) =
-                            __floats2bfloat162_rn(dv_acc[4 * c + 2 * h], dv_acc[4 * c + 2 * h + 1]);
+                            __floats2bfloat162_rn(sum.x, sum.y);
+                    }
                 }
                 if (pass == 0) {
                     bf16* krow = dk_out + ((size_t)b * M + m) * dk;
@@ -398,7 +440,8 @@ dq_reduce(const float* __restrict__ part, bf16* __restrict__ dq, int slots, size
 template <int DK, int DVC, int SUB>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* dO, const float* lse,
                    const float* delta, float* dq_part, int max_slots, bf16* dq, bf16* dk_out,
-                   bf16* dv_out, int B, int N, int M, int dk, int dv, cudaStream_t stream) {
+                   bf16* dv_out, float* dv_run, int B, int N, int M, int dk, int dv,
+                   cudaStream_t stream) {
     const int dvp = (dv + 63) / 64 * 64;
     int nwg = 2, stages = MAX_STAGES;
     while (make_plan<DK>(nwg, stages, dvp).total > SMEM_LIMIT) {
@@ -422,7 +465,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dO, 
     if (err != cudaSuccess) return err;
     const dim3 grid((M + kt - 1) / kt, B);
     flash_bwd_sm90<DK, DVC, SUB><<<grid, 128 * nwg, smem, stream>>>(
-        tq, tk, tv, tdo, lse, delta, dq_part, dk_out, dv_out, N, M, dk, dv, dvp, stages);
+        tq, tk, tv, tdo, lse, delta, dq_part, dk_out, dv_out, dv_run, N, M, dk, dv, dvp, stages);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     const size_t n = (size_t)B * N * dk;
@@ -433,13 +476,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dO, 
 template <int DK>
 cudaError_t launch_dk(const void* q, const void* k, const void* v, const void* dO,
                       const float* lse, const float* delta, float* dq_part, int max_slots,
-                      bf16* dq, bf16* dk_out, bf16* dv_out, int B, int N, int M, int dk, int dv,
-                      cudaStream_t s) {
+                      bf16* dq, bf16* dk_out, bf16* dv_out, float* dv_run, int B, int N, int M,
+                      int dk, int dv, cudaStream_t s) {
     if (dv <= 128)
         return launch<DK, 128, 64>(q, k, v, dO, lse, delta, dq_part, max_slots, dq, dk_out,
-                                   dv_out, B, N, M, dk, dv, s);
+                                   dv_out, dv_run, B, N, M, dk, dv, s);
     return launch<DK, 256, 32>(q, k, v, dO, lse, delta, dq_part, max_slots, dq, dk_out, dv_out,
-                               B, N, M, dk, dv, s);
+                               dv_run, B, N, M, dk, dv, s);
 }
 
 }  // namespace
@@ -447,13 +490,14 @@ cudaError_t launch_dk(const void* q, const void* k, const void* v, const void* d
 // q [B,N,dk], k [B,M,dk], v [B,M,dv], dO [B,N,dv] bf16; lse, delta [B,N]
 // f32 (delta = rowsum(f32(dO) * O)); dq_part [max_slots,B,N,dk] f32
 // scratch, max_slots >= 2 * ceil(M / 128); dq [B,N,dk], dk_out [B,M,dk],
-// dv_out [B,M,dv] bf16. All contiguous and 16-byte aligned; dk in
-// 16..128 and dv in 16..512, multiples of 16. Launches the kernel and
-// dq_reduce on `stream` and returns the CUDA error code (0 on success).
+// dv_out [B,M,dv] bf16; dv_run [B,M,dv] f32 scratch (used where N > 64 *
+// DV_FLUSH). All contiguous and 16-byte aligned; dk in 16..128 and dv in
+// 16..512, multiples of 16. Launches the kernel and dq_reduce on
+// `stream` and returns the CUDA error code (0 on success).
 extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v, const void* dO,
                               const void* lse, const void* delta, void* dq_part, void* dq,
-                              void* dk_out, void* dv_out, int B, int N, int M, int dk, int dv,
-                              int max_slots, void* stream) {
+                              void* dk_out, void* dv_out, void* dv_run, int B, int N, int M,
+                              int dk, int dv, int max_slots, void* stream) {
     if (B < 1 || N < 1 || M < 1 || dk % 16 || dk < 16 || dk > 128 || dv % 16 || dv < 16 ||
         dv > 512)
         return (int)cudaErrorInvalidValue;
@@ -463,15 +507,18 @@ extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v, const
     bf16* dqq = static_cast<bf16*>(dq);
     bf16* dkk = static_cast<bf16*>(dk_out);
     bf16* dvv = static_cast<bf16*>(dv_out);
+    float* dvr = static_cast<float*>(dv_run);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     cudaError_t err;
     if (dk <= 32)
-        err = launch_dk<32>(q, k, v, dO, ll, dd, dp, max_slots, dqq, dkk, dvv, B, N, M, dk, dv, s);
+        err = launch_dk<32>(q, k, v, dO, ll, dd, dp, max_slots, dqq, dkk, dvv, dvr, B, N, M, dk,
+                            dv, s);
     else if (dk <= 64)
-        err = launch_dk<64>(q, k, v, dO, ll, dd, dp, max_slots, dqq, dkk, dvv, B, N, M, dk, dv, s);
+        err = launch_dk<64>(q, k, v, dO, ll, dd, dp, max_slots, dqq, dkk, dvv, dvr, B, N, M, dk,
+                            dv, s);
     else
-        err = launch_dk<128>(q, k, v, dO, ll, dd, dp, max_slots, dqq, dkk, dvv, B, N, M, dk, dv,
-                             s);
+        err = launch_dk<128>(q, k, v, dO, ll, dd, dp, max_slots, dqq, dkk, dvv, dvr, B, N, M, dk,
+                             dv, s);
     return (int)err;
 }
 

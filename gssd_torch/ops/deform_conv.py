@@ -9,8 +9,10 @@ runs the deformable conv that ``resolve_deform_impl`` picks for its
 ``dcn_impl`` and map size:
 
 - ``'hat'``: ``deform_conv2d_hat`` (CUDA kernels), or ``deform_conv2d``
-  on maps of more than ``GSSD_HAT_MAX_HW`` (default 6000) positions, as
-  the JAX package falls back there;
+  on maps of more than ``GSSD_HAT_MAX_HW`` positions where that variable
+  is set; on the CPU it defaults to the JAX package's 6000 (a TPU VMEM
+  budget, which the card's kernels do not have), so that the CPU tests
+  compare the JAX package's route;
 - ``'pallas'``: ``deform_conv2d_pallas`` (the separable sampler's CUDA
   kernels);
 - ``'fused'``: ``deform_conv2d_fused`` (patch gather forward, analytic
@@ -102,14 +104,23 @@ def deform_conv2d(x, offset_y, offset_x, mask, weight, bias,
 IMPLS = ("xla", "pallas", "fused", "hat")
 
 
-def resolve_deform_impl(impl: str, hw: int):
-    """The deformable conv of ``impl`` for a map of ``hw`` positions."""
+# the JAX package's GSSD_HAT_MAX_HW default: beyond it its hat backward
+# spills the TPU's VMEM, so the 'hat' route falls back to deform_conv2d
+HAT_MAX_HW = 6000
+
+
+def resolve_deform_impl(impl: str, hw: int, device):
+    """The deformable conv of ``impl`` for a map of ``hw`` positions on
+    ``device``."""
     if impl == "pallas":
         from gssd_torch.ops.kernels.deform_sample import deform_conv2d_pallas
 
         return deform_conv2d_pallas
     if impl == "hat":
-        if hw > int(os.environ.get("GSSD_HAT_MAX_HW", "6000")):
+        limit = os.environ.get("GSSD_HAT_MAX_HW")
+        if limit is None and torch.device(device).type != "cuda":
+            limit = HAT_MAX_HW
+        if limit is not None and hw > int(limit):
             return deform_conv2d
         return deform_conv2d_hat
     if impl == "fused":
@@ -158,7 +169,7 @@ class DCN(nn.Module):
         om = om.float().permute(0, 2, 3, 1).reshape(B, Ho, Wo, 3, G, K)
         dy, dx = om[..., 0, :, :], om[..., 1, :, :]
         m = torch.sigmoid(om[..., 2, :, :])
-        fn = resolve_deform_impl(self.impl, x.shape[2] * x.shape[3])
+        fn = resolve_deform_impl(self.impl, x.shape[2] * x.shape[3], x.device)
         out = fn(x.permute(0, 2, 3, 1), dy, dx, m, self.weight, self.bias,
                  stride=self.stride, padding=self.padding,
                  dilation=self.dilation)

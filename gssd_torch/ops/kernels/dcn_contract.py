@@ -34,6 +34,7 @@ from typing import Dict, Sequence
 import torch
 
 from gssd_torch.ops.kernels import deform_hat as dh
+from gssd_torch.ops.kernels.flash_contract import round_bf16_exact
 
 FWD_OUTPUTS = ("out",)
 BWD_OUTPUTS = ("dpy", "dpx", "dm", "dx", "dwg")
@@ -127,3 +128,37 @@ def faults_missed(faults: Dict[str, Dict[str, float]], lims: Dict[str, float]) -
     not above the output's limit: {"fault/output": (err, limit)}."""
     return {f"{f}/{n}": (errs[n], lims[n]) for f, errs in faults.items()
             for n in AFFECTS[f] if n in errs and not errs[n] > lims[n]}
+
+
+def dw_exact(x, py, px, m, wg, g) -> torch.Tensor:
+    """The backward's dW under the contract computed exactly: each
+    sample summed in f64 from the bf16 corner weights bf16(ay * bx * m)
+    (f32 hats, as the plain versions form them) and bf16 x, rounded once
+    to bf16; g rounded to bf16; dW_k = samp^T . bf16(g) summed over B*P
+    in f64 and rounded once to bf16 (``round_bf16_exact``). Arguments as
+    ``deform_hat.deform_conv_bwd``'s; returns [G, K, C/G, Cout] f64
+    holding bf16 values, the witness ``tools/dw_witness.py`` holds the
+    kernel's dW and the plain version's to."""
+    B, H, W, C = x.shape
+    _, P, G, K = py.shape
+    Cg = C // G
+    xd = x.double().reshape(B, H * W, G, Cg)
+    gb = g.to(torch.bfloat16).double().reshape(B * P, -1)
+    y0, x0 = torch.floor(py), torch.floor(px)
+    dw = torch.empty(G, K, Cg, gb.shape[-1], dtype=torch.float64, device=x.device)
+    for k in range(K):
+        samp = torch.zeros(B, P, G, Cg, dtype=torch.float64, device=x.device)
+        for dy in (0, 1):
+            for dx in (0, 1):
+                qy, qx = y0[..., k] + dy, x0[..., k] + dx
+                inb = (qy >= 0) & (qy < H) & (qx >= 0) & (qx < W)
+                s0 = dh._hat(py[..., k], qy) * dh._hat(px[..., k], qx) * m[..., k]
+                w = torch.where(inb, s0.to(torch.bfloat16).double(), 0.0)
+                idx = (qy.clamp(0, H - 1) * W + qx.clamp(0, W - 1)).long()
+                vals = torch.gather(xd, 1, idx[..., None].expand(B, P, G, Cg))
+                samp += w[..., None] * vals
+                del vals
+        samp = round_bf16_exact(samp).reshape(B * P, G, Cg)
+        dw[:, k] = torch.einsum("pgc,pn->gcn", samp, gb)
+        del samp
+    return round_bf16_exact(dw)

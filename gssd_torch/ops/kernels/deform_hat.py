@@ -39,6 +39,13 @@ MAX_CG = 512
 # the backward's dW blocks: 128 channels x up to 256 Cout columns, over
 # 64-pixel chunks; enough splits of B*P for DW_WAVES blocks an SM
 DW_WAVES = 4
+# the most 64-pixel chunks one dW split sums in one chain of wgmmas (None:
+# no cap). On the H100 the chain's f32 sums drift from the contract in
+# f64 in proportion to its length, ~1.2e-9 of mean |dW| a pixel, where
+# the plain version's stay within ~1.6e-6 (``tools/dw_witness.py``:
+# 3.8e-5 at 64x64, batch 32, 4 splits; 5.1e-6 at this cap, 32 splits, in
+# about the same time); the partials are added in split order in f32.
+DW_MAX_CHUNKS = 64
 
 
 def deform_conv_fwd_plain(x, py, px, m, wg, bias):
@@ -205,12 +212,18 @@ def bwd_rounded(x, py, px, m, wg, g, round_w=True, round_g=True, round_du=True,
     return dpy, dpx, dm, dx.reshape(B, H, W, C), dw
 
 
-def dw_splits(bp, gk, cg, cout, sms):
+def dw_splits(bp, gk, cg, cout, sms, max_chunks=None):
     """How many ranges of B*P the backward's dW is split into: enough
     blocks (128 channels x up to 256 Cout columns each) for DW_WAVES a
-    streaming multiprocessor, at most one range a 64-pixel chunk."""
+    streaming multiprocessor, and enough that no range holds more than
+    ``max_chunks`` 64-pixel chunks (no cap: None); at most one range a
+    chunk."""
+    chunks = -(-bp // 64)
     blocks = -(-cout // 256) * gk * -(-cg // 128)
-    return max(1, min(-(-bp // 64), -(-DW_WAVES * sms // blocks)))
+    n = -(-DW_WAVES * sms // blocks)
+    if max_chunks is not None:
+        n = max(n, -(-chunks // max_chunks))
+    return max(1, min(chunks, n))
 
 
 def deform_conv_bwd(x, py, px, m, wg, g):
@@ -237,7 +250,8 @@ def deform_conv_bwd(x, py, px, m, wg, g):
     # 8 channels for TMA), dW's f32 partials
     du = torch.empty(B, P, G, K, Cg, dtype=torch.bfloat16, device=dev)
     samp = torch.empty(BP, GK, -(-Cg // 8) * 8, dtype=torch.bfloat16, device=dev)
-    splits = dw_splits(BP, GK, Cg, Cout, torch.cuda.get_device_properties(dev).multi_processor_count)
+    splits = dw_splits(BP, GK, Cg, Cout, torch.cuda.get_device_properties(dev).multi_processor_count,
+                       DW_MAX_CHUNKS)
     part = torch.empty(splits, GK * Cg * Cout, dtype=torch.float32, device=dev)
     # dx's buckets: counts and offsets per corner cell, a total per (b, g),
     # one entry a sample

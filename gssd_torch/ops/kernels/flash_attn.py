@@ -29,7 +29,9 @@ import torch
 from gssd_torch.ops.kernels.build import CudaKernel
 
 # largest key count the JAX package sends to its fused kernel
-# (flash_eligible); beyond it SelfAttention takes the plain path
+# (flash_eligible there: a TPU VMEM budget); the CPU keeps it, so that the
+# CPU tests compare the JAX package's route. The card's kernels stream the
+# keys and have no such limit.
 MAX_M = 8192
 
 KERNEL = CudaKernel(
@@ -39,12 +41,16 @@ KERNEL = CudaKernel(
 # the per-key-tile dQ partials)
 BWD_KERNEL = CudaKernel(
     "flash_attn_bwd.cu", "flash_attn_bwd",
-    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6)
+    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6)
 MAX_BWD_DV = 512
 
 
-def flash_eligible(m: int) -> bool:
-    return m <= MAX_M
+def flash_eligible(m: int, device) -> bool:
+    """Whether ``SelfAttention`` sends m keys on ``device`` to the fused
+    boundaries: on a CUDA device always (a shape the kernels refuse
+    raises there; nothing falls back to the plain path on the card), on
+    the CPU up to MAX_M keys, as the JAX package decides."""
+    return torch.device(device).type == "cuda" or m <= MAX_M
 
 
 def flash_attention_fwd_plain(
@@ -148,8 +154,11 @@ def flash_attention_bwd(q, k, v, o, lse, do):
     dq = torch.empty(B, N, dk, dtype=torch.bfloat16, device=q.device)
     dk_ = torch.empty(B, M, dk, dtype=torch.bfloat16, device=q.device)
     dv_ = torch.empty(B, M, dv, dtype=torch.bfloat16, device=q.device)
+    # f32 running sums of dV over its chains of 1024 queries
+    dv_run = torch.empty(B, M, dv, dtype=torch.float32, device=q.device)
     BWD_KERNEL.launch(torch.cuda.current_stream(q.device).cuda_stream,
-                      *(t.data_ptr() for t in (q, k, v, do, lse, delta, part, dq, dk_, dv_)),
+                      *(t.data_ptr() for t in (q, k, v, do, lse, delta, part, dq, dk_, dv_,
+                                               dv_run)),
                       B, N, M, dk, dv, slots)
     return dq, dk_, dv_
 

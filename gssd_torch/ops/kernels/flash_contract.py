@@ -24,7 +24,11 @@ and ``tests/test_torch_cuda.py`` on the card).
 
 ``fwd_exact`` is the forward's contract computed exactly (f64 softmax,
 P rounded once to bf16, P.V in f64), the reference ``chip_smoke.py``
-holds the forward kernel to. Any f32 softmax, the plain version's
+holds the forward kernel to; ``bwd_exact`` is the backward's, which it
+holds the backward kernel to (the plain version's f32 dQ sums over the
+keys drift from it as the keys grow: 1.9e-6 of the mean at 22,500
+keys, above the limit, where the kernel's fixed-order sum of per-tile
+partials reads 4.2e-7; ``tools/flash_bwd_witness.py``, PERF.md). Any f32 softmax, the plain version's
 too, puts the odd element of P on the other side of a bf16 rounding
 boundary than the exact value; where that element is large and the
 output small (few keys, small batch), that one flip moves the mean past
@@ -135,6 +139,27 @@ def fwd_exact(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
         lses.append(lse)
         del s, p
     return torch.stack(out), torch.stack(lses)
+
+
+def bwd_exact(q, k, v, o, lse, do) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward's contract computed exactly, one batch element at a
+    time: P = exp(q k^T - lse) (lse the forward's f32 output, as the
+    kernel takes it), D = rowsum(dO * O), dP = dO V^T, dS = P * (dP - D),
+    dQ = dS K, dK = dS^T Q and dV = P'^T dO with P' = P rounded once to
+    bf16, all in f64; each gradient rounded once to bf16
+    (``round_bf16_exact``). (dq, dk, dv) in f64."""
+    outs = []
+    for b in range(q.shape[0]):
+        qd, kd, vd, dod = (t[b].double() for t in (q, k, v, do))
+        p = torch.exp(torch.matmul(qd, kd.transpose(0, 1)) - lse[b].double()[:, None])
+        dv = torch.matmul(round_bf16_exact(p).transpose(0, 1), dod)
+        d = (dod * o[b].double()).sum(dim=-1, keepdim=True)
+        ds = p * (torch.matmul(dod, vd.transpose(0, 1)) - d)
+        del p
+        outs.append(tuple(round_bf16_exact(t) for t in
+                          (torch.matmul(ds, kd), torch.matmul(ds.transpose(0, 1), qd), dv)))
+        del ds
+    return tuple(torch.stack(parts) for parts in zip(*outs))
 
 
 def fwd_exp2(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:

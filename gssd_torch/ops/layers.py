@@ -199,7 +199,9 @@ class SelfAttention(nn.Module):
     tokens; out: C/2 -> C. No 1/sqrt(d) scale. Returns
     (x + sigma * attn_g, sigma * attn_g, attn) where the attention map
     ``attn`` [B, N, M] is built only when ``return_attn`` is set (else
-    None). bf16 activations go through the fused flash kernel.
+    None). bf16 activations go through the fused flash kernel, at every
+    key count on the card and up to ``MAX_M`` keys on the CPU
+    (``flash_eligible``).
 
     ``remat`` (flax's ``nn.remat``): while gradients are recorded, the
     block runs under ``torch.utils.checkpoint`` and is recomputed in the
@@ -243,10 +245,11 @@ class SelfAttention(nn.Module):
 
         k, v = pooled(self.phi), pooled(self.g)  # [B, M, C/8], [B, M, C/2]
         attn = None
-        if return_attn or not (q.dtype == torch.bfloat16 and flash_eligible(k.shape[1])):
+        fused = q.dtype == torch.bfloat16 and flash_eligible(k.shape[1], q.device)
+        if return_attn or not fused:
             logits = torch.matmul(q.float(), k.float().transpose(1, 2))
             attn = torch.softmax(logits, dim=-1).to(x.dtype)
-        if q.dtype == torch.bfloat16 and flash_eligible(k.shape[1]):
+        if fused:
             attn_g = flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
         else:
             attn_g = torch.matmul(attn, v)

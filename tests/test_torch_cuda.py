@@ -105,7 +105,10 @@ def _rel_err(got, want):
     # 75x75 site, N and M off both, dv 512 (two walks), dk 128, N < 64
     # with M > N
     (2, 5625, 5625, 32, 128), (2, 130, 70, 64, 256), (3, 130, 130, 128, 512),
-    (2, 100, 100, 128, 256), (2, 30, 100, 32, 128)])
+    (2, 100, 100, 128, 256), (2, 30, 100, 32, 128),
+    # dV's chain in segments of 1024 queries: three with a ragged last at
+    # PixelLink++ 2s's widths (dk 16, dv 64), and two walks of dV (dv 272)
+    (1, 2100, 300, 16, 64), (1, 1090, 70, 64, 272)])
 def test_flash_bwd_kernel_matches_plain(gen, B, N, M, dk, dv):
     q = torch.randn(B, N, dk, device="cuda", generator=gen).bfloat16()
     k = torch.randn(B, M, dk, device="cuda", generator=gen).bfloat16()
@@ -256,7 +259,7 @@ def test_deform_sample_kernels_match_plain(gen, N, G, P, H, W, Cg, rows):
 def test_dcn_routes_go_through_the_sample_kernels(gen, impl):
     from gssd_torch.ops.deform_conv import resolve_deform_impl
 
-    fn = resolve_deform_impl(impl, 7 * 9)
+    fn = resolve_deform_impl(impl, 7 * 9, "cuda")
     x = torch.randn(2, 7, 9, 16, device="cuda", generator=gen).bfloat16().requires_grad_()
     oy, ox = (torch.randn(2, 7, 9, 2, 9, device="cuda", generator=gen).requires_grad_()
               for _ in range(2))

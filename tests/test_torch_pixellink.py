@@ -415,12 +415,14 @@ def test_trainer_cli_trains_evaluates_resumes_and_tests(tmp_path, capsys, monkey
     assert tested == first["evals"][0]["test"]
 
 
-@pytest.mark.parametrize("flag", [["--num_workers", "2"]])
+@pytest.mark.parametrize("flag", [["--num_workers", "2"],
+                                  ["--num_workers", "2", "--version", "2s"]])
 def test_trainer_cli_takes_the_input_paths(tmp_path, capsys, monkeypatch, flag):
     """--num_workers 2: the worker processes' stream (the host augmentation
-    with the target maps), two steps with a checkpoint at iteration 1;
-    --resume 1 continues the stream exactly: its batch is the first
-    run's iteration-1 batch, bit for bit."""
+    with the target maps, at 1/4 of the input or, with --version 2s, 1/2),
+    two steps with a checkpoint at iteration 1; --resume 1 continues the
+    stream exactly: its batch is the first run's iteration-1 batch, bit
+    for bit."""
     from gssd_torch.data import make_synthetic_dataset
     from gssd_torch.train import steps
 
@@ -442,6 +444,8 @@ def test_trainer_cli_takes_the_input_paths(tmp_path, capsys, monkeypatch, flag):
     assert "input: host: 2 worker processes, from batch 1" in capsys.readouterr().out
     assert [r["iter"] for r in first["records"] + resumed["records"]] == [0, 1, 1]
     assert len(seen) == 3 and set(seen[2]) >= {"image", "pixel_mask", "link_mask", "valid"}
+    factor = 2 if "2s" in flag else 4
+    assert tuple(seen[2]["pixel_mask"].shape[1:3]) == (64 // factor, 64 // factor)
     for key, value in seen[2].items():
         assert torch.equal(value, seen[1][key]), key
     assert not torch.equal(seen[0]["image"], seen[1]["image"])

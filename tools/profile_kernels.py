@@ -8,8 +8,8 @@ torch.profiler trace on one card.
 Boundaries: stem_conv_fwd and stem_conv_bwd at PixelLink++'s conv1_1 and
 conv1_2 (batch 16, 300x300, bf16; the forward: the weights' packing, the
 conv), deform_conv_fwd and deform_conv_bwd at the GSSD++
-training site (batch 32, 38x38) and at 75x75 (batch 16), flash_attn_bwd at N = M = 5625 (batch
-16), the separable sampler's fwd, dx and dA/dB at the 38x38 site (batch
+training site (batch 32, 38x38), at 75x75 and at 150x150 (batch 16),
+flash_attn_bwd at N = M = 5625 and 22,500 (batch 16), the separable sampler's fwd, dx and dA/dB at the 38x38 site (batch
 32; the range pass, the sample kernel; the range pass, dx; the range
 pass, the buckets, the dA and dB passes) and all three at 75x75 (batch
 16). Prints one JSON line
@@ -61,9 +61,16 @@ def cases(cs):
     bias75 = torch.randn(Cout, device="cuda", generator=g) * 0.1
     yield "deform_conv_fwd 75x75 B=16", lambda: dh.deform_conv_fwd(*args75[:5], bias75)
     yield "deform_conv_bwd 75x75 B=16", lambda: dh.deform_conv_bwd(*args75)
-    q, k, v, do = cs.attn_inputs(g, cs.PL_BATCH, 5625, 32, 128)
-    o, lse = fa.flash_attention_fwd(q, k, v)
-    yield "flash_attn_bwd N=5625 B=16", lambda: fa.flash_attention_bwd(q, k, v, o, lse, do)
+    args150 = cs.dcn_bwd_inputs(cs.PL_BATCH, cs.PL2_DCN_SITE)
+    bias150 = torch.randn(args150[4].shape[-1], device="cuda", generator=g) * 0.1
+    yield "deform_conv_fwd 150x150 B=16", lambda: dh.deform_conv_fwd(*args150[:5], bias150)
+    yield "deform_conv_bwd 150x150 B=16", lambda: dh.deform_conv_bwd(*args150)
+    for n, dk, dv in ((5625, 32, 128), (22500, 16, 64)):
+        q, k, v, do = cs.attn_inputs(g, cs.PL_BATCH, n, dk, dv)
+        o, lse = fa.flash_attention_fwd(q, k, v)
+        yield (f"flash_attn_bwd N={n} B=16",
+               lambda q=q, k=k, v=v, o=o, lse=lse, do=do: fa.flash_attention_bwd(q, k, v, o, lse,
+                                                                                 do))
     a, b, xs, gs = cs.sample_inputs(cs.TRAIN_BATCH)
     yield "deform_sample_fwd 38x38 B=32", lambda: ds.abx_fwd(a, b, xs)
     yield "deform_sample_dx 38x38 B=32", lambda: ds.abx_dx(a, b, gs)
