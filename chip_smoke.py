@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """GPU smoke run of the port (gssd_torch) on one card: the serving path,
 the training step, the three DCN routes, the trainer's evaluation,
-checkpoints and resume, and PixelLink++ (4s and 2s) with the stem kernels.
+checkpoints and resume, PixelLink++ (4s and 2s) and the FSSD family with
+the stem kernels, and the UNet liver-segmentation trainer.
 
     python3 chip_smoke.py        # from the root of a checkout
 
@@ -179,7 +180,25 @@ In order, failing (exit code 1) at the first phase that goes wrong:
    ROUTE_ITERS training steps at batch 32 (``device_cached``) on
    ``pallas`` (14 + 14 attention, 9 + 9 + 9 sampler launches a step) and
    ``fused`` (14 + 14 attention, 9 deform_sample_dx), ms/step and the
-   peak memory.
+   peak memory;
+25. the FSSD family (``--ssd_type fssd``, ``groupfssd``, ``fusedssd``)
+   with the wide-conv switch on: the stem kernels at the trunk's four
+   sites (conv1_1 and conv1_2, 4 groups and ungrouped, 300x300) as phase
+   14 holds them, the forward at batch 8 and 32, the backward at 32 with
+   dW also against the same sum in f64 (within STEM_DW_TOL), timed beside
+   the plain versions and cuDNN; per model, serving through
+   ``gssd_torch.infer`` at batch 8 (exactly 2 stem launches a forward and
+   no other), bf16 card vs f32 CPU (loc, conf within E2E_TOL; a
+   train-mode loss at batch 2 within TRAIN_LOSS_TOL), ROUTE_ITERS
+   training steps at batch 32 on ``device_cached`` (2 + 2 stem launches a
+   step, ms/step, peak memory) with an evaluation and checkpoint at the
+   last, and ``--test --checkpoint`` (AP/IoBB in [0, 1]); groupfssd also
+   trains with the switch off (no stem launch), both medians printed;
+26. UNet (``gssd_torch.train_unet``, 512x512, batch 8, f32,
+   feature_scale 1): UNET_ITERS steps with validation and checkpoints,
+   ms/step, slices/s, peak memory; the last checkpoint restored bit for
+   bit and ``--resume`` from it; the forward on the card against f32 on
+   the CPU at batch 1 (f32 within UNET_F32_TOL, bf16 within E2E_TOL).
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or outside a
@@ -1524,88 +1543,124 @@ def raw_bf16_ulps(got, want):
     return int((ordered(got) - ordered(want)).abs().max().item())
 
 
-def check_stem():
-    """stem_conv_fwd and stem_conv_bwd against their plain versions at
-    the two PixelLink++ stem sites (batch 16, 300 x 300, bf16): y and dx
-    within STEM_ULP_MAX ulp with at most STEM_DIFF_SHARE of the elements
-    differing, dW within STEM_DW_TOL of max |plain|; a planted double
-    rounding of the forward must fail the share limit. Times kernel,
-    plain version and cuDNN (F.conv2d, aten.convolution_backward), the
-    yardstick the port never calls."""
+def stem_site(g, name, cin, cout, B, G, backward=True, planted=False, witness=False):
+    """stem_conv_fwd (and with ``backward`` stem_conv_bwd) against their
+    plain versions at one stem site (300 x 300, bf16, batch B, G groups):
+    y and dx within STEM_ULP_MAX ulp with at most STEM_DIFF_SHARE of the
+    elements differing, dW within STEM_DW_TOL of max |plain|. ``planted``:
+    a planted double rounding of the forward must fail the share limit.
+    ``witness``: dW also within STEM_DW_TOL of max |dW64|, the same sum in
+    f64 (the plain version's reading beside it). Times kernel, plain
+    version and cuDNN (F.conv2d, aten.convolution_backward), the
+    yardstick the port never calls, beside each call's bound."""
     import torch
     import torch.nn.functional as F
 
     from gssd_torch.ops.kernels import stem_conv as sc
 
-    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
-    B, H, W, G = PL_BATCH, 300, 300, 4
-    sites = []
-    for name, cin, cout in STEM_SITES:
-        x = torch.rand(B, cin, H, W, device="cuda", generator=g).bfloat16()
-        w = torch.randn(cout, cin // G, 3, 3, device="cuda", generator=g) * math.sqrt(
-            2 / (9 * cin / G))
-        b = torch.randn(cout, device="cuda", generator=g) * 0.5
-        gout = torch.randn(B, cout, H, W, device="cuda", generator=g).bfloat16()
-        wb = w.bfloat16()
+    H = W = 300
+    tag = f"stem_conv {name} B={B} {cin}->{cout} G={G}"
+    x = torch.rand(B, cin, H, W, device="cuda", generator=g).bfloat16()
+    w = torch.randn(cout, cin // G, 3, 3, device="cuda", generator=g) * math.sqrt(
+        2 / (9 * cin / G))
+    b = torch.randn(cout, device="cuda", generator=g) * 0.5
+    gout = torch.randn(B, cout, H, W, device="cuda", generator=g).bfloat16() if backward \
+        else None
+    wb = w.bfloat16()
+    y = sc.stem_conv_fwd(x, wb, b, G)
+    torch.cuda.synchronize()
+    yp = sc.stem_conv_fwd_plain(x, wb, b, G)
+    y_ulp, y_share = _agreement(y, yp)
+    ops = 2 * B * H * W * cout * (cin // G) * 9
+    fwd_bytes = nbytes_of(x, wb, b, y)
+    fwd_bound = bound(ops, fwd_bytes)
+    site = dict(site=name, B=B, H=H, W=W, Cin=cin, Cout=cout, G=G, y_max_ulp=y_ulp,
+                y_share=y_share, unfloored_max_steps=raw_bf16_ulps(y, yp), ops=ops,
+                fwd_bytes=fwd_bytes, max_abs_err=(y.float() - yp.float()).abs().max().item())
+    msg = f"{tag}: y max {y_ulp:.3g} ulp, {y_share:.3g} differ"
+    checks = [("y", y_ulp, y_share)]
+    if planted:
+        p_ulp, p_share = _agreement(
+            F.conv2d(x.float(), wb.float(), None, padding=1, groups=G).bfloat16()
+            + b.bfloat16()[None, :, None, None], yp)
+        site.update(planted_max_ulp=p_ulp, planted_share=p_share)
+        msg += f"; planted double rounding: max {p_ulp:.3g} ulp, {p_share:.3g} differ"
+        check(p_share > STEM_DIFF_SHARE,
+              f"{tag}: the planted double rounding passes the share limit "
+              f"({p_share} <= {STEM_DIFF_SHARE})")
+    if backward:
         need_dx = name != "conv1_1"  # conv1_1's input is the image
-        y = sc.stem_conv_fwd(x, wb, b, G)
         dx, dw = sc.stem_conv_bwd(x, w, gout, G, need_dx)
         torch.cuda.synchronize()
-        yp = sc.stem_conv_fwd_plain(x, wb, b, G)
         dxp, dwp = sc.stem_conv_bwd_plain(x, w, gout, G, need_dx)
-        y_ulp, y_share = _agreement(y, yp)
-        planted = F.conv2d(x.float(), wb.float(), None, padding=1, groups=G).bfloat16() \
-            + b.bfloat16()[None, :, None, None]
-        p_ulp, p_share = _agreement(planted, yp)
         dx_ulp, dx_share = _agreement(dx, dxp) if need_dx else (0, 0.0)
-        raw = max(raw_bf16_ulps(y, yp), raw_bf16_ulps(dx, dxp) if need_dx else 0)
         dw_rel = ((dw - dwp).abs().max() / dwp.abs().max()).item()
-        print(f"stem_conv {name} B={B} {cin}->{cout} G={G}: y max {y_ulp:.3g} ulp, "
-              f"{y_share:.3g} differ; dx max {dx_ulp:.3g} ulp, {dx_share:.3g} differ; dW rel "
-              f"{dw_rel:.3g}; planted double rounding: max {p_ulp:.3g} ulp, {p_share:.3g} "
-              f"differ; unfloored max {raw} steps", flush=True)
-        for what, ulp, share in (("y", y_ulp, y_share), ("dx", dx_ulp, dx_share)):
-            check(ulp <= STEM_ULP_MAX and share <= STEM_DIFF_SHARE,
-                  f"stem_conv {name} {what}: {ulp} ulp max, {share} of elements differ "
-                  f"(limits {STEM_ULP_MAX}, {STEM_DIFF_SHARE})")
+        site.update(need_dx=need_dx, dx_max_ulp=dx_ulp, dx_share=dx_share, dw_rel=dw_rel,
+                    unfloored_max_steps=max(site["unfloored_max_steps"],
+                                            raw_bf16_ulps(dx, dxp) if need_dx else 0),
+                    max_abs_err=max(site["max_abs_err"],
+                                    (dx.float() - dxp.float()).abs().max().item()
+                                    if need_dx else 0.0,
+                                    (dw - dwp).abs().max().item()))
+        msg += f"; dx max {dx_ulp:.3g} ulp, {dx_share:.3g} differ; dW rel {dw_rel:.3g}"
+        checks.append(("dx", dx_ulp, dx_share))
         check(math.isfinite(dw_rel) and dw_rel <= STEM_DW_TOL,
-              f"stem_conv {name} dW: rel err {dw_rel} > {STEM_DW_TOL}")
-        check(p_share > STEM_DIFF_SHARE,
-              f"stem_conv {name}: the planted double rounding passes the share limit "
-              f"({p_share} <= {STEM_DIFF_SHARE})")
-        ops = 2 * B * H * W * cout * (cin // G) * 9
-        fwd_bytes = nbytes_of(x, wb, b, y)
-        bwd_bytes = nbytes_of(x, gout, dw, *((dx,) if need_dx else ()))
-        fwd_bound = bound(ops, fwd_bytes)
-        bwd_bound = bound(ops * (2 if need_dx else 1), bwd_bytes)
+              f"{tag} dW: rel err {dw_rel} > {STEM_DW_TOL}")
+        if witness:
+            # the same f32 function's sum in f64, a few images at a time
+            dw64 = sum(torch.nn.grad.conv2d_weight(
+                x[i:i + 8].double(), tuple(w.shape), gout[i:i + 8].double(), padding=1,
+                groups=G) for i in range(0, B, 8))
+            top = dw64.abs().max()
+            site.update(dw_vs_f64=((dw - dw64).abs().max() / top).item(),
+                        dw_plain_vs_f64=((dwp - dw64).abs().max() / top).item())
+            msg += (f"; dW against f64 {site['dw_vs_f64']:.3g} (plain version "
+                    f"{site['dw_plain_vs_f64']:.3g}; limit {STEM_DW_TOL})")
+            check(site["dw_vs_f64"] <= STEM_DW_TOL,
+                  f"{tag} dW against f64: rel err {site['dw_vs_f64']} > {STEM_DW_TOL}")
+            del dw64
+    print(f"{msg}; unfloored max {site['unfloored_max_steps']} steps", flush=True)
+    for what, ulp, share in checks:
+        check(ulp <= STEM_ULP_MAX and share <= STEM_DIFF_SHARE,
+              f"{tag} {what}: {ulp} ulp max, {share} of elements differ "
+              f"(limits {STEM_ULP_MAX}, {STEM_DIFF_SHARE})")
+    site.update(
+        fwd_ms=time_ms(lambda: sc.stem_conv_fwd(x, wb, b, G)),
+        fwd_plain_ms=time_ms(lambda: sc.stem_conv_fwd_plain(x, wb, b, G), iters=5),
+        fwd_library_ms=time_ms(lambda: F.conv2d(x, wb, b.bfloat16(), padding=1, groups=G)),
+        fwd_bound_ms=fwd_bound[0], fwd_bound_by=fwd_bound[1])
+    msg = (f"  forward: kernel {site['fwd_ms']:.4f} ms, plain {site['fwd_plain_ms']:.4f}, "
+           f"cuDNN {site['fwd_library_ms']:.4f}, bound {site['fwd_bound_ms']:.4f} "
+           f"({site['fwd_bound_by']})")
+    if backward:
         xr = x.detach().requires_grad_(need_dx)
-        sites.append(dict(
-            site=name, B=B, H=H, W=W, Cin=cin, Cout=cout, G=G, need_dx=need_dx,
-            y_max_ulp=y_ulp, y_share=y_share, dx_max_ulp=dx_ulp, dx_share=dx_share,
-            unfloored_max_steps=raw,
-            dw_rel=dw_rel, planted_max_ulp=p_ulp, planted_share=p_share,
-            max_abs_err=max((y.float() - yp.float()).abs().max().item(),
-                            (dx.float() - dxp.float()).abs().max().item() if need_dx else 0.0,
-                            (dw - dwp).abs().max().item()),
-            fwd_ms=time_ms(lambda: sc.stem_conv_fwd(x, wb, b, G)),
-            fwd_plain_ms=time_ms(lambda: sc.stem_conv_fwd_plain(x, wb, b, G), iters=5),
-            fwd_library_ms=time_ms(lambda: F.conv2d(x, wb, b.bfloat16(), padding=1, groups=G)),
-            fwd_bound_ms=fwd_bound[0], fwd_bound_by=fwd_bound[1],
+        bwd_bytes = nbytes_of(x, gout, dw, *((dx,) if need_dx else ()))
+        bwd_bound = bound(ops * (2 if need_dx else 1), bwd_bytes)
+        site.update(
             bwd_ms=time_ms(lambda: sc.stem_conv_bwd(x, w, gout, G, need_dx), iters=10),
             bwd_plain_ms=time_ms(lambda: sc.stem_conv_bwd_plain(x, w, gout, G, need_dx),
                                  iters=3),
             bwd_library_ms=time_ms(lambda: torch.ops.aten.convolution_backward(
                 gout, xr, wb, [cout], [1, 1], [1, 1], [1, 1], False, [0, 0], G,
                 [need_dx, True, False]), iters=10),
-            bwd_bound_ms=bwd_bound[0], bwd_bound_by=bwd_bound[1], ops=ops,
-            fwd_bytes=fwd_bytes, bwd_bytes=bwd_bytes))
-        s = sites[-1]
-        print(f"  forward: kernel {s['fwd_ms']:.4f} ms, plain {s['fwd_plain_ms']:.4f}, cuDNN "
-              f"{s['fwd_library_ms']:.4f}, bound {s['fwd_bound_ms']:.4f} ({s['fwd_bound_by']}); "
-              f"backward: kernel {s['bwd_ms']:.4f} ms, plain {s['bwd_plain_ms']:.4f}, cuDNN "
-              f"{s['bwd_library_ms']:.4f}, bound {s['bwd_bound_ms']:.4f} ({s['bwd_bound_by']})",
-              flush=True)
-        del x, gout, y, yp, dx, dxp, planted, xr
+            bwd_bound_ms=bwd_bound[0], bwd_bound_by=bwd_bound[1], bwd_bytes=bwd_bytes)
+        msg += (f"; backward: kernel {site['bwd_ms']:.4f} ms, plain {site['bwd_plain_ms']:.4f}, "
+                f"cuDNN {site['bwd_library_ms']:.4f}, bound {site['bwd_bound_ms']:.4f} "
+                f"({site['bwd_bound_by']})")
+    print(msg, flush=True)
+    return site
+
+
+def check_stem():
+    """The stem kernels at the two PixelLink++ stem sites (batch 16, 4
+    groups), forward and backward, with the planted double rounding
+    (``stem_site``)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    sites = [stem_site(g, name, cin, cout, PL_BATCH, 4, planted=True)
+             for name, cin, cout in STEM_SITES]
+    torch.cuda.empty_cache()
     return sites
 
 
@@ -2906,6 +2961,308 @@ def gssd_512_routes(tmp, data, attn_per_forward):
             "seconds": time.perf_counter() - t0}
 
 
+# ---- the FSSD family with the stem kernels at its trunk; UNet ----
+
+FSSD_TYPES = ("fssd", "groupfssd", "fusedssd")
+# launches of one FSSD forward and train step with the wide-conv switch on
+FSSD_FORWARD_LAUNCHES = dict(stem_conv_fwd=2)
+FSSD_STEP_LAUNCHES = dict(stem_conv_fwd=2, stem_conv_bwd=2)
+FSSD_EVAL_BATCH = 16
+
+
+def check_stem_fssd():
+    """The stem kernels at the FSSD trunk's four sites (conv1_1 12 -> 64
+    and conv1_2 64 -> 64 at 300 x 300, G = 4 and G = 1): the forward at
+    the serving batch 8 and the training batch 32, the backward at 32
+    with dW also against its sum in f64 (``stem_site``)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 25)
+    sites = []
+    for G in (4, 1):
+        for name, cin, cout in STEM_SITES:
+            sites.append(stem_site(g, name, cin, cout, BATCH, G, backward=False))
+            sites.append(stem_site(g, name, cin, cout, TRAIN_BATCH, G, witness=True))
+            torch.cuda.empty_cache()
+    return sites
+
+
+def seeded_fssd(ssd_type, compute_dtype, seed=SEED):
+    """An FSSD-family model from ``seed`` with He-scaled convs (the
+    trunk's, the fusion's and the transposed conv: activations keep their
+    scale through the ReLUs) and every BatchNorm's statistics and affine
+    away from (0, 1) and (1, 0), as ``seeded_model`` seeds GSSD++."""
+    import torch
+
+    from gssd_torch.config import ModelConfig
+    from gssd_torch.models import build_model
+    from gssd_torch.ops.layers import BatchNorm, ConvBNRelu
+
+    model, priors = build_model(ModelConfig(ssd_type=ssd_type, compute_dtype=compute_dtype),
+                                device="cpu", seed=seed)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, (ConvBNRelu, torch.nn.ConvTranspose2d)):
+                w = mod.conv.weight if isinstance(mod, ConvBNRelu) else mod.weight
+                fan_in = w[0].numel() if isinstance(mod, ConvBNRelu) else w.shape[0]
+                w.normal_(0, math.sqrt(2 / fan_in), generator=g)
+            elif isinstance(mod, BatchNorm):
+                mod.running_mean.normal_(0, 0.1, generator=g)
+                mod.running_var.uniform_(0.5, 1.5, generator=g)
+                mod.weight.uniform_(0.8, 1.2, generator=g)
+                mod.bias.normal_(0, 0.1, generator=g)
+    return model, priors
+
+
+def fssd_parity(data, ssd_type):
+    """The seeded model in bf16 on the card (stem kernels) against f32 on
+    the CPU (plain versions): one image's loc and conf within E2E_TOL of
+    max |f32|, and one train-mode step's loss at batch 2 within
+    TRAIN_LOSS_TOL relative."""
+    import numpy as np
+    import torch
+
+    from gssd_torch.config import LossConfig
+    from gssd_torch.data import BaseTransform, DataSplitter, LesionDataset
+    from gssd_torch.train.steps import forward_loss
+
+    ids = DataSplitter(data, 1, 4).data_test[:1]
+    x, _, _ = BaseTransform(300)(LesionDataset(data, ids).pull_image(0))
+    xt = torch.from_numpy(np.ascontiguousarray(
+        np.transpose(x, (1, 2, 0, 3)).reshape(1, 300, 300, 12)))
+    outs, losses = {}, {}
+    for dtype, device in (("float32", "cpu"), ("bfloat16", "cuda")):
+        model, priors = seeded_fssd(ssd_type, dtype)
+        model = model.to(device).eval()
+        with torch.inference_mode():
+            out = model(xt.to(device))
+        outs[dtype] = {k: out[k].float().cpu() for k in ("loc", "conf")}
+        model.train()
+        with torch.no_grad():
+            loss_l, loss_c, _ = forward_loss(model, torch.tensor(priors, device=device),
+                                             fixed_batch(data, 2, device), LossConfig())
+        losses[dtype] = (loss_l + loss_c).item()
+    errs = {}
+    for name in ("loc", "conf"):
+        ref, got = outs["float32"][name], outs["bfloat16"][name]
+        check(bool(torch.isfinite(got).all()), f"{ssd_type} {name}: non-finite bf16 output")
+        errs[name] = (got - ref).abs().max().item() / ref.abs().max().item()
+        check(errs[name] <= E2E_TOL,
+              f"{ssd_type} {name}: bf16 card vs f32 cpu {errs[name]} > {E2E_TOL}")
+    errs["loss"] = abs(losses["bfloat16"] - losses["float32"]) / abs(losses["float32"])
+    print(f"{ssd_type} parity, bf16 card vs f32 cpu: loc {errs['loc']:.4g}, conf "
+          f"{errs['conf']:.4g} (limit {E2E_TOL}); train-mode loss at batch 2 "
+          f"{losses['bfloat16']:.6g} vs {losses['float32']:.6g}, rel {errs['loss']:.4g} "
+          f"(limit {TRAIN_LOSS_TOL})", flush=True)
+    check(math.isfinite(losses["bfloat16"]) and errs["loss"] <= TRAIN_LOSS_TOL,
+          f"{ssd_type} train loss bf16 card vs f32 cpu: rel {errs['loss']} > {TRAIN_LOSS_TOL}")
+    return errs
+
+
+def fssd_serve(tmp, data, ssd_type):
+    """``gssd_torch.infer --ssd_type`` over the 32 serving slices in
+    forwards of 8 from the seeded weights: exactly FSSD_FORWARD_LAUNCHES a
+    forward, ms/image after the first batch."""
+    import torch
+
+    from gssd_torch import infer
+
+    model, _ = seeded_fssd(ssd_type, "bfloat16")
+    weights = os.path.join(tmp, f"{ssd_type}.pt")
+    torch.save(model.state_dict(), weights)
+    n_batches = 4
+    _reset_launches()
+    res = infer.main(["--ssd_type", ssd_type, "--datapath", data, "--split", "all",
+                      "--num_test_subjects", "2", "--eval_batch", str(BATCH),
+                      "--device", "cuda", "--compute_dtype", "bfloat16", "--weights", weights,
+                      "--det_output", os.path.join(tmp, f"detections_{ssd_type}.json")])
+    launches = _launches()
+    want = {k: FSSD_FORWARD_LAUNCHES.get(k, 0) * n_batches for k in launches}
+    check(launches == want, f"{ssd_type} serving: launches {launches}, expected {want}")
+    check(len(res["detections"]) == BATCH * n_batches, f"{ssd_type}: wrong detection count")
+    lat = res["latency_ms"]
+    check(len(lat) == n_batches - 1 and all(math.isfinite(t) and t > 0 for t in lat),
+          f"{ssd_type}: bad latency record {lat}")
+    print(f"{ssd_type} serving (batch {BATCH}): {sum(lat) / len(lat):.3f} ms/image over "
+          f"{len(lat)} batches after the first; launches {launches}", flush=True)
+    return {"launches": launches, "latency_ms_per_image": lat}
+
+
+def fssd_train(tmp, data, ssd_type, evaluate=True):
+    """``gssd_torch.train --ssd_type`` at batch 32 on ``device_cached``,
+    ROUTE_ITERS steps: exactly FSSD_STEP_LAUNCHES a step with the switch
+    on (none with it off) plus, with ``evaluate``, FSSD_FORWARD_LAUNCHES a
+    forward of the evaluation and checkpoint at the last iteration, then
+    ``--test --checkpoint`` (the AP/IoBB keys in [0, 1]); finite losses,
+    median ms/step after the first, the peak memory allocated."""
+    import torch
+
+    from gssd_torch import train as trainer
+    from gssd_torch.data import DataSplitter
+    from gssd_torch.ops import layers
+
+    on = layers.USE_WIDE_CONV_KERNEL
+    tag = f"{ssd_type} training (switch {'on' if on else 'off'})"
+    last = ROUTE_ITERS - 1
+    argv = ["--ssd_type", ssd_type, "--datapath", data, "--num_test_subjects", "4",
+            "--batch_size", str(TRAIN_BATCH), "--max_iter", str(ROUTE_ITERS),
+            "--aug_method", "device_cached", "--device", "cuda", "--compute_dtype",
+            "bfloat16", "--seed", str(SEED), "--eval_batch", str(FSSD_EVAL_BATCH),
+            "--output", os.path.join(tmp, f"run_{ssd_type}_{'on' if on else 'off'}")]
+    argv += (["--val_every", str(last), "--speedrun", str(last)] if evaluate
+             else ["--speedrun", "100000"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    res = trainer.main(argv)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = _launches()
+    splitter = DataSplitter(data, 1, 4)
+    forwards = _eval_forwards(splitter, FSSD_EVAL_BATCH) if evaluate else 0
+    want = {k: (FSSD_STEP_LAUNCHES.get(k, 0) * ROUTE_ITERS
+                + FSSD_FORWARD_LAUNCHES.get(k, 0) * forwards) * on for k in launches}
+    check(launches == want, f"{tag}: launches {launches}, expected {want}")
+    losses = [r["loss"] for r in res["records"]]
+    check(len(losses) == ROUTE_ITERS and all(math.isfinite(v) for v in losses),
+          f"{tag}: non-finite or missing losses {losses}")
+    median = res["median_step_ms"]
+    out = dict(batch=TRAIN_BATCH, steps=ROUTE_ITERS, median_ms_per_step=median,
+               slices_per_s=TRAIN_BATCH / median * 1e3, peak_memory_gib=peak,
+               ms_per_step=[r["ms"] for r in res["records"]], losses=losses, launches=launches)
+    print(f"{tag}, batch {TRAIN_BATCH}, device_cached: median {median:.2f} ms/step after the "
+          f"first, {out['slices_per_s']:.1f} slices/s, peak memory {peak:.2f} GiB; launches "
+          f"{launches}; losses {losses}", flush=True)
+    if not evaluate:
+        return out
+    check([e["iter"] for e in res["evals"]] == [last] and os.path.exists(res["weights"]),
+          f"{tag}: expected an evaluation and a checkpoint at iteration {last}")
+    _reset_launches()
+    tested = trainer.main(argv + ["--test", "True", "--checkpoint", str(last)])["test"]
+    launches_test = _launches()
+    n_test = -(-len(splitter.data_test) // FSSD_EVAL_BATCH)
+    want = {k: FSSD_FORWARD_LAUNCHES.get(k, 0) * n_test for k in launches_test}
+    check(launches_test == want, f"{ssd_type} --test: launches {launches_test}, expected {want}")
+    check(set(tested) == AP_KEYS and all(0.0 <= v <= 1.0 for v in tested.values()),
+          f"{ssd_type} --test AP/IoBB malformed: {tested}")
+    print(f"{ssd_type} --test --checkpoint {last}: {tested}", flush=True)
+    return {**out, "evaluation": res["evals"][0]["test"], "test": tested,
+            "test_launches": launches_test}
+
+
+def fssd_family(tmp, data, train_data):
+    """Phase 25: the stem kernels at the FSSD trunk's sites; then each of
+    fssd, groupfssd and fusedssd with the wide-conv switch on: serving,
+    parity and training; groupfssd also trains with the switch off."""
+    t0 = time.perf_counter()
+    kernels = check_stem_fssd()
+    models = {}
+    with wide_conv():
+        for t in FSSD_TYPES:
+            models[t] = {"serving": fssd_serve(tmp, data, t),
+                         "parity_rel_err": fssd_parity(train_data, t),
+                         "training": fssd_train(tmp, train_data, t)}
+    with wide_conv(False):
+        off = fssd_train(tmp, train_data, "groupfssd", evaluate=False)
+    on_ms = models["groupfssd"]["training"]["median_ms_per_step"]
+    print(f"groupfssd ms/step at batch {TRAIN_BATCH}: switch on {on_ms:.2f}, off (cuDNN "
+          f"stem) {off['median_ms_per_step']:.2f}", flush=True)
+    return {"kernels": kernels, "models": models, "groupfssd_switch_off": off,
+            "seconds": time.perf_counter() - t0}
+
+
+UNET_BATCH = 8       # the JAX trainer's default
+UNET_ITERS = 6       # evaluations and checkpoints at iterations 3 and 5
+UNET_VAL_EVERY = 3
+UNET_F32_TOL = 1e-3  # f32 card (cuDNN, TF32 off) vs f32 CPU: sums in another order
+
+
+def unet_phase(tmp, data):
+    """Phase 26: ``gssd_torch.train_unet`` on the synthetic 512 x 512 set
+    with the JAX trainer's defaults (feature_scale 1, batch 8, f32):
+    UNET_ITERS steps with validation and a checkpoint every
+    UNET_VAL_EVERY and at the last (ms/step, slices/s, peak memory); the
+    last checkpoint restored into a fresh model and optimizer must equal
+    the trainer's state bit for bit, and ``--resume`` continues from it;
+    the f32 forward on the card against f32 on the CPU at batch 1 within
+    UNET_F32_TOL of max |ref|, the bf16 forward within E2E_TOL."""
+    import numpy as np
+    import torch
+
+    from gssd_torch import train_unet
+    from gssd_torch.config import OptimConfig
+    from gssd_torch.models.unet import UNet
+    from gssd_torch.train.checkpoint import restore_checkpoint
+    from gssd_torch.train.optim import make_optimizer
+
+    t0 = time.perf_counter()
+    out_dir = os.path.join(tmp, "unet")
+    argv = ["--datapath", data, "--output", out_dir, "--batch_size", str(UNET_BATCH),
+            "--val_every", str(UNET_VAL_EVERY), "--seed", str(SEED), "--device", "cuda"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res = train_unet.main(argv + ["--max_iter", str(UNET_ITERS)])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [r["loss"] for r in res["records"]]
+    last = UNET_ITERS - 1
+    check(len(losses) == UNET_ITERS and all(math.isfinite(v) for v in losses),
+          f"unet: non-finite or missing losses {losses}")
+    check([e["iter"] for e in res["evals"]] == [UNET_VAL_EVERY, last]
+          and all(math.isfinite(e["loss"]) and 0 <= e["pixel_acc"] <= 1
+                  and 0 <= e["fg_iou"] <= 1 for e in res["evals"]),
+          f"unet: evaluations malformed {res['evals']}")
+    median = res["median_step_ms"]
+    print(f"unet training (512 x 512, batch {UNET_BATCH}, f32): median {median:.2f} ms/step "
+          f"after the first, {res['slices_per_s']:.1f} slices/s, peak memory {peak:.2f} GiB; "
+          f"losses {losses}; validation {res['evals']}", flush=True)
+
+    model = UNet(n_classes=2, feature_scale=1, seed=SEED + 7).to("cuda")
+    opt = make_optimizer(model, OptimConfig(lr=1e-4, momentum=0.8, stepvalues=()))
+    step = restore_checkpoint(model, opt, os.path.join(out_dir, "checkpoints"),
+                              "unet_liverseg", last)
+    want_sd, want_opt = res["model"].state_dict(), res["optimizer"].state_dict()["state"]
+    same = [torch.equal(v, want_sd[k]) for k, v in model.state_dict().items()]
+    same_m = [torch.equal(st["momentum_buffer"], want_opt[i]["momentum_buffer"])
+              for i, st in opt.state_dict()["state"].items()]
+    check(step == UNET_ITERS and all(same) and len(same) == len(want_sd) and all(same_m)
+          and len(same_m) == len(list(model.parameters())),
+          f"unet restore is not exact: step {step}, {same.count(False)} tensors and "
+          f"{same_m.count(False)} momenta differ")
+    del model, opt
+    resumed = train_unet.main(argv + ["--max_iter", str(UNET_ITERS + 1), "--resume", str(last)])
+    check([r["iter"] for r in resumed["records"]] == [last, last + 1]
+          and resumed["step"] == UNET_ITERS + 2
+          and all(math.isfinite(r["loss"]) for r in resumed["records"]),
+          f"unet --resume {last}: records {resumed['records']}, step {resumed['step']}")
+    print(f"unet checkpoint {last} restored bit for bit ({len(same)} tensors, {len(same_m)} "
+          f"momenta, step {step}); --resume {last}: losses "
+          f"{[r['loss'] for r in resumed['records']]}", flush=True)
+    steps_ms = [r["ms"] for r in res["records"]]
+    del res, resumed
+
+    images, _ = train_unet.load_slices(data)
+    x = torch.from_numpy(images[:1])
+    outs = {}
+    for dtype, device in (("float32", "cpu"), ("float32", "cuda"), ("bfloat16", "cuda")):
+        model = UNet(n_classes=2, feature_scale=1, compute_dtype=dtype, seed=SEED).to(device)
+        with torch.inference_mode():
+            outs[(dtype, device)] = model.eval()(x.to(device)).float().cpu()
+    ref = outs[("float32", "cpu")]
+    errs = {}
+    for key, limit in ((("float32", "cuda"), UNET_F32_TOL), (("bfloat16", "cuda"), E2E_TOL)):
+        got = outs[key]
+        check(bool(torch.isfinite(got).all()), f"unet {key}: non-finite output")
+        errs[key[0]] = (got - ref).abs().max().item() / ref.abs().max().item()
+        check(errs[key[0]] <= limit, f"unet {key[0]} card vs f32 cpu: {errs[key[0]]} > {limit}")
+    print(f"unet parity at batch 1, 512 x 512, against f32 on the cpu: f32 card "
+          f"{errs['float32']:.4g} (limit {UNET_F32_TOL}), bf16 card {errs['bfloat16']:.4g} "
+          f"(limit {E2E_TOL})", flush=True)
+    return {"batch": UNET_BATCH, "steps": UNET_ITERS, "median_ms_per_step": median,
+            "slices_per_s": UNET_BATCH / median * 1e3, "peak_memory_gib": peak,
+            "ms_per_step": steps_ms,
+            "losses": losses, "parity_rel_err": errs, "seconds": time.perf_counter() - t0}
+
+
 def _kernel_numbers(site):
     return {k: site[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms")}
@@ -2986,6 +3343,8 @@ def main() -> int:
             folds = folds_phase(tmp)
             pl2 = pixellink_2s(tmp, train_data)
             routes512 = gssd_512_routes(tmp, data, sum(c for *_, c in big["attention_sites"]))
+            fssd = fssd_family(tmp, data, train_data)
+            unet = unet_phase(tmp, train_data)
         dcn_grad_cos = dcn_grads()
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
@@ -3111,7 +3470,13 @@ def main() -> int:
                               "partial sums and their reduction", sites=stem_sites),
     ]
     sample_150, sample_64 = pl2["kernels"]["sample_150"], routes512["kernels"]["sample_64"]
+    fssd_launches = {t: {"serving": m["serving"]["launches"],
+                         "training": m["training"]["launches"]}
+                     for t, m in fssd["models"].items()}
     for entry in kernels:
+        if entry["name"].startswith("stem_conv"):
+            entry["fssd_sites"] = fssd["kernels"]
+            entry["fssd_launches"] = fssd_launches
         if entry["name"].startswith("flash_attn"):
             entry["pixellink_sites"] = pl_sites["attention"]
             entry["sites_512"] = big["kernels"]["attention"]
@@ -3162,6 +3527,9 @@ def main() -> int:
                       "power": smi}))
     print(json.dumps({"gssd512_routes": {k: v for k, v in routes512.items() if k != "kernels"},
                       "power": smi}))
+    print(json.dumps({"fssd_family": {k: v for k, v in fssd.items() if k != "kernels"},
+                      "power": smi}))
+    print(json.dumps({"unet": unet, "power": smi}))
     print(json.dumps({"repeatability": {"bit_equal_calls": repeat_calls,
                                         "deterministic_step": det_step, "batch": DET_BATCH,
                                         "power": smi}}))

@@ -4,8 +4,9 @@ hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 The port of ``gssd_tpu`` (JAX on a TPU), which stays the reference this
 package is tested against. It imports neither JAX nor ``gssd_tpu``.
 Serving path: ``python -m gssd_torch.infer``; training:
-``python -m gssd_torch.train`` (the SSD family) and
-``python -m gssd_torch.train_pixellink`` (PixelLink++).
+``python -m gssd_torch.train`` (the SSD family: SSD, GSSD, GSSD++ and
+the FSSD family), ``python -m gssd_torch.train_pixellink`` (PixelLink++)
+and ``python -m gssd_torch.train_unet`` (UNet liver segmentation).
 """
 
 import torch

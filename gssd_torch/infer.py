@@ -56,7 +56,12 @@ def build_parser():
     p.add_argument("--fold", default=0, type=int,
                    help="the cross-validation fold whose --checkpoint to serve")
     # model
-    p.add_argument("--ssd_type", default="gssd", choices=["gssd", "ssd"])
+    p.add_argument("--ssd_type", default="gssd",
+                   choices=["ssd", "gssd", "fssd", "groupfssd", "fusedssd"],
+                   help="ssd (ungrouped), gssd (grouped + fuse convs; GSSD++ with the "
+                        "attention/DCN flags), fssd / groupfssd (feature-fusion pyramid), "
+                        "fusedssd (deconv conv5_3 -> conv4_3 fusion); the FSSD family "
+                        "ignores the attention and DCN flags")
     p.add_argument("--ssd_dim", default=300, type=int)
     p.add_argument("--num_classes", default=2, type=int)
     p.add_argument("--batch_norm", default=True, type=str2bool)

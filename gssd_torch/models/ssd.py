@@ -70,6 +70,35 @@ def slice_and_cat(a: torch.Tensor, b: torch.Tensor, groups: int) -> torch.Tensor
     return torch.cat([ag, bg], dim=2).reshape(B, Ca + Cb, H, W)
 
 
+def add_heads(module: nn.Module, cfg: ModelConfig, channels: List[int],
+              gen: torch.Generator) -> None:
+    """The multibox heads on ``module``: per source i of ``channels[i]``
+    channels, plain ungrouped 3x3 convs ``loc_i`` and ``conf_i``
+    (Glorot-uniform weights from ``gen``, zero biases)."""
+    mbox = cfg.anchor_config.num_priors_per_cell
+    for i, (cs, nb) in enumerate(zip(channels, mbox)):
+        for name, out in ((f"loc_{i}", nb * 4), (f"conf_{i}", nb * cfg.num_classes)):
+            head = nn.Conv2d(cs, out, 3, padding=1)
+            xavier_uniform_(head.weight, gen)
+            nn.init.zeros_(head.bias)
+            module.add_module(name, head)
+
+
+def multibox(module: nn.Module, sources: List[torch.Tensor], num_classes: int
+             ) -> Dict[str, torch.Tensor]:
+    """The heads of ``add_heads`` over the NCHW sources -> f32 loc [B, P,
+    4] and conf [B, P, num_classes], priors in (h, w, anchor) order."""
+    B = sources[0].shape[0]
+    locs, confs = [], []
+    for i, src in enumerate(sources):
+        for name, out, n in ((f"loc_{i}", locs, 4), (f"conf_{i}", confs, num_classes)):
+            head = getattr(module, name)
+            y = F.conv2d(src, head.weight.to(src.dtype), head.bias.to(src.dtype), padding=1)
+            # NCHW -> NHWC before the flatten keeps prior order (h, w, anchor)
+            out.append(y.permute(0, 2, 3, 1).reshape(B, -1, n))
+    return {"loc": torch.cat(locs, dim=1).float(), "conf": torch.cat(confs, dim=1).float()}
+
+
 class SSD(nn.Module):
     """See the module docstring."""
 
@@ -150,14 +179,7 @@ class SSD(nn.Module):
                 conv(f"fuse_{bi + 3}", c, c3, k=1, p=0)
                 src_channels[-1] = c3 * fs
 
-        # multibox heads: plain, ungrouped 3x3 convs
-        mbox = cfg.anchor_config.num_priors_per_cell
-        for i, (cs, nb) in enumerate(zip(src_channels, mbox)):
-            for name, out in ((f"loc_{i}", nb * 4), (f"conf_{i}", nb * cfg.num_classes)):
-                head = nn.Conv2d(cs, out, 3, padding=1)
-                xavier_uniform_(head.weight, gen)
-                nn.init.zeros_(head.bias)
-                self.add_module(name, head)
+        add_heads(self, cfg, src_channels, gen)
 
     def forward(self, x: torch.Tensor, return_attn: bool = False) -> Dict[str, Any]:
         cfg = self.cfg
@@ -236,19 +258,7 @@ class SSD(nn.Module):
                 se, _ = attn("attn", se)
             sources.append(fuse(f"fuse_{bi + 3}", se))
 
-        B = x.shape[0]
-        locs, confs = [], []
-        for i, src in enumerate(sources):
-            for name, out, n in ((f"loc_{i}", locs, 4), (f"conf_{i}", confs, cfg.num_classes)):
-                head = getattr(self, name)
-                y = F.conv2d(src, head.weight.to(src.dtype), head.bias.to(src.dtype),
-                             padding=1)
-                # NCHW -> NHWC before the flatten keeps prior order (h, w, anchor)
-                out.append(y.permute(0, 2, 3, 1).reshape(B, -1, n))
-        result: Dict[str, Any] = {
-            "loc": torch.cat(locs, dim=1).float(),
-            "conf": torch.cat(confs, dim=1).float(),
-        }
+        result: Dict[str, Any] = multibox(self, sources, cfg.num_classes)
         for k, v in aux.items():
             if v:
                 result[k] = v
@@ -256,17 +266,36 @@ class SSD(nn.Module):
 
 
 def build_model(cfg: ModelConfig, device="cuda", seed: int = 0
-                ) -> Tuple[SSD, np.ndarray]:
+                ) -> Tuple[nn.Module, np.ndarray]:
     """Build the model on ``device`` (random weights drawn on the CPU
-    from ``seed``) plus its constant anchor table [P, 4]. ``ssd_type``:
-    'ssd' (ungrouped, no fuse convs) or 'gssd' (grouped + fuse convs,
-    GSSD++ with the attention/DCN flags)."""
+    from ``seed``) plus its constant anchor table [P, 4]. ``ssd_type``
+    selects the variant, as in the JAX package's ``build_model``: 'ssd'
+    (ungrouped, no fuse convs), 'gssd' (grouped + fuse convs, GSSD++ with
+    the attention/DCN flags), 'fssd' / 'groupfssd' (the feature-fusion
+    pyramid, ungrouped or with the configured groups) and 'fusedssd' (the
+    deconv conv5_3 -> conv4_3 fusion); the FSSD family
+    (``gssd_torch.models.fssd``) takes no attention or DCN flags."""
     if cfg.size == 512 and cfg.anchors == "v2":
         cfg = dataclasses.replace(cfg, anchors="v2_512")
     if cfg.ssd_type == "ssd":
         cfg = dataclasses.replace(cfg, groups_vgg=1, groups_extra=1,
                                   use_fuseconv=False)
-    elif cfg.ssd_type != "gssd":
-        raise NotImplementedError(f"ssd_type={cfg.ssd_type!r} is not ported")
-    return (SSD(cfg, seed=seed).to(resolve_device(device)),
-            make_anchors(cfg.anchor_config))
+    if cfg.ssd_type in ("fssd", "groupfssd", "fusedssd") and cfg.size != 300:
+        raise ValueError(f"ssd_type={cfg.ssd_type!r} builds the 300 pyramid (38 ... 1); "
+                         f"got size {cfg.size}")
+    priors = make_anchors(cfg.anchor_config)
+    if cfg.ssd_type in ("ssd", "gssd"):
+        model: nn.Module = SSD(cfg, seed=seed)
+    elif cfg.ssd_type in ("fssd", "groupfssd"):
+        from gssd_torch.models.fssd import FSSD
+
+        if cfg.ssd_type == "fssd":
+            cfg = dataclasses.replace(cfg, groups_vgg=1, groups_extra=1)
+        model = FSSD(cfg, seed=seed)
+    elif cfg.ssd_type == "fusedssd":
+        from gssd_torch.models.fssd import FusedSSD
+
+        model = FusedSSD(cfg, seed=seed)
+    else:
+        raise NotImplementedError(f"ssd_type={cfg.ssd_type!r}")
+    return model.to(resolve_device(device)), priors

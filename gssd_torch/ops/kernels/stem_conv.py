@@ -116,20 +116,52 @@ def f32_mean_err(y: torch.Tensor, y64: torch.Tensor) -> float:
     return ((y.double() - y64).abs().mean() / y64.abs().mean()).item()
 
 
+# the plain dW: the unfolded patches it holds at once (f32 elements, 128
+# MB), and the pixels one product sums (its partial sums are then added
+# by torch.sum)
+_DW_PLAIN_ELEMS = 2**25
+_DW_PLAIN_PIXELS = 4096
+
+
+def stem_conv_dw_plain(x: torch.Tensor, g: torch.Tensor, groups: int) -> torch.Tensor:
+    """dW [Cout, Cin/G, 3, 3] f32 = the sum over (b, y, x) of bf16(x)'s 3x3
+    patches times bf16(g), in f32: per chunk of images the unfolded
+    patches [G, Cin/G * 9, pixels] times g [G, pixels, Cout/G] as
+    products of _DW_PLAIN_PIXELS pixels each, their partial sums added by
+    ``torch.sum``, the chunks' sums added in order. (cuDNN's f32 weight
+    gradient, TF32 off, deterministic or not, reads 1.46e-4 of max from
+    the sum in f64 at 64 -> 64 channels ungrouped, batch 32, 300 x 300;
+    these products 5.3e-7 to 7.1e-7 at the four FSSD stem sites:
+    ``tools/stem_dw_witness.py``, PERF.md §6, PR 14.)"""
+    B, Cin, H, W = x.shape
+    cout, cg = g.shape[1], Cin // groups
+    step = max(1, _DW_PLAIN_ELEMS // (Cin * 9 * H * W))
+    dw = torch.zeros(groups, cg * 9, cout // groups, dtype=torch.float32, device=x.device)
+    for i in range(0, B, step):
+        n = min(step, B - i)
+        pad = -(n * H * W) % _DW_PLAIN_PIXELS  # zero pixels add nothing
+        p = F.unfold(x[i:i + n].to(torch.bfloat16).float(), 3, padding=1)  # [n, Cin 9, HW]
+        p = p.reshape(n, groups, cg * 9, H * W).permute(1, 2, 0, 3).reshape(groups, cg * 9, -1)
+        p = F.pad(p, (0, pad)).reshape(groups, cg * 9, -1, _DW_PLAIN_PIXELS).transpose(1, 2)
+        gb = g[i:i + n].to(torch.bfloat16).float().reshape(n, groups, cout // groups, H * W)
+        gb = gb.permute(1, 0, 3, 2).reshape(groups, n * H * W, cout // groups)
+        gb = F.pad(gb, (0, 0, 0, pad)).reshape(groups, -1, _DW_PLAIN_PIXELS, cout // groups)
+        dw += torch.matmul(p, gb).sum(dim=1)
+    return dw.permute(0, 2, 1).reshape(cout, cg, 3, 3)
+
+
 def stem_conv_bwd_plain(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor, groups: int,
                         need_dx: bool = True
                         ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
     """Plain PyTorch version of the backward kernels -> (dx in x's dtype
     or None, dW [Cout, Cin/G, 3, 3] f32), from bf16(g), bf16(x) and the
-    bf16 flipped, transposed weights, in f32."""
-    gb = g.to(torch.bfloat16).float()
+    bf16 flipped, transposed weights, in f32 (dW: ``stem_conv_dw_plain``)."""
     dx = None
     if need_dx:
         wt = _flipped_transposed(w, groups).float()
-        dx = F.conv2d(gb, wt, None, padding=1, groups=groups).to(x.dtype)
-    dw = torch.nn.grad.conv2d_weight(x.to(torch.bfloat16).float(), tuple(w.shape), gb,
-                                     padding=1, groups=groups)
-    return dx, dw
+        dx = F.conv2d(g.to(torch.bfloat16).float(), wt, None, padding=1,
+                      groups=groups).to(x.dtype)
+    return dx, stem_conv_dw_plain(x, g, groups)
 
 
 def _check(fn: str, x: torch.Tensor, w: torch.Tensor, groups: int,

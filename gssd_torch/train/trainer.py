@@ -1,6 +1,8 @@
 """Trainer CLI of the port: ``python -m gssd_torch.train``.
 
-The JAX package's ``train.py``, with its flag names: k-fold
+The JAX package's ``train.py``, with its flag names, for every model
+of its ``--ssd_type`` (ssd, gssd and GSSD++, and the FSSD family: fssd,
+groupfssd, fusedssd; ``gssd_torch.models.build_model``): k-fold
 cross-validation (``--cross_validation K``, K independent folds through
 ``gssd_torch.parallel.folds``), the training input path of
 ``--aug_method`` and ``--num_workers``, SGD with the published LR steps
@@ -91,7 +93,12 @@ def build_parser():
                         "augmented on the card; 'device_cached': the training split held on "
                         "the card, augmented there (caps at GSSD_DEVICE_CACHE_GB)")
     # model
-    p.add_argument("--ssd_type", default="gssd", choices=["gssd", "ssd"])
+    p.add_argument("--ssd_type", default="gssd",
+                   choices=["ssd", "gssd", "fssd", "groupfssd", "fusedssd"],
+                   help="ssd (ungrouped), gssd (grouped + fuse convs; GSSD++ with the "
+                        "attention/DCN flags), fssd / groupfssd (feature-fusion pyramid), "
+                        "fusedssd (deconv conv5_3 -> conv4_3 fusion); the FSSD family "
+                        "ignores the attention and DCN flags")
     p.add_argument("--ssd_dim", default=300, type=int)
     p.add_argument("--num_classes", default=2, type=int)
     p.add_argument("--batch_norm", default=True, type=str2bool)

@@ -431,6 +431,29 @@ def test_stem_conv_kernels_match_plain(gen, monkeypatch, B, Cin, Cout, G, H, W, 
     assert _rel_err(dw, dwp) <= STEM_DW_TOL, _rel_err(dw, dwp)
 
 
+@pytest.mark.parametrize("Cin,G", [(64, 1), (12, 1), (64, 4)])
+def test_stem_dw_against_f64_at_fssd_sites(gen, monkeypatch, Cin, G):
+    """dW of the kernel and of the plain version at the FSSD trunk's stem
+    sites (batch 32, 300x300, 64 output channels, ungrouped and 4 groups)
+    within STEM_DW_TOL of max |dW| against the same sum in f64. The plain
+    version's earlier dW, cuDNN's f32 weight gradient, read 1.46e-4 at 64
+    -> 64 ungrouped (PERF.md §6, PR 14)."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    B, H, W, Cout = 32, 300, 300, 64
+    x = torch.rand(B, Cin, H, W, device="cuda", generator=gen).bfloat16()
+    w = torch.randn(Cout, Cin // G, 3, 3, device="cuda", generator=gen) / (3 * Cin / G) ** 0.5
+    g = torch.randn(B, Cout, H, W, device="cuda", generator=gen).bfloat16()
+    _, dw = sc.stem_conv_bwd(x, w, g, G, need_dx=False)
+    torch.cuda.synchronize()
+    _, dwp = sc.stem_conv_bwd_plain(x, w, g, G, need_dx=False)
+    dw64 = sum(torch.nn.grad.conv2d_weight(x[i:i + 4].double(), tuple(w.shape),
+                                           g[i:i + 4].double(), padding=1, groups=G)
+               for i in range(0, B, 4))
+    for name, got in (("kernel", dw), ("plain", dwp)):
+        err = ((got - dw64).abs().max() / dw64.abs().max()).item()
+        assert err <= STEM_DW_TOL, (name, err)
+
+
 def test_stem_conv_wrappers_reject_bad_inputs(gen):
     x = torch.rand(1, 12, 16, 16, device="cuda", generator=gen).bfloat16()
     w = torch.randn(16, 3, 3, 3, device="cuda", generator=gen).bfloat16()

@@ -50,6 +50,7 @@ def test_imports_with_jax_blocked():
         "import gssd_torch.data.pixellink_targets, gssd_torch.data.dataset\n"
         "import gssd_torch.data.augment_device, gssd_torch.data.device_cache\n"
         "import gssd_torch.parallel, gssd_torch.parallel.folds\n"
+        "import gssd_torch.models.fssd, gssd_torch.models.unet, gssd_torch.train_unet\n"
         "loaded = [m for m in sys.modules if m.split('.')[0] in "
         f"{BLOCKED!r} and sys.modules[m] is not None]\n"
         "assert not loaded, loaded\n"
@@ -90,6 +91,12 @@ def test_trainer_module_refuses_without_card(tmp_path):
 
 def test_pixellink_trainer_module_refuses_without_card(tmp_path):
     _refuses_without_card("gssd_torch.train_pixellink", tmp_path)
+
+
+def test_unet_trainer_module_refuses_without_card(tmp_path):
+    # python -m gssd_torch.train_unet defaults to --device cuda: no card, no
+    # data generated, nothing trained; --device cpu is what runs here
+    _refuses_without_card("gssd_torch.train_unet", tmp_path)
 
 
 def test_chip_smoke_refuses_without_card(tmp_path):
