@@ -2,7 +2,8 @@
 """GPU smoke run of the port (gssd_torch) on one card: the serving path,
 the training step, the three DCN routes, the trainer's evaluation,
 checkpoints and resume, PixelLink++ (4s and 2s) and the FSSD family with
-the stem kernels, and the UNet liver-segmentation trainer.
+the stem kernels, the UNet liver-segmentation trainer, the C++ host
+library, ``--visualize`` and the VOC SSD300 trainer.
 
     python3 chip_smoke.py        # from the root of a checkout
 
@@ -198,7 +199,30 @@ In order, failing (exit code 1) at the first phase that goes wrong:
    feature_scale 1): UNET_ITERS steps with validation and checkpoints,
    ms/step, slices/s, peak memory; the last checkpoint restored bit for
    bit and ``--resume`` from it; the forward on the card against f32 on
-   the CPU at batch 1 (f32 within UNET_F32_TOL, bf16 within E2E_TOL).
+   the CPU at batch 1 (f32 within UNET_F32_TOL, bf16 within E2E_TOL);
+27. the host library (``gssd_torch/native``): built with g++ from the
+   checkout's sources (compiler version and build time printed); phase
+   12's predictions swept with the C++ and the numpy loop at every AP and
+   IoBB threshold, the same TP/FP, both timed. (Phases 16 and 23 decode
+   their ``--test`` logits with the C++ and the numpy path in turns: the
+   same boxes and scores, bit for bit, both times and the decode's share
+   of ``--test`` printed, the C++ calls counted.);
+28. ``--test --checkpoint --visualize``: GSSD++ 300 ``hat`` on phase 12's
+   checkpoint and PixelLink++ 4s on phase 16's: every file
+   ``dump_eval_visuals`` names for each test slice, the offsets [38, 38,
+   4, 9, 2] (PixelLink++ [75, 75, 4, 9, 2]) and the first attention maps
+   [1444, 1444] ([5625, 5625]) with rows summing to 1 within bf16, the
+   dumped detections equal to the evaluation path's on the same slice,
+   and exactly one forward's launches a slice (12 ``flash_attn_fwd`` + 1
+   ``deform_conv_fwd``; PixelLink++ 8 + 1 + 2 stem) plus one a batch of
+   the evaluation;
+29. ``python -m gssd_torch.train_voc`` on a synthetic VOCdevkit tree
+   (VOC_IMAGES JPEGs with XML, ``gssd_torch.data.voc.write_voc_tree``): the vanilla SSD300 at batch 32,
+   bf16, VOC_ITERS steps with a VOC mAP evaluation and a checkpoint
+   (ms/step, peak memory), a finite mAP in [0, 1], the checkpoint
+   restored bit for bit, ``--test --checkpoint`` with the same mAP, bf16
+   card vs f32 CPU within E2E_TOL, and no launch of the port's kernels
+   (the model has no attention, DCN or wide-conv stem).
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or outside a
@@ -1817,6 +1841,38 @@ def wide_conv(on=True):
         layers.USE_WIDE_CONV_KERNEL = saved
 
 
+class decode_in_turns:
+    """While active, every ``mask_to_boxes`` call of the evaluation
+    (``ap_iobb``) decodes its logits with the C++ path (whose result it
+    returns) and then with the numpy path, each timed; the two must give
+    the same boxes and scores, bit for bit."""
+
+    def __init__(self, module):
+        self.module, self.real = module, module.mask_to_boxes
+        self.native_s, self.numpy_s, self.boxes = [], [], 0
+
+    def __call__(self, *args, **kwargs):
+        t = time.perf_counter()
+        scores, boxes = self.real(*args, **kwargs, impl="native")
+        t1 = time.perf_counter()
+        np_scores, np_boxes = self.real(*args, **kwargs, impl="numpy")
+        self.native_s.append(t1 - t)
+        self.numpy_s.append(time.perf_counter() - t1)
+        check(scores.shape == np_scores.shape and boxes.shape == np_boxes.shape
+              and (scores == np_scores).all() and (boxes == np_boxes).all(),
+              f"the C++ decode differs from the numpy decode: {len(scores)} against "
+              f"{len(np_scores)} boxes")
+        self.boxes += len(scores)
+        return scores, boxes
+
+    def __enter__(self):
+        self.module.mask_to_boxes = self
+        return self
+
+    def __exit__(self, *exc):
+        self.module.mask_to_boxes = self.real
+
+
 def pixellink(tmp, data, version="4s"):
     """PixelLink++ (``--version``) through ``gssd_torch.train_pixellink.main``
     with the wide-conv switch on: PL_ITERS train steps (exactly
@@ -1830,6 +1886,7 @@ def pixellink(tmp, data, version="4s"):
     from gssd_torch import train_pixellink
     from gssd_torch.data import DataSplitter
     from gssd_torch.eval import ap_iobb
+    from gssd_torch.native import NATIVE
 
     tag = f"pixellink++ {version}"
     per_step, per_forward = PL_STEP_LAUNCHES[version], PL_FORWARD_LAUNCHES[version]
@@ -1868,39 +1925,41 @@ def pixellink(tmp, data, version="4s"):
 
         n_test = len(DataSplitter(data, 1, 4).data_test)
         n_batches = -(-n_test // 16)
-        # the host decode's share of --test: mask_to_boxes timed where the
-        # evaluation calls it
-        real_decode, decode_s = ap_iobb.mask_to_boxes, []
-
-        def timed_decode(*args, **kwargs):
-            t = time.perf_counter()
-            out = real_decode(*args, **kwargs)
-            decode_s.append(time.perf_counter() - t)
-            return out
-
+        decode = decode_in_turns(ap_iobb)
         _reset_launches()
-        ap_iobb.mask_to_boxes = timed_decode
+        native_calls = {k: f.calls for k, f in NATIVE.items()}
         t0 = time.perf_counter()
-        try:
+        with decode:
             tested = train_pixellink.main(pl_argv(tmp, data, f"pl_eval_{version}", "--test",
                                                   "True", "--checkpoint", "1", *v))["test"]
-        finally:
-            ap_iobb.mask_to_boxes = real_decode
-        test_s = time.perf_counter() - t0
+        # --test as it runs: its wall time less the numpy decode run beside it
+        test_s = time.perf_counter() - t0 - sum(decode.numpy_s)
         launches_test = _launches()
+        native_calls = {k: f.calls - native_calls[k] for k, f in NATIVE.items()}
         check(set(tested) == PL_AP_KEYS and all(0.0 <= v <= 1.0 for v in tested.values()),
               f"{tag} --test AP/IoBB malformed: {tested}")
         want = {name: per_forward.get(name, 0) * n_batches for name in launches_test}
         check(launches_test == want, f"{tag} --test: expected {per_forward} per "
                                      f"batch over {n_batches} batches, got {launches_test}")
+        check(native_calls["pixellink_boxes"] == native_calls["pixellink_components"] == n_test
+              and native_calls["eval_sweep"] == (len(PL_AP_KEYS) if decode.boxes else 0),
+              f"{tag} --test: expected {n_test} C++ decodes and {len(PL_AP_KEYS)} C++ sweeps, "
+              f"got {native_calls}")
+        cxx_s, numpy_s = sum(decode.native_s), sum(decode.numpy_s)
         print(f"{tag} --test --checkpoint 1: {tested}; {n_test} images in {n_batches} "
               f"batches, {test_s:.2f} s in all ({1e3 * test_s / n_test:.1f} ms/image, model "
-              f"build included), of which the host decode {sum(decode_s):.2f} s "
-              f"({1e3 * sum(decode_s) / len(decode_s):.1f} ms/image); the evaluation run took "
-              f"{eval_s:.2f} s", flush=True)
+              f"build included), of which the C++ host decode {cxx_s:.3f} s "
+              f"({1e3 * cxx_s / n_test:.1f} ms/image, {100 * cxx_s / test_s:.1f}% of --test); "
+              f"the numpy decode of the same logits, in turns, {numpy_s:.2f} s "
+              f"({1e3 * numpy_s / n_test:.1f} ms/image; {100 * numpy_s / (test_s - cxx_s + numpy_s):.1f}% "
+              f"of a --test of {test_s - cxx_s + numpy_s:.2f} s with it): the same boxes and "
+              f"scores, bit for bit, {decode.boxes} boxes; C++ calls {native_calls}; the "
+              f"evaluation run took {eval_s:.2f} s", flush=True)
     out = {"launches": launches, "records": res["records"], "median_step_ms": median,
            "peak_memory_gib": peak, "evaluation": ev["evals"][0], "eval_run_s": eval_s,
-           "test": tested, "test_s": test_s, "test_decode_s": sum(decode_s),
+           "test": tested, "test_s": test_s, "test_decode_s": cxx_s,
+           "test_decode_numpy_s": numpy_s, "test_s_numpy_decode": test_s - cxx_s + numpy_s,
+           "test_boxes": decode.boxes, "test_native_calls": native_calls,
            "test_images": n_test, "test_launches": launches_test}
     if version != "4s":
         return out
@@ -3263,6 +3322,329 @@ def unet_phase(tmp, data):
             "losses": losses, "parity_rel_err": errs, "seconds": time.perf_counter() - t0}
 
 
+# ---- the native host library, --visualize, the VOC SSD300 trainer ----
+
+# the AP/IoBB thresholds of the GSSD trainer's evaluation (phase 12)
+SWEEP_THRESHOLDS = (0.3, 0.5, 0.7)
+
+
+def native_phase(tmp):
+    """Phase 27: the host library built with g++ from the checkout's
+    sources (a fresh build, timed, beside the one the earlier phases
+    loaded at first use); phase 12's predictions (its checkpoint 2 over
+    the test set through the evaluation's ``collect_predictions``) swept
+    with the C++ and the numpy loop at every AP and IoBB threshold: the
+    same TP/FP, both timed."""
+    import numpy as np
+    import torch
+
+    from gssd_torch.config import DetectConfig
+    from gssd_torch.data import BaseTransform, DataSplitter, LesionDataset
+    from gssd_torch.eval.ap_iobb import collect_predictions, sweep
+    from gssd_torch.models import build_model
+    from gssd_torch.native import NATIVE, build, compiler_version
+    from gssd_torch.train.checkpoint import checkpoint_path, load_weights_partial
+    from gssd_torch.train.steps import make_infer_step
+    from gssd_torch.train.trainer import model_config, parse_args
+
+    version = compiler_version()
+    loaded = build.library_path()
+    saved, build.BUILD_DIR = build.BUILD_DIR, os.path.join(tmp, "native_build")
+    try:
+        t0 = time.perf_counter()
+        fresh = build.build()
+        build_s = time.perf_counter() - t0
+    finally:
+        build.BUILD_DIR = saved
+    check(os.path.exists(loaded) and os.path.getsize(fresh) > 0,
+          f"native library missing: {loaded}, {fresh}")
+    print(f"native library: {version}; built from the checkout's sources in {build_s:.2f} s "
+          f"({' '.join(build.CXX_FLAGS)}); loaded {os.path.basename(loaded)}", flush=True)
+
+    args = parse_args(train_argv(tmp, "hat", TRAIN_BATCH, ROUTE_ITERS, "run_eval"))
+    model, priors = build_model(model_config(args), device="cpu", seed=SEED)
+    model = model.to("cuda")
+    load_weights_partial(model, checkpoint_path(os.path.join(args.output, "checkpoints"),
+                                                args.model_name, 2))
+    infer = make_infer_step(model, torch.tensor(priors, device="cuda"), DetectConfig())
+    test_set = LesionDataset(args.datapath, DataSplitter(args.datapath, 1, 4).data_test)
+    preds, gts = collect_predictions(lambda b: infer(b).cpu().numpy(), test_set,
+                                     BaseTransform(300), args.confidence_threshold, 16)
+    del model
+    calls = NATIVE["eval_sweep"].calls
+    times = {"native": 0.0, "numpy": 0.0}
+    for metric in ("iou", "iobb"):
+        for thr in SWEEP_THRESHOLDS:
+            out = {}
+            for impl in times:
+                t = time.perf_counter()
+                out[impl] = sweep(preds, gts, thr, metric, impl=impl)
+                times[impl] += time.perf_counter() - t
+            (tp, fp, npos), (tp_np, fp_np, npos_np) = out["native"], out["numpy"]
+            check(npos == npos_np and tp is not None and np.array_equal(tp, tp_np)
+                  and np.array_equal(fp, fp_np),
+                  f"C++ sweep differs from numpy at {metric} {thr}")
+    sweeps = 2 * len(SWEEP_THRESHOLDS)
+    check(NATIVE["eval_sweep"].calls - calls == sweeps,
+          f"expected {sweeps} C++ sweeps, got {NATIVE['eval_sweep'].calls - calls}")
+    print(f"AP/IoBB sweep over phase 12's {len(preds)} predictions of {len(gts)} test "
+          f"slices, {sweeps} thresholds: C++ {1e3 * times['native']:.2f} ms, numpy "
+          f"{1e3 * times['numpy']:.2f} ms, the same TP/FP", flush=True)
+    return {"compiler": version, "build_s": build_s, "predictions": len(preds),
+            "sweeps": sweeps, "sweep_ms": {k: 1e3 * v for k, v in times.items()}}
+
+
+# launches of one GSSD++ forward (serving, --test, --visualize)
+GSSD_FORWARD_LAUNCHES = dict(flash_attn_fwd=12, deform_conv_fwd=1)
+
+
+def check_dumps(out_dir, n_images, offsets_shape, attn_shape):
+    """Every file ``dump_eval_visuals`` names for each test slice; the
+    first slice's offsets and attention maps of the expected shapes, the
+    maps' rows summing to 1 within bf16 (each entry rounded to 8 bits)."""
+    import numpy as np
+
+    from gssd_torch.utils.visualize import dump_names
+
+    want = sorted(n for i in range(n_images) for n in dump_names(i, True, True, True))
+    check(sorted(os.listdir(out_dir)) == want,
+          f"--visualize files in {out_dir}: {sorted(os.listdir(out_dir))[:8]}..., "
+          f"expected {want[:8]}...")
+    offs = np.load(os.path.join(out_dir, "00000_offsets.npy"))
+    check(offs.shape == offsets_shape and np.isfinite(offs).all(),
+          f"offsets {offs.shape}, expected {offsets_shape}")
+    sums = {}
+    for name in ("attention", "attention_base"):
+        a = np.load(os.path.join(out_dir, f"00000_{name}.npy"))
+        check(a.shape == attn_shape, f"{name} {a.shape}, expected {attn_shape}")
+        dev = float(np.abs(a.astype(np.float64).sum(-1) - 1).max())
+        check(dev <= 2.0 ** -8, f"{name}: rows sum to 1 +- {dev}")
+        sums[name] = dev
+    return {"files": len(want), "offsets": list(offs.shape), "attention": list(attn_shape),
+            "row_sum_max_dev": sums}
+
+
+def visualize_phase(tmp, pl_data):
+    """Phase 28: ``--test --checkpoint --visualize`` of GSSD++ 300 ``hat``
+    on phase 12's checkpoint and of PixelLink++ 4s (wide-conv switch on)
+    on phase 16's: the dump set of every test slice, the shapes, the
+    dumped detections equal to the evaluation path's (its inference step,
+    or forward and C++ decode, on the same slice alone), and exactly the
+    launches of one forward a slice plus one a batch of the evaluation."""
+    import numpy as np
+    import torch
+
+    from gssd_torch import train_pixellink
+    from gssd_torch.config import DetectConfig
+    from gssd_torch.data import BaseTransform, DataSplitter, LesionDataset
+    from gssd_torch.eval.pixellink_decode import mask_to_boxes
+    from gssd_torch.models import build_model
+    from gssd_torch.models.pixellink import build_pixellink
+    from gssd_torch.train import trainer
+    from gssd_torch.train.checkpoint import checkpoint_path, load_weights_partial
+    from gssd_torch.train.steps import make_infer_step, make_pixellink_forward
+
+    t0 = time.perf_counter()
+    out = {}
+
+    def slice_input(data, idx, size=300):
+        test_set = LesionDataset(data, DataSplitter(data, 1, 4).data_test)
+        x, _, _ = BaseTransform(size)(test_set.pull_image(idx))
+        return np.transpose(x, (1, 2, 0, 3)).reshape(1, size, size, 12).astype(np.float32)
+
+    # GSSD++ on phase 12's checkpoint 2
+    argv = train_argv(tmp, "hat", TRAIN_BATCH, ROUTE_ITERS, "run_eval") + [
+        "--eval_batch", "16", "--test", "True", "--checkpoint", "2", "--visualize", "True"]
+    args = trainer.parse_args(argv)
+    n_test = len(DataSplitter(args.datapath, 1, 4).data_test)
+    _reset_launches()
+    t = time.perf_counter()
+    res = trainer.main(argv)
+    gssd_s = time.perf_counter() - t
+    launches = _launches()
+    n_forwards = n_test + -(-n_test // 16)
+    want = {k: GSSD_FORWARD_LAUNCHES.get(k, 0) * n_forwards for k in launches}
+    check(launches == want, f"gssd++ --visualize: launches {launches}, expected {want}")
+    vis = res["visualized"]
+    dumps = check_dumps(vis["dir"], n_test, (38, 38, 4, 9, 2), (1444, 1444))
+    model, priors = build_model(trainer.model_config(args), device="cpu", seed=SEED)
+    model = model.to("cuda")
+    load_weights_partial(model, checkpoint_path(os.path.join(args.output, "checkpoints"),
+                                                args.model_name, 2), verbose=False)
+    infer = make_infer_step(model, torch.tensor(priors, device="cuda"), DetectConfig())
+    for idx in (0, n_test - 1):
+        got = vis["detections"][idx]
+        ref = infer(slice_input(args.datapath, idx))[0].cpu().numpy()
+        check(np.array_equal(got, ref), f"gssd++ --visualize detections of slice {idx} "
+                                        "differ from the inference step's")
+    del model
+    out["gssd++"] = {"seconds": gssd_s, "launches": launches, "test": res["test"], **dumps}
+    print(f"gssd++ --test --visualize: {n_test} slices dumped in {gssd_s:.2f} s with the "
+          f"evaluation; launches {launches}; {dumps}", flush=True)
+
+    # PixelLink++ 4s on phase 16's checkpoint 1
+    plv = pl_argv(tmp, pl_data, "pl_eval_4s", "--test", "True", "--checkpoint", "1",
+                  "--visualize", "True")
+    pargs = train_pixellink.parse_args(plv)
+    n_test = len(DataSplitter(pl_data, 1, 4).data_test)
+    with wide_conv():
+        _reset_launches()
+        t = time.perf_counter()
+        res = train_pixellink.main(plv)
+        pl_s = time.perf_counter() - t
+        launches = _launches()
+        per = PL_FORWARD_LAUNCHES["4s"]
+        want = {k: per.get(k, 0) * (n_test + -(-n_test // 16)) for k in launches}
+        check(launches == want, f"pixellink++ --visualize: launches {launches}, expected {want}")
+        vis = res["visualized"]
+        dumps = check_dumps(vis["dir"], n_test, (75, 75, 4, 9, 2), (5625, 5625))
+        plc = train_pixellink.pixellink_config(pargs)
+        model = build_pixellink(plc, pargs.cascade_fuse, pargs.batch_norm, "bfloat16", "hat",
+                                device="cpu", seed=SEED).to("cuda")
+        load_weights_partial(model, checkpoint_path(os.path.join(pargs.output, "checkpoints"),
+                                                    pargs.model_name, 1), verbose=False)
+        forward = make_pixellink_forward(model, torch.device("cuda"))
+        for idx in (0, n_test - 1):
+            pix, lnk = forward(slice_input(pl_data, idx))
+            scores, boxes = mask_to_boxes(pix[0], lnk[0], 300, plc)
+            got = vis["detections"][idx]
+            check(np.array_equal(got[1, :len(scores), 0], scores.astype(np.float32))
+                  and np.array_equal(got[1, :len(scores), 1:], (boxes / 300).astype(np.float32))
+                  and got.shape[1] == max(len(scores), 1),
+                  f"pixellink++ --visualize detections of slice {idx} differ from the "
+                  "evaluation's forward and decode")
+        del model
+    out["pixellink++"] = {"seconds": pl_s, "launches": launches, "test": res["test"], **dumps}
+    print(f"pixellink++ 4s --test --visualize: {n_test} slices dumped in {pl_s:.2f} s with "
+          f"the evaluation; launches {launches}; {dumps}", flush=True)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+VOC_IMAGES = 64      # the synthetic VOCdevkit tree: trainval 64, test its first 32
+VOC_ITERS = 6        # an evaluation and a checkpoint at the last
+VOC_CLASSES_USED = ("dog", "cat", "person", "car", "bird")
+
+
+def voc_objects(n=VOC_IMAGES, seed=SEED):
+    """{name: objects} and {name: (h, w)} of ``n`` synthetic VOC images of
+    280-500 px: 1-3 objects an image of five classes, some difficult,
+    every image with one that is not."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    objects, sizes = {}, {}
+    for i in range(n):
+        name = f"{i:06d}"
+        h, w = int(rng.integers(280, 500)), int(rng.integers(280, 500))
+        sizes[name], objects[name] = (h, w), []
+        for k in range(int(rng.integers(1, 4))):
+            bw, bh = int(rng.integers(40, w // 2)), int(rng.integers(40, h // 2))
+            x1, y1 = int(rng.integers(1, w - bw)), int(rng.integers(1, h - bh))
+            objects[name].append((VOC_CLASSES_USED[int(rng.integers(0, 5))],
+                                  (x1, y1, x1 + bw, y1 + bh), int(k > 0 and rng.random() < 0.3)))
+    return objects, sizes
+
+
+def voc_phase(tmp):
+    """Phase 29: ``python -m gssd_torch.train_voc`` on a synthetic
+    VOCdevkit tree: the vanilla SSD300 (3 channels, 21 classes, no BN) at
+    batch 32, bf16, VOC_ITERS steps with a VOC mAP evaluation and a
+    checkpoint at the last (ms/step, peak memory); a finite mAP in [0, 1];
+    the checkpoint restored bit for bit; ``--test --checkpoint`` gives the
+    same mAP; the bf16 forward on the card against f32 on the CPU with the
+    checkpoint's weights within E2E_TOL; and no launch of the port's
+    kernels (this model has no attention, DCN or wide-conv stem)."""
+    import numpy as np
+    import torch
+
+    from gssd_torch import train_voc
+    from gssd_torch.config import OptimConfig
+    from gssd_torch.data import BaseTransform
+    from gssd_torch.data.voc import VOCDataset, write_voc_tree
+    from gssd_torch.models import build_model
+    from gssd_torch.train.checkpoint import load_weights_partial, restore_checkpoint
+    from gssd_torch.train.optim import make_optimizer
+
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "VOCdevkit")
+    objects, sizes = voc_objects()
+    names = list(objects)
+    write_voc_tree(root, objects, sizes, {"trainval": names, "test": names[:VOC_IMAGES // 2]},
+                   seed=SEED)
+    argv = ["--voc_root", root, "--train_sets", "2007:trainval", "--eval_sets", "2007:test",
+            "--batch_size", str(TRAIN_BATCH), "--max_iter", str(VOC_ITERS), "--val_every",
+            "100", "--seed", str(SEED), "--output", os.path.join(tmp, "voc"),
+            "--device", "cuda"]
+    _reset_launches()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res = train_voc.main(argv)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [r["loss"] for r in res["records"]]
+    last = VOC_ITERS - 1
+    check(len(losses) == VOC_ITERS and all(math.isfinite(v) for v in losses),
+          f"voc: non-finite or missing losses {losses}")
+    mean_ap = res["voc_map"]["map"]
+    check([e["iter"] for e in res["evals"]] == [last] and math.isfinite(mean_ap)
+          and 0.0 <= mean_ap <= 1.0, f"voc: evaluation malformed {res['evals']}")
+    median = res["median_step_ms"]
+    print(f"voc ssd300 training (batch {TRAIN_BATCH}, bf16): median {median:.2f} ms/step "
+          f"after the first, {TRAIN_BATCH / median * 1e3:.1f} images/s, peak memory "
+          f"{peak:.2f} GiB; losses {losses}; VOC mAP {res['voc_map']}", flush=True)
+
+    args = train_voc.parse_args(argv)
+    ckpt_dir = os.path.join(args.output, "checkpoints")
+    model, _ = build_model(train_voc.model_config(args), device="cpu", seed=SEED + 7)
+    model = model.to("cuda")
+    opt = make_optimizer(model, OptimConfig(lr=args.lr, momentum=args.momentum,
+                                            weight_decay=args.weight_decay))
+    step = restore_checkpoint(model, opt, ckpt_dir, args.model_name, last)
+    want_sd, want_opt = res["model"].state_dict(), res["optimizer"].state_dict()["state"]
+    same = [torch.equal(v, want_sd[k]) for k, v in model.state_dict().items()]
+    same_m = [torch.equal(st["momentum_buffer"], want_opt[i]["momentum_buffer"])
+              for i, st in opt.state_dict()["state"].items()]
+    check(step == VOC_ITERS and all(same) and len(same) == len(want_sd) and all(same_m)
+          and len(same_m) == len(list(model.parameters())),
+          f"voc restore is not exact: step {step}, {same.count(False)} tensors and "
+          f"{same_m.count(False)} momenta differ")
+    del model, opt, res["model"], res["optimizer"]
+    tested = train_voc.main(argv + ["--test", "True", "--checkpoint", str(last)])["voc_map"]
+    check(tested == res["voc_map"], f"voc --test: {tested} against the run's {res['voc_map']}")
+
+    raw = VOCDataset(root, [("2007", "test")]).pull_image(0)[None]
+    x, _, _ = BaseTransform(300, args.means, False, args.use_normalize)(raw)
+    xt = torch.from_numpy(np.ascontiguousarray(x.transpose(1, 2, 0, 3).reshape(1, 300, 300, 3)))
+    outs = {}
+    for dtype, device in (("float32", "cpu"), ("bfloat16", "cuda")):
+        args.compute_dtype = dtype
+        model, _ = build_model(train_voc.model_config(args), device="cpu", seed=SEED)
+        load_weights_partial(model, os.path.join(ckpt_dir, args.model_name,
+                                                 f"{args.model_name}_{last}_CV0.pt"),
+                             verbose=False)
+        with torch.inference_mode():
+            out = model.to(device).eval()(xt.to(device))
+        outs[dtype] = {k: out[k].float().cpu() for k in ("loc", "conf")}
+    errs = {}
+    for name in ("loc", "conf"):
+        ref, got = outs["float32"][name], outs["bfloat16"][name]
+        err, scale = (got - ref).abs().max().item(), ref.abs().max().item()
+        check(bool(torch.isfinite(got).all()) and err <= E2E_TOL * scale,
+              f"voc {name}: bf16 card vs f32 cpu {err} > {E2E_TOL} * {scale}")
+        errs[name] = err / scale
+    launches = _launches()
+    check(not any(launches.values()), f"voc: the port's kernels launched: {launches}")
+    print(f"voc checkpoint {last} restored bit for bit ({len(same)} tensors, {len(same_m)} "
+          f"momenta, step {step}); --test --checkpoint {last}: mAP {tested['map']:.4f}; bf16 "
+          f"card vs f32 cpu {errs}; no kernel launch (no attention, DCN or wide stem)",
+          flush=True)
+    return {"batch": TRAIN_BATCH, "steps": VOC_ITERS, "ms_per_step": [r["ms"] for r in
+                                                                      res["records"]],
+            "median_ms_per_step": median, "peak_memory_gib": peak, "losses": losses,
+            "voc_map": res["voc_map"], "test_map": tested["map"], "parity_rel_err": errs,
+            "launches": launches, "seconds": time.perf_counter() - t0}
+
+
 def _kernel_numbers(site):
     return {k: site[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms")}
@@ -3345,6 +3727,9 @@ def main() -> int:
             routes512 = gssd_512_routes(tmp, data, sum(c for *_, c in big["attention_sites"]))
             fssd = fssd_family(tmp, data, train_data)
             unet = unet_phase(tmp, train_data)
+            native = native_phase(tmp)
+            visual = visualize_phase(tmp, train_data)
+            voc = voc_phase(tmp)
         dcn_grad_cos = dcn_grads()
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
@@ -3498,6 +3883,10 @@ def main() -> int:
                                     "launches": pl["launches"], "evaluation": pl["evaluation"],
                                     "test": pl["test"], "test_s": pl["test_s"],
                                     "test_decode_s": pl["test_decode_s"],
+                                    "test_decode_numpy_s": pl["test_decode_numpy_s"],
+                                    "test_s_numpy_decode": pl["test_s_numpy_decode"],
+                                    "test_boxes": pl["test_boxes"],
+                                    "test_native_calls": pl["test_native_calls"],
                                     "test_images": pl["test_images"],
                                     "test_launches": pl["test_launches"],
                                     "switch_off_launches": pl["switch_off_launches"],
@@ -3530,6 +3919,7 @@ def main() -> int:
     print(json.dumps({"fssd_family": {k: v for k, v in fssd.items() if k != "kernels"},
                       "power": smi}))
     print(json.dumps({"unet": unet, "power": smi}))
+    print(json.dumps({"native": native, "visualize": visual, "voc": voc, "power": smi}))
     print(json.dumps({"repeatability": {"bit_equal_calls": repeat_calls,
                                         "deterministic_step": det_step, "batch": DET_BATCH,
                                         "power": smi}}))

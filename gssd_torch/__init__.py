@@ -5,8 +5,9 @@ The port of ``gssd_tpu`` (JAX on a TPU), which stays the reference this
 package is tested against. It imports neither JAX nor ``gssd_tpu``.
 Serving path: ``python -m gssd_torch.infer``; training:
 ``python -m gssd_torch.train`` (the SSD family: SSD, GSSD, GSSD++ and
-the FSSD family), ``python -m gssd_torch.train_pixellink`` (PixelLink++)
-and ``python -m gssd_torch.train_unet`` (UNet liver segmentation).
+the FSSD family), ``python -m gssd_torch.train_pixellink`` (PixelLink++),
+``python -m gssd_torch.train_unet`` (UNet liver segmentation) and
+``python -m gssd_torch.train_voc`` (the VOC SSD300 baseline).
 """
 
 import torch

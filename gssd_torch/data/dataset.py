@@ -346,8 +346,9 @@ def device_prefetch(iterator, device, size: int = 2,
 class BatchLoader:
     """Shuffling, endlessly repeating batch iterator with one background
     prefetch thread. The order is a seeded ``default_rng`` permutation
-    per epoch; ``collate_fn`` stacks the items. ``close`` stops the
-    thread."""
+    per epoch; ``collate_fn`` stacks the items. An error while building
+    a batch is raised by the iterator (from the thread's exception).
+    ``close`` stops the thread."""
 
     def __init__(self, dataset: LesionDataset, batch_size: int, max_gt: int = 16,
                  seed: int = 1111, shuffle: bool = True, prefetch: int = 2,
@@ -371,17 +372,22 @@ class BatchLoader:
             order = self.rng.permutation(n) if self.shuffle else np.arange(n)
             yield from order
 
+    def _put(self, item) -> None:
+        while not self._stop.is_set():
+            try:
+                self._queue.put(item, timeout=0.1)
+                return
+            except queue_mod.Full:
+                pass
+
     def _worker(self):
         stream = self._index_stream()
-        while not self._stop.is_set():
-            items = [self.dataset[next(stream)] for _ in range(self.batch_size)]
-            batch = self.collate_fn(items, self.max_gt)
+        try:
             while not self._stop.is_set():
-                try:
-                    self._queue.put(batch, timeout=0.1)
-                    break
-                except queue_mod.Full:
-                    pass
+                items = [self.dataset[next(stream)] for _ in range(self.batch_size)]
+                self._put(self.collate_fn(items, self.max_gt))
+        except Exception as e:  # raised again by the iterator
+            self._put(e)
 
     def close(self):
         """Stop the prefetch thread and wait for it (at most one batch)."""
@@ -394,4 +400,7 @@ class BatchLoader:
             self._thread.start()
             self._started = True
         while True:
-            yield self._queue.get()
+            item = self._queue.get()
+            if isinstance(item, Exception):
+                raise RuntimeError("BatchLoader: building a batch failed") from item
+            yield item

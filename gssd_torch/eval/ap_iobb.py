@@ -14,20 +14,25 @@
 PixelLink models go through ``collect_predictions_pixellink``: logit
 maps decoded into scored boxes on the host (``pixellink_decode``).
 
-The sweep is the JAX package's numpy loop (its C++ sweep has the same
-semantics and is not ported). Unlike the JAX package, the last chunk of
-images is not padded to the batch size: an eager forward has no fixed
-shape to keep, and the padding rows were never read.
+The greedy sweep runs in the port's C++ host library
+(``gssd_torch/native/eval_sweep.cpp``), as the JAX package runs its own;
+the numpy loop is the plain version (``impl="numpy"``), with the same
+bits. Sets with difficult flags take the numpy loop, as in the JAX
+package. Unlike the JAX package, the last chunk of images is not padded
+to the batch size: an eager forward has no fixed shape to keep, and the
+padding rows were never read.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from gssd_torch.config import PixelLinkConfig
 from gssd_torch.eval.pixellink_decode import mask_to_boxes
+from gssd_torch.native.build import NATIVE, check_impl, ptr
 
 
 def voc_ap(rec: np.ndarray, prec: np.ndarray, use_07_metric: bool = False) -> float:
@@ -69,6 +74,7 @@ def evaluate_detections(
     metric: str = "iou",
     use_07_metric: bool = False,
     gt_difficult: Optional[Dict[int, np.ndarray]] = None,
+    impl: str = "native",
 ) -> float:
     """AP of a detection set at one (metric, threshold).
 
@@ -77,8 +83,51 @@ def evaluate_detections(
     gt_difficult: optional image_idx -> [n] bool flags aligned with
     gt_boxes; difficult objects are ignored (VOC protocol): left out of
     npos, and a detection whose best match is difficult counts as
-    neither TP nor FP.
+    neither TP nor FP. impl: the sweep in "native" C++ or "numpy".
     """
+    tp, fp, npos = sweep(predictions, gt_boxes, threshold, metric, gt_difficult, impl)
+    if tp is None:
+        return 0.0
+    tp_c = np.cumsum(tp)
+    fp_c = np.cumsum(fp)
+    rec = tp_c / npos
+    prec = tp_c / np.maximum(tp_c + fp_c, np.finfo(np.float64).eps)
+    return voc_ap(rec, prec, use_07_metric)
+
+
+def _sweep_native(preds: np.ndarray, gt_boxes: Dict[int, np.ndarray], threshold: float,
+                  metric: str) -> Tuple[np.ndarray, np.ndarray]:
+    keys = sorted(gt_boxes)
+    remap = {k: i for i, k in enumerate(keys)}
+    offsets = np.zeros(len(keys) + 1, np.int64)
+    offsets[1:] = np.cumsum([len(gt_boxes[k]) for k in keys])
+    flat = np.zeros((int(offsets[-1]), 4))
+    for i, k in enumerate(keys):
+        if len(gt_boxes[k]):
+            flat[offsets[i]:offsets[i + 1]] = np.asarray(gt_boxes[k])[:, :4]
+    p = np.array(preds, np.float64)
+    p[:, 0] = [remap.get(int(v), -1) for v in preds[:, 0]]
+    tp = np.zeros(len(p), np.uint8)
+    fp = np.zeros(len(p), np.uint8)
+    NATIVE["eval_sweep"](ptr(p, ctypes.c_double), len(p), ptr(offsets, ctypes.c_int64),
+                         len(keys), ptr(flat, ctypes.c_double), float(threshold),
+                         1 if metric == "iobb" else 0, ptr(tp, ctypes.c_uint8),
+                         ptr(fp, ctypes.c_uint8))
+    return tp.astype(np.float64), fp.astype(np.float64)
+
+
+def sweep(
+    predictions: np.ndarray,
+    gt_boxes: Dict[int, np.ndarray],
+    threshold: float,
+    metric: str = "iou",
+    gt_difficult: Optional[Dict[int, np.ndarray]] = None,
+    impl: str = "native",
+):
+    """The greedy TP/FP assignment of ``evaluate_detections`` -> (tp [N],
+    fp [N] as 0/1 floats over the predictions sorted by score, npos), or
+    (None, None, npos) where there is nothing to sweep."""
+    check_impl(impl)
     any_difficult = gt_difficult is not None and any(
         np.any(v) for v in gt_difficult.values())
     if any_difficult:
@@ -87,8 +136,10 @@ def evaluate_detections(
     else:
         npos = sum(len(v) for v in gt_boxes.values())
     if npos == 0 or len(predictions) == 0:
-        return 0.0
+        return None, None, npos
     preds = predictions[np.argsort(-predictions[:, 1], kind="stable")]
+    if impl == "native" and not any_difficult:  # the C++ sweep has no difficult flags
+        return (*_sweep_native(preds, gt_boxes, threshold, metric), npos)
     claimed = {k: np.zeros(len(v), bool) for k, v in gt_boxes.items()}
     tp = np.zeros(len(preds))
     fp = np.zeros(len(preds))
@@ -111,11 +162,7 @@ def evaluate_detections(
                 fp[i] = 1.0
         else:
             fp[i] = 1.0
-    tp_c = np.cumsum(tp)
-    fp_c = np.cumsum(fp)
-    rec = tp_c / npos
-    prec = tp_c / np.maximum(tp_c + fp_c, np.finfo(np.float64).eps)
-    return voc_ap(rec, prec, use_07_metric)
+    return tp, fp, npos
 
 
 def _stream_batches(dataset, transform, batch_size: int, gt_boxes: Dict[int, np.ndarray]):

@@ -29,16 +29,26 @@ epilogue), so for every component whose border visits each hull vertex
 once, as it does at any upscaling factor of 2 or more, the rectangle
 is OpenCV's (``tests/test_torch_decode_rect.py`` holds it against cv2
 on random contours).
+
+The union-find and step 4 run in the port's C++ host library
+(``gssd_torch/native/pixellink_cc.cpp``, built with g++ at first use),
+the counterpart of the C++ of the JAX package's native library and of
+OpenCV. It gives the numpy functions' bits: the same labels, boxes,
+scores and order of components. The numpy functions are the plain
+versions, run with ``impl="numpy"``; ``impl="native"`` (the default)
+raises where the library cannot be built. The two resizes stay numpy.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import List, Optional, Tuple
 
 import numpy as np
 
 from gssd_torch.config import PixelLinkConfig
+from gssd_torch.native.build import NATIVE, check_impl, ptr
 
 # decoder neighbour offsets (dy, dx) for j = 0..7: the incoming-link
 # convention of the training targets' NEIGHBOR_SHIFTS
@@ -49,10 +59,19 @@ DECODE_NEIGHBORS = [
 _F = np.float32
 
 
-def link_components(pixel: np.ndarray, link: np.ndarray) -> np.ndarray:
+def link_components(pixel: np.ndarray, link: np.ndarray, impl: str = "native") -> np.ndarray:
     """Union-find labelling; pixel [H, W] uint8, link [8, H, W] uint8 ->
     labels [H, W] int32 (0 background, components numbered 1.. in raster
     order of their first pixel)."""
+    check_impl(impl)
+    if impl == "native":
+        pixel = np.ascontiguousarray(pixel, np.uint8)
+        link = np.ascontiguousarray(link, np.uint8)
+        h, w = pixel.shape
+        labels = np.empty((h, w), np.int32)
+        NATIVE["pixellink_components"](ptr(pixel, ctypes.c_uint8), ptr(link, ctypes.c_uint8),
+                                       h, w, ptr(labels, ctypes.c_int32))
+        return labels
     h, w = pixel.shape
     parent = np.arange(h * w, dtype=np.int64)
 
@@ -406,15 +425,37 @@ def _row_extremes(ys: np.ndarray, xs: np.ndarray) -> np.ndarray:
     return np.concatenate([first, last])
 
 
+def _component_boxes_native(labels_up: np.ndarray, score_up: np.ndarray, img_size: int,
+                            cfg: PixelLinkConfig) -> Tuple[np.ndarray, np.ndarray]:
+    """The per-component loop of ``mask_to_boxes`` in C++ -> (scores [n],
+    boxes [n, 4])."""
+    labels_up = np.ascontiguousarray(labels_up, np.int32)
+    score_up = np.ascontiguousarray(score_up, _F)
+    n_labels = int(labels_up.max(initial=0))
+    boxes = np.empty((n_labels, 4))
+    scores = np.empty(n_labels)
+    k = NATIVE["pixellink_boxes"](ptr(labels_up, ctypes.c_int32), ptr(score_up, ctypes.c_float),
+                                  img_size, n_labels, float(cfg.min_height),
+                                  float(cfg.min_area), ptr(boxes, ctypes.c_double),
+                                  ptr(scores, ctypes.c_double))
+    if k == 0:
+        return np.zeros((0,)), np.zeros((0, 4))
+    return scores[:k].copy(), boxes[:k].copy()
+
+
 def mask_to_boxes(
     pixel_logits: np.ndarray,
     link_logits: np.ndarray,
     img_size: int = 300,
     cfg: PixelLinkConfig = PixelLinkConfig(),
     pixel_thres: Optional[float] = None,
+    impl: str = "native",
 ) -> Tuple[np.ndarray, np.ndarray]:
     """One image: pixel_logits [H, W, 2], link_logits [H, W, 16] ->
-    (scores [n], boxes [n, 4] pixel coordinates in img_size space)."""
+    (scores [n], boxes [n, 4] pixel coordinates in img_size space);
+    ``impl`` "native" (C++) or "numpy" (the plain version), the same
+    bits."""
+    check_impl(impl)
     p = pixel_logits - pixel_logits.max(-1, keepdims=True)
     e = np.exp(p)
     prob = e / e.sum(-1, keepdims=True)
@@ -431,9 +472,11 @@ def mask_to_boxes(
         fg = ep[..., 1] / ep.sum(-1)
         link[j] = ((fg > cfg.link_conf_threshold) & (pixel_mask == 1))
 
-    labels = link_components(pixel_mask, link)
+    labels = link_components(pixel_mask, link, impl)
     labels_up = resize_nearest(labels, img_size)
     score_up = resize_linear(score_map, img_size)
+    if impl == "native":
+        return _component_boxes_native(labels_up, score_up, img_size, cfg)
 
     boxes: List[List[float]] = []
     scores: List[float] = []

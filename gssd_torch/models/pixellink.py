@@ -15,7 +15,9 @@ default), as the JAX package does.
 
 ``PixelLink.forward`` takes NHWC [B, S, S, 12] and returns f32 NHWC
 logits: "pixel" [B, S/f, S/f, 2] and "link" [B, S/f, S/f, 16] (f = 2 or
-4), plus "offsets" when a DCN is on. Inside, activations are NCHW in the
+4), plus "offsets" when a DCN is on and, with ``return_attn``, the
+attention maps "attn" and "attn_base" (one [B, N, M] map a site, in the
+compute dtype), as the JAX model returns every non-empty aux list. Inside, activations are NCHW in the
 compute dtype. Submodules carry the flax names (conv1_1, attn_base_0,
 dcn_0, fuse_2, bn_fuse_2, out2_1, final_1, ...), so ``gssd_torch.params``
 maps one tree onto the other.
@@ -148,18 +150,20 @@ class PixelLink(nn.Module):
         self.final_1 = _conv1x1(2 * n_heads if cascade_fuse else 2, 2, gen)
         self.final_2 = _conv1x1(16 * n_heads if cascade_fuse else 16, 16, gen)
 
-    def forward(self, x: torch.Tensor) -> Dict[str, Any]:
+    def forward(self, x: torch.Tensor, return_attn: bool = False) -> Dict[str, Any]:
         cfg = self.cfg
         remat = cfg.remat_attention
         x = x.to(self.dtype).permute(0, 3, 1, 2)  # NHWC -> NCHW
-        offsets: List[torch.Tensor] = []
+        aux: Dict[str, List[torch.Tensor]] = {"offsets": [], "attn": [], "attn_base": []}
         heads: List[Tuple[torch.Tensor, torch.Tensor]] = []
         counters = {"attn": 0, "attn_base": 0}
 
         def attn(prefix, t):
             i = counters[prefix]
             counters[prefix] += 1
-            out, scaled, _ = getattr(self, f"{prefix}_{i}")(t, remat=remat)
+            out, scaled, a = getattr(self, f"{prefix}_{i}")(t, return_attn, remat=remat)
+            if return_attn:
+                aux[prefix].append(a)
             return out, scaled
 
         def base_attn(t):
@@ -183,7 +187,7 @@ class PixelLink(nn.Module):
                 t = slice_and_cat(t, sab, cfg.vgg_groups)
             for i in range(cfg.num_dcn_layers):
                 t, offs = getattr(self, f"dcn_{i}")(t)
-                offsets.append(offs)
+                aux["offsets"].append(offs)
             return t
 
         two_s = cfg.version == "2s"
@@ -225,8 +229,9 @@ class PixelLink(nn.Module):
             out_lnk = _apply1x1(self.final_2, out_lnk)
         out: Dict[str, Any] = {"pixel": out_pix.permute(0, 2, 3, 1).float(),
                                "link": out_lnk.permute(0, 2, 3, 1).float()}
-        if offsets:
-            out["offsets"] = offsets
+        for k, v in aux.items():
+            if v:
+                out[k] = v
         return out
 
 

@@ -45,7 +45,9 @@ class FoldMember:
     ``train_tf``/``valid_tf`` are the transforms of its training and
     validation-loss loaders (each with its own generator); ``step``
     counts the SGD steps taken; ``infer(images)``, where the trainer
-    has one, is the model's inference step (boxes after Detect/NMS)."""
+    has one, is the model's inference step (boxes after Detect/NMS);
+    ``visualize(dataset, out_dir)`` writes the --visualize dumps of the
+    model over ``dataset`` and returns {index: detections}."""
 
     fold: int
     model: torch.nn.Module
@@ -57,6 +59,7 @@ class FoldMember:
     valid_tf: Any
     step: int = 0
     infer: Optional[Callable] = None
+    visualize: Optional[Callable] = None
 
 
 def fold_train_step(members: List[FoldMember], batches: List[Dict[str, Any]]) -> List[Dict]:

@@ -16,10 +16,15 @@ The PixelLink steps (``pixellink_train_step``, ``pixellink_eval_step``,
 ``make_pixellink_forward``) are those of the JAX package's
 ``make_pixellink_train_step`` and friends: the 2:1 weighted pixel and link
 loss in place of MultiBox, the same backward and SGD update.
+
+``make_infer_step_with_aux`` and ``make_pixellink_forward_with_aux`` are
+the ``--visualize`` variants: the same outputs plus the aux lists of the
+eval-mode forward (DCN offsets, attention maps), on the device.
 """
 
 from __future__ import annotations
 
+import inspect
 from typing import Callable, Dict, List, Tuple
 
 import torch
@@ -106,6 +111,38 @@ def make_infer_step(model, priors: torch.Tensor, detect_cfg: DetectConfig) -> Ca
     return infer_step
 
 
+AUX_KEYS = ("offsets", "attn", "attn_base")
+
+
+def _forward_with_aux(model, images: torch.Tensor) -> Tuple[Dict, Dict[str, List]]:
+    """The forward with its attention maps built (``return_attn``, where
+    the model has attention) -> (outputs, the non-empty aux lists)."""
+    if "return_attn" in inspect.signature(model.forward).parameters:
+        out = model(images, return_attn=True)
+    else:
+        out = model(images)
+    return out, {k: out[k] for k in AUX_KEYS if k in out}
+
+
+def make_infer_step_with_aux(model, priors: torch.Tensor, detect_cfg: DetectConfig) -> Callable:
+    """--visualize variant of ``make_infer_step``: a batch -> (detections
+    [B, C, top_k, 5], {"offsets": [[B, Ho, Wo, G, K, 2] a DCN layer],
+    "attn", "attn_base": [[B, N, M] a site]}), the aux lists those the
+    forward gave, all on the model's device."""
+    device = priors.device
+
+    def infer_step(images):
+        if not torch.is_tensor(images):
+            images = torch.from_numpy(images)
+        model.eval()
+        with torch.inference_mode():
+            out, aux = _forward_with_aux(model, images.to(device))
+            conf = torch.softmax(out["conf"], dim=-1)
+            return detect(out["loc"], conf, priors, detect_cfg), aux
+
+    return infer_step
+
+
 PIXELLINK_TARGETS = ("pixel_mask", "neg_pixel_mask", "pixel_pos_weight", "link_mask")
 
 
@@ -151,5 +188,20 @@ def make_pixellink_forward(model, device) -> Callable:
         with torch.inference_mode():
             out = model(images.to(device))
             return out["pixel"].cpu().numpy(), out["link"].cpu().numpy()
+
+    return forward
+
+
+def make_pixellink_forward_with_aux(model, device) -> Callable:
+    """--visualize variant of ``make_pixellink_forward``: a batch ->
+    (pixel, link logits on the host, the aux lists on the device)."""
+
+    def forward(images):
+        if not torch.is_tensor(images):
+            images = torch.from_numpy(images)
+        model.eval()
+        with torch.inference_mode():
+            out, aux = _forward_with_aux(model, images.to(device))
+            return out["pixel"].cpu().numpy(), out["link"].cpu().numpy(), aux
 
     return forward

@@ -45,9 +45,16 @@ kernels and runs every fold's evaluation step once at startup.
 evaluation, checkpoints, resume, test mode) are shared with the
 PixelLink++ trainer, ``gssd_torch.train_pixellink``.
 
+``--test True --visualize True`` first dumps fold 0's checkpoint over
+the test set, image by image, into ``<output>/visualize/<model_name>/``
+(``gssd_torch.utils.visualize.dump_eval_visuals``: input, gt, the first
+DCN layer's offsets and the first map of each attention list as
+``.npy``, and the detection and offset overlays as JPEGs). Where
+TensorBoard imports, every 100th iteration logs fold 0's batch as a
+panel of portal slices with their boxes.
+
 Runs on the GPU (``--device cuda``, the default) and refuses to start
-without one unless ``--device cpu`` is given. ``--visualize`` is not
-ported yet (ROADMAP.md) and raises.
+without one unless ``--device cpu`` is given.
 
 Example (GSSD++ on synthetic data, 5 folds):
   python -m gssd_torch.train --reference_recipe gssd++ --synthetic True \
@@ -184,11 +191,9 @@ def parse_args(argv=None):
 
 
 def _refuse(args, unported=()) -> None:
-    """Raise for what the port does not do: --visualize, and the flags a
-    trainer names in ``unported``."""
-    todo = {"--visualize": args.visualize,
-            **{f"--{name}": bool(getattr(args, name)) for name in unported}}
-    asked = [name for name, on in todo.items() if on]
+    """Raise for the flags a trainer names in ``unported`` and for flag
+    sets that cannot run."""
+    asked = [f"--{name}" for name in unported if getattr(args, name)]
     if asked:
         raise NotImplementedError(
             f"{', '.join(asked)}: not supported by this gssd_torch trainer (see "
@@ -238,7 +243,7 @@ class Setup:
 
 
 def prepare(args, unported=()) -> Setup:
-    """Refuse what is not ported (and the flags named in ``unported``),
+    """Refuse the flags named in ``unported``,
     resolve the device (no card, no run unless --device cpu), generate
     the synthetic set if asked, open the logs and split the data into
     ``--cross_validation`` folds and the test set."""
@@ -322,6 +327,46 @@ def train_batches(args, setup: Setup, train_tf, collate_fn: Callable, fold: int 
     return batches, [loader], f"{aug_method}: {how}"
 
 
+def visualize_set(dataset, base_tf, out_dir: str, predict: Callable, gt_scale: Callable,
+                  conf_threshold: float, image_size: int) -> Dict[int, np.ndarray]:
+    """The --visualize dumps of one model over ``dataset``, one image at a
+    time, as the JAX trainers write them: ``predict([1, H, W, 12] f32)``
+    -> (detections [C, K, 5] normalised, host numpy; the aux lists on the
+    device), the gt boxes scaled into input pixels by ``gt_scale(raw
+    image)``. Only what the dump writes is copied to the host: the first
+    map of each aux list, in f32. Returns {index: detections}."""
+    from gssd_torch.utils.visualize import dump_eval_visuals
+
+    dets = {}
+    for idx in range(len(dataset)):
+        raw = dataset.pull_image(idx)
+        anno = dataset.pull_anno(idx)
+        x, _, _ = base_tf(raw)
+        p, h, w, c = x.shape
+        img = np.transpose(x, (1, 2, 0, 3)).reshape(h, w, p * c)
+        det, aux = predict(img[None].astype(np.float32))
+        maps = {k: [v[0][0].float().cpu().numpy()] for k, v in aux.items() if v}
+        dump_eval_visuals(out_dir, idx, img, anno[:, :4] * gt_scale(raw), det,
+                          offsets=maps.get("offsets"), attn=maps.get("attn"),
+                          attn_base=maps.get("attn_base"), conf_threshold=conf_threshold,
+                          image_size=image_size)
+        dets[idx] = det
+    print(f"visualize dumps written to {out_dir}", flush=True)
+    return dets
+
+
+def log_input_grid(logger, iteration: int, batch: Dict[str, torch.Tensor]) -> None:
+    """Fold 0's batch as a panel of portal slices with their boxes
+    (``input_grid_with_boxes``), to TensorBoard where it imports."""
+    if logger.tb is None:
+        return
+    from gssd_torch.utils.visualize import input_grid_with_boxes
+
+    images, boxes = (batch[key].float().cpu().numpy() for key in ("image", "boxes"))
+    panel = input_grid_with_boxes(images, boxes, batch["valid"].cpu().numpy())
+    logger.log_image("inputs/train_fold0", iteration, panel)
+
+
 def _profile_start(device):
     from torch.profiler import ProfilerActivity, profile
 
@@ -343,7 +388,8 @@ def _profile_stop(prof, directory: str, first: int, last: int) -> str:
 
 
 def run(args, setup: Setup, make_fold: Callable, collate_fn: Callable,
-        parts: Tuple[Tuple[str, str], ...], warm: Optional[Callable] = None) -> Dict[str, Any]:
+        parts: Tuple[Tuple[str, str], ...], warm: Optional[Callable] = None,
+        input_grid: bool = False) -> Dict[str, Any]:
     """The loop every trainer of the port shares, or with --test the
     evaluation of every fold's checkpoint.
 
@@ -351,7 +397,10 @@ def run(args, setup: Setup, make_fold: Callable, collate_fn: Callable,
     step and evaluation closures and the transforms of its loaders; see
     ``gssd_torch.parallel.folds``); ``collate_fn`` stacks the loaders'
     items; ``parts`` names the loss parts to print as (label, key);
-    ``warm(members)``, if given, runs once before the first iteration.
+    ``warm(members)``, if given, runs once before the first iteration;
+    ``input_grid`` logs fold 0's batch as an image every 100 iterations
+    (TensorBoard only). With --test --visualize, fold 0's ``visualize``
+    dumps the test set first.
     A record's ``wait_ms`` is the host time blocked on the folds' next
     batches, ``ms`` the K steps after it, synchronised; its metrics are
     the means over the folds, ``folds`` holds each fold's."""
@@ -366,17 +415,21 @@ def run(args, setup: Setup, make_fold: Callable, collate_fn: Callable,
         # one model serves every fold's checkpoint in turn: a checkpoint of
         # the port holds the whole state, and what a partial load skips
         # keeps the initialisation of --seed, as the JAX trainer's does
-        member, results = make_fold(0), []
+        member, results, visualized = make_fold(0), [], None
         for f in range(k):
             load_weights_partial(member.model, checkpoint_path(ckpt_dir, args.model_name,
                                                                args.checkpoint, f))
+            if args.visualize and f == 0:
+                out_dir = os.path.join(args.output, "visualize", args.model_name)
+                visualized = {"dir": out_dir,
+                              "detections": member.visualize(setup.test_set, out_dir)}
             res = member.evaluate(setup.test_set, f"test_ap_cv{f}", args.checkpoint)
             print(f"[fold {f}] {res}")
             results.append(res)
         mean = fold_mean(results)
         print("test mean over folds:", json.dumps(mean), flush=True)
         logger.close()
-        return {"test": mean, "folds": results}
+        return {"test": mean, "folds": results, "visualized": visualized}
 
     members = [make_fold(f) for f in range(k)]
     start_iter = getattr(args, "start_iter", 0)
@@ -425,6 +478,8 @@ def run(args, setup: Setup, make_fold: Callable, collate_fn: Callable,
         if getattr(args, "log_iters", True) and it % 10 == 0:
             keys = ("loss", *(key for _, key in parts), "lr", "grad_norm")
             logger.log_scalars("loss", it, {key: rec[key] for key in keys})
+        if input_grid and it % 100 == 0:
+            log_input_grid(logger, it, batches[0])
 
         last = it == args.max_iter - 1
         if ((it % args.val_every == 0 and it > start_iter) or last) and it >= args.speedrun:
@@ -526,7 +581,9 @@ def main(argv=None) -> Dict[str, Any]:
     SGD steps taken by each fold, "traces": the --profile_dir trace files
     written, "model", "optimizer": fold 0's, "folds": every fold's
     ``FoldMember``}; with --test, {"test": the mean over the folds of the
-    checkpoints' AP/IoBB, "folds": each fold's}."""
+    checkpoints' AP/IoBB, "folds": each fold's, "visualized": with
+    --visualize {"dir": the dump directory, "detections": {test index:
+    fold 0's detections [C, K, 5]}}, else None}."""
     args = parse_args(argv)
     setup = prepare(args)
 
@@ -535,7 +592,8 @@ def main(argv=None) -> Dict[str, Any]:
     from gssd_torch.models import build_model
     from gssd_torch.parallel.folds import FoldMember, fold_seed
     from gssd_torch.train.optim import make_optimizer
-    from gssd_torch.train.steps import eval_step, make_infer_step, train_step
+    from gssd_torch.train.steps import (eval_step, make_infer_step, make_infer_step_with_aux,
+                                        train_step)
 
     device, logger = setup.device, setup.logger
     loss_cfg = LossConfig(num_classes=args.num_classes, overlap_thresh=args.jaccard_threshold,
@@ -550,7 +608,8 @@ def main(argv=None) -> Dict[str, Any]:
         model = model.to(device)
         priors_t = torch.tensor(priors, device=device)
         optimizer = make_optimizer(model, optim_cfg)
-        infer_step = make_infer_step(model, priors_t, DetectConfig(num_classes=args.num_classes))
+        detect_cfg = DetectConfig(num_classes=args.num_classes)
+        infer_step = make_infer_step(model, priors_t, detect_cfg)
 
         def evaluate(dataset, tag, iteration):
             sink: Dict[str, np.ndarray] = {}
@@ -563,6 +622,17 @@ def main(argv=None) -> Dict[str, Any]:
             logger.log_histogram(f"{tag}/scores_filtered", iteration, sink["filtered"])
             return res
 
+        def visualize(dataset, out_dir):
+            vstep = make_infer_step_with_aux(model, priors_t, detect_cfg)
+
+            def predict(img):
+                det, aux = vstep(img)
+                return det[0].cpu().numpy(), aux
+
+            return visualize_set(dataset, setup.base_tf, out_dir, predict,
+                                 lambda raw: args.ssd_dim / raw.shape[1],
+                                 args.confidence_threshold, args.ssd_dim)
+
         aug = SSDAugmentation(pixeljitter=args.gt_pixel_jitter, ratio=args.expand_ratio,
                               size=args.ssd_dim, mean=args.means,
                               use_normalize=args.use_normalize, p_only=args.p_only,
@@ -572,7 +642,7 @@ def main(argv=None) -> Dict[str, Any]:
             lambda batch, step: train_step(model, optimizer, priors_t, batch, loss_cfg,
                                            optim_cfg, step),
             lambda batch: eval_step(model, priors_t, batch, loss_cfg),
-            evaluate, aug, setup.base_tf, infer=infer_step)
+            evaluate, aug, setup.base_tf, infer=infer_step, visualize=visualize)
 
     def warm(members):
         warm_eval(args, members, device)
@@ -580,4 +650,4 @@ def main(argv=None) -> Dict[str, Any]:
     warming = (args.warmup_eval and not args.test and args.val_every <= args.max_iter
                and args.speedrun <= args.max_iter)
     return run(args, setup, make_fold, collate, (("l", "loss_l"), ("c", "loss_c")),
-               warm if warming else None)
+               warm if warming else None, input_grid=True)

@@ -20,9 +20,11 @@ loop, checkpoints and logs are ``gssd_torch.train.trainer``'s.
 Runs on the GPU (``--device cuda``, the default) and refuses to start
 without one unless ``--device cpu`` is given. ``--num_workers > 1``
 builds the batches in forked worker processes, a stream that
-``--resume`` continues exactly. ``--visualize`` is not ported yet
-(ROADMAP.md) and raises; so do ``--profile_dir`` and ``--warmup_eval``,
-which the JAX package's PixelLink trainer does not have. The stem's wide-conv kernels run only when
+``--resume`` continues exactly. ``--test True --visualize True`` dumps
+fold 0's checkpoint over the test set as the GSSD trainer does, the
+decoded boxes packed into the Detect [C, K, 5] contract (class 1,
+normalised). ``--profile_dir`` and ``--warmup_eval``, which the JAX
+package's PixelLink trainer does not have, raise. The stem's wide-conv kernels run only when
 ``gssd_torch.ops.layers.USE_WIDE_CONV_KERNEL`` is set in-process, as
 ``USE_PALLAS_WIDE_CONV`` is in the JAX package.
 
@@ -36,9 +38,11 @@ from __future__ import annotations
 import argparse
 from typing import Any, Dict
 
+import numpy as np
+
 from gssd_torch.config import OptimConfig, PixelLinkConfig
 from gssd_torch.infer import str2bool
-from gssd_torch.train.trainer import prepare, run
+from gssd_torch.train.trainer import prepare, run, visualize_set
 
 # the JAX package's recipes (train_pixellink.py REFERENCE_RECIPES):
 # 'pixellink' is the ungrouped baseline, 'pixellink++' adds grouped convs,
@@ -175,7 +179,9 @@ def main(argv=None) -> Dict[str, Any]:
     from gssd_torch.models.pixellink import build_pixellink
     from gssd_torch.parallel.folds import FoldMember, fold_seed
     from gssd_torch.train.optim import make_optimizer
-    from gssd_torch.train.steps import (make_pixellink_forward, pixellink_eval_step,
+    from gssd_torch.eval.pixellink_decode import mask_to_boxes
+    from gssd_torch.train.steps import (make_pixellink_forward,
+                                        make_pixellink_forward_with_aux, pixellink_eval_step,
                                         pixellink_train_step)
 
     plc = pixellink_config(args)
@@ -206,6 +212,25 @@ def main(argv=None) -> Dict[str, Any]:
             setup.logger.log_scalars(tag, iteration, res, file="test")
             return res
 
+        def visualize(dataset, out_dir):
+            vfwd = make_pixellink_forward_with_aux(model, setup.device)
+
+            def predict(img):
+                pix, lnk, aux = vfwd(img)
+                scores, boxes = mask_to_boxes(pix[0], lnk[0], args.ssd_dim, plc)
+                det = np.zeros((2, max(len(scores), 1), 5), np.float32)
+                if len(scores):
+                    det[1, :, 0] = scores
+                    det[1, :, 1:] = boxes / args.ssd_dim
+                return det, aux
+
+            def gt_scale(raw):
+                sy, sx = args.ssd_dim / raw.shape[1], args.ssd_dim / raw.shape[2]
+                return np.asarray([sx, sy, sx, sy], np.float32)
+
+            return visualize_set(dataset, setup.base_tf, out_dir, predict, gt_scale,
+                                 args.confidence_threshold, args.ssd_dim)
+
         # the validation loss needs the target maps too: the augmentation
         # without jitter, as in the JAX trainer
         return FoldMember(
@@ -214,7 +239,7 @@ def main(argv=None) -> Dict[str, Any]:
                                                      optim_cfg, step),
             lambda batch: pixellink_eval_step(model, batch, plc), evaluate,
             augmentation(args.gt_pixel_jitter, args.seed + f),
-            augmentation(0.0, args.seed + 100 + f))
+            augmentation(0.0, args.seed + 100 + f), visualize=visualize)
 
     return run(args, setup, make_fold, collate_pixellink,
                (("pixel", "pixel_loss"), ("link", "link_loss")))

@@ -5,7 +5,8 @@ The port of ``gssd_tpu/utils/logging.py``. ``MetricsLogger`` writes
 ``test``), one line per call: ``<step>\\t<group>\\tkey=value...``. Where
 ``torch.utils.tensorboard`` imports, the same scalars (and score
 histograms) also go to ``<log_dir>/tb``; where it does not, that sink
-is left out.
+is left out, and so are the images (``log_image``: the input grid with
+its boxes, every 100 iterations), which go only there.
 """
 
 from __future__ import annotations
@@ -55,6 +56,11 @@ class MetricsLogger:
             values = np.asarray(values, np.float32).ravel()
             if values.size:
                 self.tb.add_histogram(tag, values, step)
+
+    def log_image(self, tag: str, step: int, image):
+        """image: [H, W, C] float array in [0, 1], TensorBoard only."""
+        if self.tb is not None:
+            self.tb.add_image(tag, np.transpose(image, (2, 0, 1)), step)
 
     def close(self):
         for f in self._files.values():

@@ -1,6 +1,9 @@
 """The port stands alone: gssd_torch and chip_smoke.py import nothing of
-JAX, flax, OpenCV, gssd_tpu or the root train.py, and the entry points
-refuse to fall back to the CPU without being asked."""
+JAX, flax, gssd_tpu or the root train.py, and the entry points refuse to
+fall back to the CPU without being asked. OpenCV is imported only inside
+the functions of the two modules whose JAX counterparts call it (the
+--visualize drawing and the VOC JPEG reader), so that importing the port
+loads none."""
 
 import ast
 import os
@@ -13,23 +16,44 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "cv2", "gssd_tpu", "train")
+# the modules that may import cv2, inside their functions only
+CV2_ALLOWED = ("gssd_torch/utils/visualize.py", "gssd_torch/data/voc.py")
+
+
+def _imports(tree):
+    """(root module name, node) of every absolute import under ``tree``."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from ((a.name.split(".")[0], node) for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            yield node.module.split(".")[0], node
 
 
 def _imported_roots(path):
-    tree = ast.parse(path.read_text())
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            yield from (a.name.split(".")[0] for a in node.names)
-        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
-            yield node.module.split(".")[0]
+    return {name for name, _ in _imports(ast.parse(path.read_text()))}
 
 
 def test_sources_import_nothing_of_jax():
     files = sorted((ROOT / "gssd_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
     for f in files:
-        bad = set(_imported_roots(f)) & set(BLOCKED)
+        allowed = {"cv2"} if str(f.relative_to(ROOT)) in CV2_ALLOWED else set()
+        bad = _imported_roots(f) & (set(BLOCKED) - allowed)
         assert not bad, f"{f.relative_to(ROOT)} imports {bad}"
+
+
+def test_cv2_only_inside_functions_of_the_allowed_modules():
+    for rel in CV2_ALLOWED:
+        tree = ast.parse((ROOT / rel).read_text())
+        inside = {id(node) for fn in ast.walk(tree)
+                  if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef))
+                  for _, node in _imports(fn)}
+        cv2 = [node for name, node in _imports(tree) if name == "cv2"]
+        assert cv2 and all(id(node) in inside for node in cv2), rel
+    # the decode and the native library stand in for OpenCV: neither calls it
+    for f in [ROOT / "gssd_torch/eval/pixellink_decode.py",
+              *sorted((ROOT / "gssd_torch/native").glob("*.py"))]:
+        assert "cv2" not in _imported_roots(f), f
 
 
 def test_imports_with_jax_blocked():
@@ -51,6 +75,8 @@ def test_imports_with_jax_blocked():
         "import gssd_torch.data.augment_device, gssd_torch.data.device_cache\n"
         "import gssd_torch.parallel, gssd_torch.parallel.folds\n"
         "import gssd_torch.models.fssd, gssd_torch.models.unet, gssd_torch.train_unet\n"
+        "import gssd_torch.native, gssd_torch.native.build, gssd_torch.utils.visualize\n"
+        "import gssd_torch.data.voc, gssd_torch.eval.voc_map, gssd_torch.train_voc\n"
         "loaded = [m for m in sys.modules if m.split('.')[0] in "
         f"{BLOCKED!r} and sys.modules[m] is not None]\n"
         "assert not loaded, loaded\n"
@@ -91,6 +117,10 @@ def test_trainer_module_refuses_without_card(tmp_path):
 
 def test_pixellink_trainer_module_refuses_without_card(tmp_path):
     _refuses_without_card("gssd_torch.train_pixellink", tmp_path)
+
+
+def test_voc_trainer_module_refuses_without_card(tmp_path):
+    _refuses_without_card("gssd_torch.train_voc", tmp_path)
 
 
 def test_unet_trainer_module_refuses_without_card(tmp_path):

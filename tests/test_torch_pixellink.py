@@ -451,22 +451,59 @@ def test_trainer_cli_takes_the_input_paths(tmp_path, capsys, monkeypatch, flag):
     assert not torch.equal(seen[0]["image"], seen[1]["image"])
 
 
+def _check_visualize(data, out, flag):
+    from gssd_torch import train_pixellink
+    from gssd_torch.data import BaseTransform, DataSplitter, LesionDataset
+    from gssd_torch.models.pixellink import build_pixellink
+    from gssd_torch.train.checkpoint import save_checkpoint
+    from gssd_torch.train.steps import make_pixellink_forward
+    from gssd_torch.utils.visualize import dump_names
+
+    argv = ["--reference_recipe", "pixellink++", "--datapath", str(data), "--num_test_subjects",
+            "1", "--ssd_dim", "64", "--dcn_impl", "xla", "--compute_dtype", "float32",
+            "--device", "cpu", "--output", str(out)]
+    args = train_pixellink.parse_args(argv)
+    model = build_pixellink(train_pixellink.pixellink_config(args), args.cascade_fuse,
+                            args.batch_norm, "float32", "xla", device="cpu", seed=3)
+    save_checkpoint(model, make_optimizer(model, OptimConfig()), 0, str(out / "checkpoints"),
+                    args.model_name, 0)
+    res = train_pixellink.main(argv + ["--test", "True", "--checkpoint", "0", *flag])
+    vis = res["visualized"]
+    assert sorted(os.listdir(vis["dir"])) == sorted(dump_names(0, True, True, True))
+    shapes = {name: np.load(os.path.join(vis["dir"], f"00000_{name}.npy")).shape
+              for name in ("x", "offsets", "attention", "attention_base")}
+    assert shapes == {"x": (64, 64, 12), "offsets": (16, 16, 4, 9, 2),
+                      "attention": (256, 256), "attention_base": (256, 256)}
+    test_set = LesionDataset(str(data), DataSplitter(str(data), 1, 1).data_test)
+    x, _, _ = BaseTransform(64)(test_set.pull_image(0))
+    img = np.transpose(x, (1, 2, 0, 3)).reshape(64, 64, 12)[None].astype(np.float32)
+    pix, lnk = make_pixellink_forward(model, torch.device("cpu"))(img)
+    scores, boxes = mask_to_boxes(pix[0], lnk[0], 64, PixelLinkConfig())
+    det = vis["detections"][0]
+    assert det.shape == (2, max(len(scores), 1), 5) and not det[0].any()
+    np.testing.assert_array_equal(det[1, :len(scores), 0], scores.astype(np.float32))
+    np.testing.assert_array_equal(det[1, :len(scores), 1:], (boxes / 64).astype(np.float32))
+
+
 @pytest.mark.parametrize("flag", [["--cross_validation", "2"], ["--visualize", "True"]])
 def test_trainer_cli_refuses_what_is_not_ported(flag, tmp_path, capsys, monkeypatch):
-    """--visualize is not ported and raises. --cross_validation 2 trains two
+    """--test --visualize dumps fold 0's checkpoint over the test set at a
+    64 x 64 input: every file of the JAX package's dump set, the offsets
+    [16, 16, 4, 9, 2] and the first attention maps [256, 256], and the
+    decoded boxes packed as detections (those of the evaluation's decode
+    of the same logits). --cross_validation 2 trains two
     folds side by side at a 64 x 64 input: one step each, an evaluation
     and a checkpoint a fold, the logged AP/IoBB the means of the folds'."""
     from gssd_torch import train_pixellink
     from gssd_torch.data import make_synthetic_dataset
     from gssd_torch.parallel.folds import fold_mean
 
-    if flag[0] == "--visualize":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            train_pixellink.main(["--device", "cpu", *flag])
-        return
     monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
     data = tmp_path / "ml"
     make_synthetic_dataset(str(data), num_subjects=6, slices_per_subject=1, image_size=64)
+    if flag[0] == "--visualize":
+        _check_visualize(data, tmp_path / "run", flag)
+        return
     res = _cli(data, tmp_path / "run", *flag, "--max_iter", "1", "--speedrun", "0")
     (rec,) = res["records"]
     assert len(rec["folds"]) == 2 and all(np.isfinite(f["loss"]) for f in rec["folds"])

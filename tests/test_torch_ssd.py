@@ -93,7 +93,7 @@ def test_full_width_forward_matches_jax(gssd_pp, size):
     model, priors = build_model(ModelConfig(**GSSD_PP, size=size), device="cpu")
     load_jax_variables(model, variables)
     with torch.inference_mode():
-        got = model.eval()(torch.from_numpy(x))
+        got = model.eval()(torch.from_numpy(x), return_attn=True)
 
     n_priors, side = SIZES[size]
     assert got["loc"].shape == (1, priors.shape[0], 4) == (1, n_priors, 4)
@@ -106,9 +106,13 @@ def test_full_width_forward_matches_jax(gssd_pp, size):
     # f32 on both sides; only the summation order of the convolutions
     # differs (including the JAX package's default pair-mode grouped
     # lowering), which grows through ~25 layers
+    # the attention maps too (--visualize dumps the first of each list)
+    maps = [(f"{key}[{i}]", a, b) for key in ("attn", "attn_base")
+            for i, (a, b) in enumerate(zip(got[key], want[key]))]
+    assert len(maps) == 2 * len(got["attn"]) == 2 * len(want["attn"]) > 0
     for name, a, b in (("loc", got["loc"], want["loc"]),
                        ("conf", got["conf"], want["conf"]),
-                       ("offsets", got["offsets"][0], offs_want)):
+                       ("offsets", got["offsets"][0], offs_want), *maps):
         ref = np.asarray(b)
         err = np.abs(a.numpy() - ref).max()
         assert err <= 1e-3 * np.abs(ref).max(), (name, err, np.abs(ref).max())

@@ -9,6 +9,7 @@ jitted ``create_train_state`` would cost another half minute).
 """
 
 import json
+import os
 import sys
 
 import jax
@@ -24,7 +25,7 @@ from gssd_tpu.config import OptimConfig as JaxOptimConfig
 from gssd_tpu.models import build_model as jax_build_model
 from gssd_tpu.train import make_train_step
 from gssd_tpu.train.state import TrainState, make_optimizer as jax_make_optimizer
-from gssd_torch.config import LossConfig, ModelConfig, OptimConfig
+from gssd_torch.config import DetectConfig, LossConfig, ModelConfig, OptimConfig
 from gssd_torch.models import build_model
 from gssd_torch.params import from_jax_variables, load_jax_variables
 from gssd_torch.train import make_optimizer, train_step
@@ -156,18 +157,20 @@ def small_data(tmp_path_factory):
 
 @pytest.mark.parametrize("flag", [["--cross_validation", "2"], ["--visualize", "True"]])
 def test_trainer_refuses_what_is_not_ported(flag, small_data, tmp_path, monkeypatch):
-    """--visualize is not ported and raises. --cross_validation 2 runs:
+    """--test --visualize dumps fold 0's checkpoint over the test set: every
+    file of the JAX package's dump set, the offsets [38, 38, 4, 9, 2] and
+    the first maps of both attention lists [1444, 1444], and the
+    detections the inference step gives. --cross_validation 2 runs:
     one iteration steps two folds, each its own model (fold 1's built
     from fold_seed(seed, 1)) and optimizer, on its own batch; the record
     holds the mean of the two folds' losses."""
     from gssd_torch.parallel.folds import fold_seed
     from gssd_torch.train import main
 
-    if flag[0] == "--visualize":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            main(["--device", "cpu", *flag])
-        return
     monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    if flag[0] == "--visualize":
+        _check_visualize(small_data, tmp_path, flag)
+        return
     res = main(["--reference_recipe", "gssd", "--datapath", small_data, "--num_test_subjects",
                 "1", "--batch_size", "1", "--max_iter", "1", "--speedrun", "5",
                 "--compute_dtype", "float32", "--device", "cpu", "--output", str(tmp_path),
@@ -187,6 +190,36 @@ def test_trainer_refuses_what_is_not_ported(flag, small_data, tmp_path, monkeypa
     for m in folds:
         dist = [(m.model.state_dict()[name] - w).norm() for w in init]
         assert dist[m.fold] < dist[1 - m.fold] / 3, dist
+
+
+def _check_visualize(data, out, flag):
+    from gssd_torch.data import BaseTransform, DataSplitter, LesionDataset
+    from gssd_torch.train import trainer
+    from gssd_torch.train.checkpoint import save_checkpoint
+    from gssd_torch.train.steps import make_infer_step
+    from gssd_torch.utils.visualize import dump_names
+
+    argv = ["--reference_recipe", "gssd++", "--datapath", data, "--num_test_subjects", "1",
+            "--compute_dtype", "float32", "--device", "cpu", "--output", str(out)]
+    args = trainer.parse_args(argv)
+    model, priors = build_model(trainer.model_config(args), device="cpu", seed=3)
+    save_checkpoint(model, make_optimizer(model, OptimConfig()), 0, str(out / "checkpoints"),
+                    args.model_name, 0)
+    res = trainer.main(argv + ["--test", "True", "--checkpoint", "0", *flag])
+    vis = res["visualized"]
+    assert vis["dir"] == str(out / "visualize" / args.model_name)
+    assert sorted(os.listdir(vis["dir"])) == sorted(dump_names(0, True, True, True))
+    shapes = {name: np.load(os.path.join(vis["dir"], f"00000_{name}.npy")).shape
+              for name in ("x", "offsets", "attention", "attention_base")}
+    assert shapes == {"x": (300, 300, 12), "offsets": (38, 38, 4, 9, 2),
+                      "attention": (1444, 1444), "attention_base": (1444, 1444)}
+    # the dumped detections: the inference step's on the same slice
+    test_set = LesionDataset(data, DataSplitter(data, 1, 1).data_test)
+    x, _, _ = BaseTransform(300)(test_set.pull_image(0))
+    img = np.transpose(x, (1, 2, 0, 3)).reshape(300, 300, 12)[None].astype(np.float32)
+    want = make_infer_step(model.eval(), torch.tensor(priors), DetectConfig())(img)
+    np.testing.assert_array_equal(vis["detections"][0], want[0].numpy())
+    assert set(res["test"]) == {"ap30", "ap50", "ap70", "iobb30", "iobb50", "iobb70"}
 
 
 def _one_step(data, out, *extra):
