@@ -3,7 +3,8 @@
 the training step, the three DCN routes, the trainer's evaluation,
 checkpoints and resume, PixelLink++ (4s and 2s) and the FSSD family with
 the stem kernels, the UNet liver-segmentation trainer, the C++ host
-library, ``--visualize`` and the VOC SSD300 trainer.
+library, ``--visualize``, the VOC SSD300 trainer and the offline
+preprocessing (a raw drop built into ml_ready and trained on).
 
     python3 chip_smoke.py        # from the root of a checkout
 
@@ -223,6 +224,20 @@ In order, failing (exit code 1) at the first phase that goes wrong:
    restored bit for bit, ``--test --checkpoint`` with the same mAP, bf16
    card vs f32 CPU within E2E_TOL, and no launch of the port's kernels
    (the model has no attention, DCN or wide-conv stem).
+30. a raw drop to a trained checkpoint: a synthetic SNUH raw drop
+   (``write_raw_drop``: DROP_SUBJECTS subjects of A, D, P and Pre
+   512x512 int16 volumes, uint8 raw masks with z-deltas, one subject with
+   two lesions) built into ml_ready by
+   ``gssd_torch.preprocessing.snuh.build_snuh_dataset`` (the sample and
+   metadata counts, every ``_ct.npy`` [4, 3, 512, 512] f32 in [0, 1],
+   boxes inside the slice with class 0, the pivot phase's token; seconds
+   a subject, bytes written), then ``gssd_torch.train.main`` on it at
+   ``--reference_recipe gssd++ --batch_size 32 --dcn_impl hat
+   --compute_dtype bfloat16`` for DROP_ITERS steps with an evaluation and
+   a checkpoint (finite losses, AP/IoBB in [0, 1], exactly phase 12's
+   launches a step and one forward's an evaluation batch, ms/step beside
+   phase 12's) and ``--test --checkpoint`` (one forward's launches a
+   test batch).
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or outside a
@@ -1286,7 +1301,8 @@ def eval_resume_test(tmp, device="cuda", batch=TRAIN_BATCH):
           f"--test AP/IoBB malformed: {tested}")
     print(f"--test --checkpoint 2: {tested}", flush=True)
     return {"evaluation": evals[0], "resumed_losses": [r["loss"] for r in recs],
-            "resumed_lr": recs[0]["lr"], "test": tested, "seconds": time.perf_counter() - t0}
+            "resumed_lr": recs[0]["lr"], "test": tested, "median_step_ms": first["median_step_ms"],
+            "seconds": time.perf_counter() - t0}
 
 
 def fixed_batch(data, n, device):
@@ -3645,6 +3661,179 @@ def voc_phase(tmp):
             "launches": launches, "seconds": time.perf_counter() - t0}
 
 
+DROP_SUBJECTS = 6     # the trainer's one fold holds out 20% of the training subjects: >= 5
+DROP_SLICES = 16      # a subject's z (16 or 17), the same in its four phases
+DROP_LESION_Z = (3, 13)  # lesion slices 3..12: ten interior slices a subject
+DROP_PIVOTS = ("P", "A", "D", "Pre", "P", "A")  # the annotated phase of each subject
+DROP_ITERS = 3
+
+
+def drop_series_reader(directory, pattern):
+    """The synthetic drop's DICOM series: one ``<phase>_vol.npy`` volume a
+    phase directory, through ``build_snuh_dataset``'s ``series_reader``
+    (the port reads DICOM with the optional pydicom)."""
+    import numpy as np
+
+    return np.load(os.path.join(directory, pattern.split("*")[0] + "vol.npy"))
+
+
+def write_raw_drop(root, seed=SEED):
+    """A synthetic SNUH raw drop at the clinical size, in the layout of
+    ``gssd_torch/preprocessing/snuh.py``: DROP_SUBJECTS subjects with A, D,
+    P and Pre volumes of 512 x 512 int16 HU values (a body, a liver and
+    the lesions over noise), lesions over the DROP_LESION_Z slices of the
+    pivot phase, uint8 ``segmentation_mask/<id>_<phase>.raw`` masks with
+    the pivot's z-delta of extra leading slices (subject 0 has two
+    lesions: ``<id>_<phase>1.raw`` and ``2.raw``), and metadata.txt with
+    non-zero deltas. Returns {subject: (pivot phase, lesion slices)}."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:512, 0:512]
+
+    def ellipse(cy, cx, ry, rx):
+        return ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 < 1
+
+    os.makedirs(os.path.join(root, "segmentation_mask"))
+    rows, subjects = [], {}
+    lo, hi = DROP_LESION_Z
+    for s in range(DROP_SUBJECTS):
+        subject, mask_id, pivot = f"HCC_{1100 + s}", f"A{s + 1}", DROP_PIVOTS[s]
+        z = DROP_SLICES + s % 2
+        deltas = [(s + k) % 4 + 1 for k in range(4)]  # A, D, P, Pre: all non-zero
+        lesions = [ellipse(*rng.uniform(200, 300, 2), *rng.uniform(18, 34, 2))
+                   for _ in range(2 if s == 0 else 1)]
+        body = np.where(ellipse(256, 256, 200, 230), 40, -1000).astype(np.int16)
+        body[ellipse(230, 200, 110, 130)] = 60  # the liver
+        for phase in ("A", "D", "P", "Pre"):
+            vol = np.repeat(body[:, :, None], z, axis=2)
+            for lesion in lesions:
+                vol[lesion, lo:hi] = 20 + 15 * ("A", "D", "P", "Pre").index(phase)
+            vol += rng.integers(-25, 26, vol.shape, dtype=np.int16)
+            d = os.path.join(root, "dicom_image", subject, phase)
+            os.makedirs(d)
+            np.save(os.path.join(d, f"{phase}_vol.npy"), vol)
+        delta = deltas[("A", "D", "P", "Pre").index(pivot)]
+        for i, lesion in enumerate(lesions):
+            m = np.zeros((z + delta, 512, 512), np.uint8)
+            m[lo + delta:hi + delta, lesion] = 1
+            suffix = str(i + 1) if len(lesions) > 1 else ""
+            m.tofile(os.path.join(root, "segmentation_mask", f"{mask_id}_{pivot}{suffix}.raw"))
+        rows.append("\t".join([subject, *map(str, deltas), pivot, mask_id]))
+        subjects[subject] = (pivot, hi - lo)
+    with open(os.path.join(root, "metadata.txt"), "w") as f:
+        f.write("ID\tDelta_A\tDelta_D\tDelta_P\tDelta_Pre\tMask_Phase\tMask_ID\n"
+                + "\n".join(rows) + "\n")
+    return subjects
+
+
+def raw_drop_phase(tmp, harness):
+    """Phase 30, a raw drop to a trained checkpoint: a synthetic SNUH raw
+    drop at 512 x 512 (``write_raw_drop``) built into ml_ready by
+    ``gssd_torch.preprocessing.snuh.build_snuh_dataset`` (the sample and
+    metadata counts; every ``_ct.npy`` [4, 3, 512, 512] f32 in [0, 1];
+    every box inside 512 x 512 with class 0; each sample's phase token its
+    subject's pivot phase; seconds a subject, bytes written), then the
+    GSSD++ trainer on it at batch 32 (``hat``, bf16, DROP_ITERS steps with
+    an evaluation and a checkpoint at the last): finite losses, AP/IoBB in
+    [0, 1], exactly phase 12's 12 + 12 attention and 1 + 1 hat DCN
+    launches a step plus one forward's an evaluation batch, ms/step beside
+    phase 12's; and ``--test --checkpoint`` (one forward's launches a test
+    batch). The legacy v1 h5 round trip (``legacy_v1.write_v1_h5``,
+    ``gssd_torch.data.legacy_h5``) needs h5py, which this script does not
+    require: tests/test_torch_legacy_h5.py holds it to the JAX package."""
+    import numpy as np
+
+    from gssd_torch import train as trainer
+    from gssd_torch.data import DataSplitter
+    from gssd_torch.preprocessing.snuh import PHASE_TOKEN, build_snuh_dataset
+
+    t0 = time.perf_counter()
+    drop, ml = os.path.join(tmp, "raw_drop"), os.path.join(tmp, "raw_drop_ml")
+    subjects = write_raw_drop(drop)
+    write_s = time.perf_counter() - t0
+    t = time.perf_counter()
+    lines = build_snuh_dataset(drop, ml, img_size=512, series_reader=drop_series_reader)
+    build_s = time.perf_counter() - t
+    want = sum(n for _, n in subjects.values())
+    with open(os.path.join(ml, "metadata.txt")) as f:
+        meta = [line for line in f.read().splitlines() if line]
+    check(len(lines) == want and meta == lines,
+          f"raw drop: {len(lines)} samples and {len(meta)} metadata lines, expected {want}")
+    n_boxes = 0
+    for line in lines:
+        rel, subject = line.split("|")
+        base = os.path.join(ml, rel)
+        ct = np.load(base + "_ct.npy")
+        check(ct.shape == (4, 3, 512, 512) and ct.dtype == np.float32
+              and 0.0 <= ct.min() and ct.max() <= 1.0,
+              f"{rel}: ct {ct.shape} {ct.dtype} in [{ct.min()}, {ct.max()}]")
+        b = np.load(base + "_bbox.npy")
+        check(b.ndim == 2 and b.shape[0] >= 1 and b.shape[1] == 5
+              and (b[:, :2] >= 0).all() and (b[:, 2:4] <= 512).all()
+              and (b[:, 2:4] > b[:, :2]).all() and (b[:, 4] == 0).all(), f"{rel}: boxes {b}")
+        n_boxes += len(b)
+        token = np.load(base + "_phase.npy")
+        check(token.shape == () and token.dtype == np.int64
+              and int(token) == PHASE_TOKEN[subjects[subject][0]],
+              f"{rel}: phase token {token!r}, pivot {subjects[subject][0]}")
+    nbytes = sum(os.path.getsize(os.path.join(r, n)) for r, _, ns in os.walk(ml) for n in ns)
+    ct_bytes = sum(os.path.getsize(os.path.join(ml, line.split("|")[0] + "_ct.npy"))
+                   for line in lines)
+    print(f"raw drop -> ml_ready: {len(subjects)} subjects, {len(lines)} samples, {n_boxes} "
+          f"boxes in {build_s:.2f} s ({build_s / len(subjects):.3f} s a subject; the drop "
+          f"written in {write_s:.2f} s), {nbytes} bytes written ({ct_bytes} of _ct.npy)",
+          flush=True)
+
+    argv = ["--reference_recipe", "gssd++", "--datapath", ml, "--num_test_subjects", "1",
+            "--batch_size", str(TRAIN_BATCH), "--dcn_impl", "hat", "--compute_dtype",
+            "bfloat16", "--device", "cuda", "--seed", str(SEED), "--load_data_to_ram", "True",
+            "--max_iter", str(DROP_ITERS), "--val_every", "2", "--speedrun", "2",
+            "--eval_batch", "16", "--output", os.path.join(tmp, "run_raw_drop")]
+    splitter = DataSplitter(ml, 1, 1)
+    fwd, steps = _eval_forwards(splitter, 16), DROP_ITERS
+    hat = ROUTE_LAUNCHES["hat"]
+    _reset_launches()
+    t = time.perf_counter()
+    res = trainer.main(argv)
+    train_s = time.perf_counter() - t
+    launches = _launches()
+    want = {k: hat.get(k, 0) * steps + GSSD_FORWARD_LAUNCHES.get(k, 0) * fwd for k in launches}
+    check(launches == want, f"raw drop training: launches {launches}, expected {want}")
+    losses = [r["loss"] for r in res["records"]]
+    check(len(losses) == steps and all(math.isfinite(v) for v in losses),
+          f"raw drop training: losses {losses}")
+    evals = res["evals"]
+    check([e["iter"] for e in evals] == [steps - 1] and all(
+        set(evals[0][s]) == AP_KEYS and all(0.0 <= v <= 1.0 for v in evals[0][s].values())
+        for s in ("valid", "test")), f"raw drop evaluation: {evals}")
+    median = res["median_step_ms"]
+    print(f"raw drop training at batch {TRAIN_BATCH}: median {median:.2f} ms/step after the "
+          f"first (phase 12 on the synthetic set: {harness['median_step_ms']:.2f}); losses "
+          f"{losses}; {launches} launches over {steps} steps and {fwd} evaluation forwards; "
+          f"valid {evals[0]['valid']}, test {evals[0]['test']}", flush=True)
+
+    n_test = -(-len(splitter.data_test) // 16)
+    _reset_launches()
+    tested = trainer.main(argv + ["--test", "True", "--checkpoint", str(steps - 1)])["test"]
+    test_launches = _launches()
+    want = {k: GSSD_FORWARD_LAUNCHES.get(k, 0) * n_test for k in test_launches}
+    check(test_launches == want, f"raw drop --test: launches {test_launches}, expected {want}")
+    check(set(tested) == AP_KEYS and all(0.0 <= v <= 1.0 for v in tested.values()),
+          f"raw drop --test: {tested}")
+    seconds = time.perf_counter() - t0
+    print(f"raw drop --test --checkpoint {steps - 1}: {tested}; phase 30 took {seconds:.1f} s",
+          flush=True)
+    return {"subjects": len(subjects), "samples": len(lines), "boxes": n_boxes,
+            "write_s": write_s, "build_s": build_s, "build_s_per_subject":
+            build_s / len(subjects), "bytes_written": nbytes, "ct_bytes": ct_bytes,
+            "batch": TRAIN_BATCH, "steps": steps, "losses": losses,
+            "ms_per_step": [r["ms"] for r in res["records"]], "median_ms_per_step": median,
+            "phase12_median_ms_per_step": harness["median_step_ms"], "train_s": train_s,
+            "evaluation": evals[0], "test": tested, "launches": launches,
+            "test_launches": test_launches, "seconds": seconds}
+
+
 def _kernel_numbers(site):
     return {k: site[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms")}
@@ -3730,6 +3919,7 @@ def main() -> int:
             native = native_phase(tmp)
             visual = visualize_phase(tmp, train_data)
             voc = voc_phase(tmp)
+            raw_drop = raw_drop_phase(tmp, harness)
         dcn_grad_cos = dcn_grads()
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
@@ -3874,6 +4064,9 @@ def main() -> int:
             part = entry["name"].removeprefix("deform_sample_")
             entry["sites_150"] = [v for k, v in sample_150.items() if k.startswith(part)]
             entry["sites_512"] = [v for k, v in sample_64.items() if k.startswith(part)]
+        if entry["name"].startswith(("flash_attn", "deform_conv")):
+            entry["raw_drop_launches"] = {"training": raw_drop["launches"][entry["name"]],
+                                          "test": raw_drop["test_launches"][entry["name"]]}
     recs = train_res["records"]
     print(json.dumps({"pixellink": {"batch": PL_BATCH, "steps": PL_ITERS,
                                     "ms_per_step": [r["ms"] for r in pl["records"]],
@@ -3920,6 +4113,7 @@ def main() -> int:
                       "power": smi}))
     print(json.dumps({"unet": unet, "power": smi}))
     print(json.dumps({"native": native, "visualize": visual, "voc": voc, "power": smi}))
+    print(json.dumps({"preprocessing": raw_drop, "power": smi}))
     print(json.dumps({"repeatability": {"bit_equal_calls": repeat_calls,
                                         "deterministic_step": det_step, "batch": DET_BATCH,
                                         "power": smi}}))

@@ -1,9 +1,9 @@
 """The port stands alone: gssd_torch and chip_smoke.py import nothing of
 JAX, flax, gssd_tpu or the root train.py, and the entry points refuse to
 fall back to the CPU without being asked. OpenCV is imported only inside
-the functions of the two modules whose JAX counterparts call it (the
---visualize drawing and the VOC JPEG reader), so that importing the port
-loads none."""
+the functions of the four modules whose JAX counterparts call it (the
+--visualize drawing, the VOC JPEG reader, and the preprocessing's mask
+smoothing and resize), so that importing the port loads none."""
 
 import ast
 import os
@@ -17,7 +17,14 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "cv2", "gssd_tpu", "train")
 # the modules that may import cv2, inside their functions only
-CV2_ALLOWED = ("gssd_torch/utils/visualize.py", "gssd_torch/data/voc.py")
+CV2_ALLOWED = ("gssd_torch/utils/visualize.py", "gssd_torch/data/voc.py",
+               "gssd_torch/preprocessing/mask2bbox.py", "gssd_torch/preprocessing/snuh.py")
+# the offline preprocessing and the legacy h5 reader (host programs)
+PREPROCESSING = ("gssd_torch.preprocessing", *(
+    f"gssd_torch.preprocessing.{m}" for m in (
+        "windowing", "mask2bbox", "dicom_io", "builder", "snuh", "registration",
+        "volume_io", "ircadb", "legacy_v1", "hygiene", "roi_bmp", "checker")),
+    "gssd_torch.data.legacy_h5")
 
 
 def _imports(tree):
@@ -77,6 +84,7 @@ def test_imports_with_jax_blocked():
         "import gssd_torch.models.fssd, gssd_torch.models.unet, gssd_torch.train_unet\n"
         "import gssd_torch.native, gssd_torch.native.build, gssd_torch.utils.visualize\n"
         "import gssd_torch.data.voc, gssd_torch.eval.voc_map, gssd_torch.train_voc\n"
+        f"import {', '.join(PREPROCESSING)}\n"
         "loaded = [m for m in sys.modules if m.split('.')[0] in "
         f"{BLOCKED!r} and sys.modules[m] is not None]\n"
         "assert not loaded, loaded\n"
@@ -85,6 +93,16 @@ def test_imports_with_jax_blocked():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0 and "isolated" in res.stdout, res.stderr
+
+
+def test_preprocessing_import_loads_no_opencv():
+    # nothing blocked: importing the preprocessing loads no cv2 of its own
+    code = (f"import sys\nimport {', '.join(PREPROCESSING)}\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] == 'cv2'))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and res.stdout.strip() == "[]", res.stderr
 
 
 def test_default_device_refuses_cpu(monkeypatch, tmp_path):
