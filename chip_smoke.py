@@ -237,7 +237,26 @@ In order, failing (exit code 1) at the first phase that goes wrong:
    a checkpoint (finite losses, AP/IoBB in [0, 1], exactly phase 12's
    launches a step and one forward's an evaluation batch, ms/step beside
    phase 12's) and ``--test --checkpoint`` (one forward's launches a
-   test batch).
+   test batch);
+31. data parallelism (``gssd_torch.parallel``, one process a rank): two
+   gloo ranks sharing the card (the launcher's device list names
+   ``cuda:0`` twice) against one rank at global batch DP_BATCH, GSSD++
+   300 f32 on ``hat`` as the trainer initialises it, DP_ITERS steps, each
+   from the one-rank run's state before it: the loss within DP_TOL
+   relative, the parameters and the BatchNorm running statistics within
+   DP_TOL (relative L2 over the model), the momenta within DP_GRAD_TOL
+   (see DP_TOL; the one-rank run on reversed rows printed beside), the
+   ranks bit-equal, and two planted faults (BatchNorm statistics, the
+   loss normaliser, each over a rank's rows alone) failing those checks;
+   the same two ranks through
+   ``gssd_torch.train.main`` at ``--batch_size 32 --aug_method
+   device_cached``, bf16: exactly 12 + 12 attention and 1 + 1 hat DCN
+   launches a step on each rank, finite losses, the ranks' states
+   bit-equal, ms/step (two ranks sharing one card: not a speed-up); with
+   two cards or more the first check on NCCL, one rank a card, and the
+   trainer at batch 32 a card (ms/step, slices/s); with one card it says
+   that the NCCL run was not made. ``python3 chip_smoke.py
+   --data-parallel`` builds the kernels and runs this phase alone.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or outside a
@@ -1007,6 +1026,20 @@ def dcn_grads():
     return report
 
 
+def recipe_model(compute_dtype, seed=SEED, size=300):
+    """GSSD++ at input ``size`` as the trainer builds it from ``seed``
+    (``build_model``'s initialisation), on the host."""
+    from gssd_torch.config import ModelConfig
+    from gssd_torch.infer import REFERENCE_RECIPES
+    from gssd_torch.models import build_model
+
+    recipe = REFERENCE_RECIPES["gssd++"]
+    keys = ("ssd_type", "use_self_attention", "use_self_attention_base",
+            "groups_dcn", "num_dcn_layers", "dcn_cat_sab")
+    cfg = ModelConfig(compute_dtype=compute_dtype, size=size, **{k: recipe[k] for k in keys})
+    return build_model(cfg, device="cpu", seed=seed)
+
+
 def seeded_model(compute_dtype, seed=SEED, size=300):
     """GSSD++ at input ``size`` with random weights from ``seed`` that make every path
     contribute: He-scaled convs (activations keep their scale through
@@ -1015,17 +1048,10 @@ def seeded_model(compute_dtype, seed=SEED, size=300):
     offset predictor whose offsets are about a pixel."""
     import torch
 
-    from gssd_torch.config import ModelConfig
-    from gssd_torch.infer import REFERENCE_RECIPES
-    from gssd_torch.models import build_model
     from gssd_torch.ops.deform_conv import DCN
     from gssd_torch.ops.layers import ConvBNRelu, SelfAttention, SNDense
 
-    recipe = REFERENCE_RECIPES["gssd++"]
-    keys = ("ssd_type", "use_self_attention", "use_self_attention_base",
-            "groups_dcn", "num_dcn_layers", "dcn_cat_sab")
-    cfg = ModelConfig(compute_dtype=compute_dtype, size=size, **{k: recipe[k] for k in keys})
-    model, priors = build_model(cfg, device="cpu", seed=seed)
+    model, priors = recipe_model(compute_dtype, seed, size)
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for mod in model.modules():
@@ -3834,6 +3860,298 @@ def raw_drop_phase(tmp, harness):
             "test_launches": test_launches, "seconds": seconds}
 
 
+# ---- phase 31: data parallelism, one process a rank ----
+
+# Two ranks against one at the same global batch, f32 (TF32 off), each
+# step from the one-rank run's state before it: the loss within DP_TOL
+# relative; the parameters and spectral vectors and the BatchNorm running
+# statistics after the step each within DP_TOL of their norm over the
+# model (relative L2; the parameters whose gradient is 0 in exact
+# arithmetic, ``_structural_zero``, left out); the momenta (the step's
+# gradient) within DP_GRAD_TOL; the ranks bit-equal. The f32 gradient of
+# this model is a near-cancelling sum: one rank fed its own batch with the
+# rows reversed (the same function in exact arithmetic) moves it by
+# 2.2-3.1e-2 (relative L2) and moves ~150-200 of 660 tensors by more than
+# DP_TOL of their max |value|, and two ranks read 2.3-6.1e-2 (PERF.md, PR
+# 17), so no split can hold a tensor's max |diff| to DP_TOL; the reversal
+# is run and printed beside the split. Two planted faults must fail the
+# checks: BatchNorm statistics over a rank's rows alone, and the MultiBox
+# normaliser over a rank's positives alone (each moves the momenta by
+# ~1.2 and the parameters by ~8e-4 on the CPU at batch 4)
+DP_TOL = 1e-4
+DP_GRAD_TOL = 0.2
+DP_BATCH = 8
+DP_ITERS = 3
+
+
+def dp_steps(rank, batches, starts=None):
+    """Rank body of phase 31 (a module-level function: the spawned ranks
+    unpickle it from this file): GSSD++ 300 at full width on ``hat`` as
+    the trainer initialises it from SEED, f32 with TF32 off, one SGD step on the rank's rows
+    of each host batch; step s starts from ``starts[s]`` (a model state and
+    momenta; None: where step s - 1 left it) -> the losses, each step's
+    resulting state and momenta on the host, and ms a step (synchronised,
+    host clock)."""
+    import torch
+
+    from gssd_torch.config import LossConfig
+    from gssd_torch.train.optim import make_optimizer
+    from gssd_torch.train.steps import train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = rank.device
+    model, priors = recipe_model("float32")
+    model = model.to(device)
+    priors = torch.tensor(priors, device=device)
+    opt, ocfg = make_optimizer(model, _optim()), _optim()
+    params = dict(model.named_parameters())
+    rows = rank.rows or slice(None)
+    losses, ms, after = [], [], []
+    for step, batch in enumerate(batches):
+        start = starts[step] if starts else None
+        if start is not None:
+            model.load_state_dict(start["state"])
+            for name, buf in start["momenta"].items():
+                opt.state[params[name]]["momentum_buffer"] = buf.to(device).clone()
+        b = {k: torch.from_numpy(v[rows]).to(device) for k, v in batch.items()}
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        m = train_step(model, opt, priors, b, LossConfig(), ocfg, step)
+        losses.append(float(m["loss"]))  # synchronises
+        ms.append((time.perf_counter() - t0) * 1e3)
+        after.append({"state": {k: v.cpu().clone() for k, v in model.state_dict().items()},
+                      "momenta": {n: opt.state[p]["momentum_buffer"].cpu().clone()
+                                  for n, p in params.items()}})
+    return {"losses": losses, "ms": ms, "after": after}
+
+
+def _tensor_errs(want, got, model):
+    """{name: (kind, max |got - want| / max |want|)} over a step's state
+    and momenta; kind "param", "stat", "momentum" or "structural_zero"."""
+    params = dict(model.named_parameters())
+    out = {}
+    for part, kind in (("state", "param"), ("momenta", "momentum")):
+        for name, w in want[part].items():
+            if not w.is_floating_point():
+                continue
+            k = kind
+            if name in params and _structural_zero(name, model, model.cfg):
+                k = "structural_zero"
+            elif ".running_" in name:
+                k = "stat"
+            err = float((got[part][name] - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+            out[f"{part}:{name}"] = (k, err)
+    return out
+
+
+def _l2_errs(want, got, model):
+    """{kind: ||got - want|| / ||want||} over the model's tensors of each
+    kind (the structural zeros left out)."""
+    import torch
+
+    sums = {}
+    errs = _tensor_errs(want, got, model)
+    for key, (kind, _) in errs.items():
+        if kind == "structural_zero":
+            continue
+        part, name = key.split(":", 1)
+        w = want[part][name].double()
+        d, n = sums.get(kind, (0.0, 0.0))
+        sums[kind] = (d + float(torch.sum((got[part][name].double() - w) ** 2)),
+                      n + float(torch.sum(w * w)))
+    return {kind: math.sqrt(d / n) for kind, (d, n) in sums.items()}
+
+
+def dp_planted(rank, batches):
+    """Rank body: the first step of ``dp_steps`` twice, each with a
+    planted fault -> {fault: the result}: "bn_local", BatchNorm
+    statistics over the rank's rows alone; "loss_local", the MultiBox
+    normaliser over the rank's positives alone."""
+    import gssd_torch.ops.layers as layers
+    import gssd_torch.ops.losses as losses
+
+    out = {}
+    for fault, mod, name, fake in (("bn_local", layers, "group_size", lambda: 1),
+                                   ("loss_local", losses, "all_reduce_", lambda t: t)):
+        real = getattr(mod, name)
+        setattr(mod, name, fake)
+        try:
+            out[fault] = dp_steps(rank, batches[:1])
+        finally:
+            setattr(mod, name, real)
+    return out
+
+
+def dp_compare(one, rev, ranks, label):
+    """The ranks of a run against the one-rank run (``one``), step by step
+    (see DP_TOL; ``rev``: the one-rank run on reversed rows, from the same
+    states), and against each other (bit for bit) -> the readings."""
+    import torch
+
+    model, _ = recipe_model("float32")
+    res = {"losses_1_rank": one["losses"], "losses_reversed_rows": rev["losses"],
+           "losses": [r["losses"] for r in ranks], "steps": []}
+    for s in range(len(one["losses"])):
+        want = one["after"][s]
+        loss_err = max(abs(r["losses"][s] - one["losses"][s]) / abs(one["losses"][s])
+                       for r in ranks)
+        l2 = _l2_errs(want, ranks[0]["after"][s], model)
+        spread = _tensor_errs(want, rev["after"][s], model)
+        errs = _tensor_errs(want, ranks[0]["after"][s], model)
+        spread_l2 = _l2_errs(want, rev["after"][s], model)
+        bit_equal = all(torch.equal(ranks[0]["after"][s][part][k], r["after"][s][part][k])
+                        for r in ranks[1:] for part in ("state", "momenta")
+                        for k in ranks[0]["after"][s][part])
+
+        def over(e):
+            return sum(1 for kind, x in e.values() if kind != "structural_zero" and x > DP_TOL)
+
+        def worst(e):
+            key = max((k for k, (kind, _) in e.items() if kind != "structural_zero"),
+                      key=lambda k: e[k][1])
+            return [key, e[key][1]]
+
+        step = {"loss_rel_err": loss_err, "l2_rel_err": l2, "l2_rel_err_reversed_rows": spread_l2,
+                "tensors": len(errs), "tensors_over_tol": over(errs),
+                "tensors_over_tol_reversed_rows": over(spread), "worst": worst(errs),
+                "worst_reversed_rows": worst(spread), "ranks_bit_equal": bit_equal}
+        res["steps"].append(step)
+        print(f"data parallelism ({label}), step {s}: loss rel err {loss_err:.3e}; relative "
+              f"L2 {', '.join(f'{k} {v:.3e}' for k, v in l2.items())} (one rank on reversed "
+              f"rows: {', '.join(f'{k} {v:.3e}' for k, v in spread_l2.items())}); tensors "
+              f"beyond DP_TOL of their max: {step['tensors_over_tol']} of {len(errs)} (reversed "
+              f"rows {step['tensors_over_tol_reversed_rows']}), worst {step['worst']} (reversed "
+              f"rows {step['worst_reversed_rows']}); ranks bit-equal {bit_equal} (limit "
+              f"{DP_TOL}, momenta {DP_GRAD_TOL})", flush=True)
+        check(loss_err <= DP_TOL, f"{label} step {s}: loss {res['losses']} vs {one['losses']}")
+        for kind, err in l2.items():
+            limit = DP_GRAD_TOL if kind == "momentum" else DP_TOL
+            check(err <= limit, f"{label} step {s}: {kind} relative L2 {err:.3e} > {limit:.3e}")
+        check(bit_equal, f"{label} step {s}: the ranks' state or momenta differ")
+    res["ms_per_step"] = [r["ms"] for r in ranks]
+    res["ms_per_step_1_rank"] = one["ms"]
+    return res
+
+
+def dp_phase(tmp, data, device="cuda"):
+    """Phase 31, data parallelism (``gssd_torch.parallel``): (1) two gloo
+    ranks sharing the card (``cuda:0`` twice, through the launcher's device
+    list) against one rank at global batch DP_BATCH, GSSD++ 300 f32 on
+    ``hat``, DP_ITERS steps each from the one-rank run's state before it,
+    beside the one-rank run on reversed rows (``dp_compare``), and two
+    planted faults that must fail the same checks (``dp_planted``); (2) the same two ranks through
+    ``gssd_torch.train.main`` at the recipe's batch 32, bf16,
+    ``device_cached``, DP_ITERS steps: the parallelism line, exactly 12 + 12
+    attention and 1 + 1 hat DCN launches a step on each rank, finite
+    losses, the ranks' states bit-equal, ms/step (two ranks sharing one
+    card: not a speed-up); (3) with two cards or more, (1) on NCCL, one
+    rank a card, and the trainer at batch 32 a card (ms/step, slices/s);
+    with one card, a line saying that the NCCL run was not made.
+    (``device="cpu"`` rehearses it on the CPU, gloo ranks in place of the
+    card's.)"""
+    import torch
+
+    from gssd_torch import train as trainer
+    from gssd_torch.parallel.launch import launch
+    from gssd_torch.parallel.mesh import plan_parallelism
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    host = fixed_batch(data, DP_BATCH * DP_ITERS, "cpu")
+    batches = [{k: v[i * DP_BATCH:(i + 1) * DP_BATCH].numpy() for k, v in host.items()}
+               for i in range(DP_ITERS)]
+    alone = plan_parallelism(1, DP_BATCH, [f"{device}:0"])
+    one = launch(dp_steps, alone, batches)[0]
+    starts = [None] + one["after"][:-1]
+    rev = launch(dp_steps, alone, [{k: v[::-1].copy() for k, v in b.items()} for b in batches],
+                 starts)[0]
+    two_card = [f"{device}:0"] * 2
+    plan = plan_parallelism(1, DP_BATCH, two_card)
+    check((plan.describe(), plan.backend) == ("mesh(data=2)", "gloo"), f"plan {plan}")
+    res = {"gloo_one_card": dp_compare(
+        one, rev, launch(dp_steps, plan, batches, starts, deadline=600),
+        f"2 gloo ranks on {device}:0")}
+    model, _ = recipe_model("float32")
+    res["planted"] = {}
+    for fault, got in launch(dp_planted, plan, batches, deadline=600)[0].items():
+        loss_err = abs(got["losses"][0] - one["losses"][0]) / abs(one["losses"][0])
+        l2 = _l2_errs(one["after"][0], got["after"][0], model)
+        res["planted"][fault] = {"loss_rel_err": loss_err, "l2_rel_err": l2}
+        print(f"data parallelism, planted {fault}: loss rel err {loss_err:.3e}; relative L2 "
+              f"{', '.join(f'{k} {v:.3e}' for k, v in l2.items())}", flush=True)
+        check(loss_err > DP_TOL or l2["param"] > DP_TOL or l2["stat"] > DP_TOL
+              or l2["momentum"] > DP_GRAD_TOL, f"planted {fault} passed the checks")
+
+    argv = train_argv(tmp, "hat", TRAIN_BATCH, DP_ITERS, out="run_dp", device=device) + [
+        "--aug_method", "device_cached"]
+    run = trainer.main(argv, devices=two_card)
+    want = {name: ROUTE_LAUNCHES["hat"].get(name, 0) * DP_ITERS
+            for name in run["ranks"][0]["launches"]}
+    for r, rank in enumerate(run["ranks"]):
+        check(rank["launches"] == want, f"rank {r}: launches {rank['launches']}, want {want}")
+    losses = [rec["loss"] for rec in run["records"]]
+    check(len(losses) == DP_ITERS and all(math.isfinite(v) for v in losses),
+          f"two-rank trainer losses {losses}")
+    digests = [rank["state_digests"] for rank in run["ranks"]]
+    check(digests[0] == digests[1], f"the ranks' states differ: {digests}")
+    median = run["median_step_ms"]
+    print(f"data parallelism (trainer, two ranks sharing one card, bf16, global batch "
+          f"{TRAIN_BATCH}): median {median:.2f} ms/step; not a speed-up; launches a rank "
+          f"{run['ranks'][0]['launches']}; losses {losses}", flush=True)
+    res["trainer_one_card"] = {"batch": TRAIN_BATCH, "steps": DP_ITERS, "losses": losses,
+                               "ms_per_step": [rec["ms"] for rec in run["records"]],
+                               "median_ms_per_step": median,
+                               "launches_per_rank": [rank["launches"] for rank in run["ranks"]],
+                               "states_bit_equal": True}
+
+    cards = torch.cuda.device_count() if device == "cuda" else 0
+    res["cards"] = cards
+    if cards >= 2:
+        devs = [f"cuda:{i}" for i in range(cards)]
+        nccl = plan_parallelism(1, DP_BATCH, devs[:2])
+        check(nccl.backend == "nccl", f"plan {nccl}")
+        res["nccl"] = dp_compare(one, rev, launch(dp_steps, nccl, batches, starts, deadline=600),
+                                 "2 NCCL ranks on cuda:0 and cuda:1")
+        argv = train_argv(tmp, "hat", TRAIN_BATCH * cards, DP_ITERS, out="run_nccl") + [
+            "--aug_method", "device_cached"]
+        run = trainer.main(argv, devices=devs)
+        median = run["median_step_ms"]
+        res["nccl_trainer"] = {"cards": cards, "batch_per_card": TRAIN_BATCH,
+                               "median_ms_per_step": median,
+                               "slices_per_s": TRAIN_BATCH * cards / median * 1e3}
+        print(f"data parallelism (NCCL, {cards} cards, batch {TRAIN_BATCH} a card): median "
+              f"{median:.2f} ms/step, {res['nccl_trainer']['slices_per_s']:.1f} slices/s",
+              flush=True)
+    else:
+        res["nccl"] = None
+        print("data parallelism: the NCCL run across cards was not made: this machine has "
+              f"{cards} card (torch.cuda.device_count() == {cards})", flush=True)
+    res["seconds"] = time.perf_counter() - t0
+    print(f"phase 31 (data parallelism): {res['seconds']:.1f} s", flush=True)
+    return res
+
+
+def data_parallel_only(smi) -> int:
+    """``--data-parallel``: the kernels built and phase 31 alone, on a
+    synthetic set of its own; prints its JSON line and no result line."""
+    from gssd_torch.data import make_synthetic_dataset
+    from gssd_torch.ops.kernels import KERNELS, build
+
+    try:
+        build(KERNELS.values())
+        with tempfile.TemporaryDirectory() as tmp:
+            data = os.path.join(tmp, "train_ml")
+            make_synthetic_dataset(data)
+            dp = dp_phase(tmp, data)
+    except SmokeFailure as e:
+        print(f"FAIL: {e}", file=sys.stderr)
+        return 1
+    print(json.dumps({"data_parallel": dp, "power": smi}))
+    return 0
+
+
 def _kernel_numbers(site):
     return {k: site[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms")}
@@ -3872,6 +4190,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     print(f"allow_tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, "
           f"cudnn {torch.backends.cudnn.allow_tf32}", flush=True)
+    if sys.argv[1:2] == ["--data-parallel"]:
+        return data_parallel_only(smi)
 
     try:
         t0 = time.perf_counter()
@@ -3920,6 +4240,7 @@ def main() -> int:
             visual = visualize_phase(tmp, train_data)
             voc = voc_phase(tmp)
             raw_drop = raw_drop_phase(tmp, harness)
+            dp = dp_phase(tmp, train_data)
         dcn_grad_cos = dcn_grads()
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
@@ -4114,6 +4435,7 @@ def main() -> int:
     print(json.dumps({"unet": unet, "power": smi}))
     print(json.dumps({"native": native, "visualize": visual, "voc": voc, "power": smi}))
     print(json.dumps({"preprocessing": raw_drop, "power": smi}))
+    print(json.dumps({"data_parallel": dp, "power": smi}))
     print(json.dumps({"repeatability": {"bit_equal_calls": repeat_calls,
                                         "deterministic_step": det_step, "batch": DET_BATCH,
                                         "power": smi}}))

@@ -26,7 +26,7 @@ TF32 warp reads ~1e-4..1e-3 off in [0, 1] images.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -44,6 +44,11 @@ class GeomParams:
     flip: np.ndarray  # [B] bool
     brightness: np.ndarray  # [B]
     contrast: np.ndarray  # [B]
+
+    def take(self, rows) -> "GeomParams":
+        """The items ``rows`` (a slice or index array) of the batch."""
+        return GeomParams(*(np.asarray(a)[rows] for a in (
+            self.scale, self.offset, self.flip, self.brightness, self.contrast)))
 
     def to(self, device) -> Tuple[torch.Tensor, ...]:
         """(scale, offset, flip, brightness, contrast) as tensors on ``device``."""
@@ -256,8 +261,16 @@ class DeviceAugmentation:
         return warp(raw, mat_y, mat_x, bright, contr, self.mean, self.use_normalize)
 
     def __call__(self, raw_images, boxes_list: List[np.ndarray],
-                 labels_list: List[np.ndarray]) -> Dict[str, torch.Tensor]:
+                 labels_list: List[np.ndarray], rows: Optional[slice] = None
+                 ) -> Dict[str, torch.Tensor]:
+        """The augmented batch. With ``rows`` (a data-parallel rank's), the
+        geometry of the whole batch (``boxes_list``, ``labels_list``) is
+        drawn, as every rank draws it, and ``raw_images`` holds only those
+        rows, the ones warped and returned."""
         geom, targets = self.sample_batch(boxes_list, labels_list)
+        if rows is not None:
+            geom = geom.take(rows)
+            targets = {k: v[rows] for k, v in targets.items()}
         raw = torch.as_tensor(raw_images).to(self.device, non_blocking=True)
         out = {"image": self.warp_batch(raw, geom)}
         out.update({k: torch.from_numpy(v).to(self.device, non_blocking=True)

@@ -20,7 +20,7 @@ import collections
 import os
 import queue as queue_mod
 import threading
-from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -141,6 +141,16 @@ def collate_raw(items: Sequence[Tuple[np.ndarray, np.ndarray, np.ndarray]],
         ll.append(np.asarray(labels))
     return {"raw_image": np.clip(np.stack(imgs), 0, 255).astype(np.uint8),
             "boxes_list": bl, "labels_list": ll}
+
+
+def take_rows(batches: Iterable[Dict[str, Any]], rows: Optional[slice],
+              keep: Sequence[str] = ()) -> Iterator[Dict[str, Any]]:
+    """A data-parallel rank's part of a batch stream: each batch with its
+    arrays, tensors and lists cut to ``rows`` along the first axis, save
+    the keys in ``keep``; the stream itself where ``rows`` is None."""
+    for batch in batches:
+        yield batch if rows is None else \
+            {k: v if k in keep else v[rows] for k, v in batch.items()}
 
 
 class _EpochPermuter:

@@ -11,12 +11,16 @@ device memory. The geometry is the host sampler's, shared with
 The stream is a function of (seed, batch index): the permutation of
 ``_EpochPermuter`` and a per-batch reseed, the contract of
 ``MPBatchLoader``, so ``start_batch`` resumes it exactly.
+
+A data-parallel rank passes its ``rows``: it draws the whole batch's
+indices and geometry, as every rank does, and gathers and warps only
+its rows.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -33,15 +37,17 @@ class DeviceCacheLoader:
     """Endless batch iterator over a dataset held on ``device``. Yields
     the step's batch dict, every leaf a tensor on ``device``: ``image``
     [B, size, size, 12] f32 (augmented), ``boxes``, ``labels``, ``valid``
-    padded to ``max_gt``."""
+    padded to ``max_gt``; with ``rows``, only those rows of each batch."""
 
     def __init__(self, dataset: LesionDataset, batch_size: int, size: int = 300,
                  max_gt: int = 16, seed: int = 1111, pixeljitter: float = 0.01,
                  ratio: float = 1.5, mean: float = 0.0, use_normalize: bool = True,
-                 shuffle: bool = True, start_batch: int = 0, device="cuda"):
+                 shuffle: bool = True, start_batch: int = 0, device="cuda",
+                 rows: Optional[slice] = None):
         if len(dataset) == 0:
             raise ValueError("DeviceCacheLoader over an empty dataset")
         self.batch_size = batch_size
+        self.rows = rows
         self.seed = seed
         self.start_batch = start_batch
         self.device = torch.device(device)
@@ -87,6 +93,9 @@ class DeviceCacheLoader:
         self._geom.rng = np.random.default_rng((self.seed << 20) ^ j)
         geom, targets = self._geom.sample_batch([self._boxes[i] for i in idx],
                                                 [self._labels[i] for i in idx])
+        if self.rows is not None:
+            idx, geom = idx[self.rows], geom.take(self.rows)
+            targets = {k: v[self.rows] for k, v in targets.items()}
         image = self._gather_warp(torch.from_numpy(idx).to(self.device, non_blocking=True),
                                   *geom.to(self.device))
         return {"image": image, **{k: torch.from_numpy(v).to(self.device, non_blocking=True)

@@ -10,8 +10,10 @@ The C++ sources of this directory (``pixellink_cc.cpp``,
 No ``-march=native`` and no fast-math, and no product fused into a sum,
 so that float arithmetic is numpy's. The compiler is ``$CXX``, else the
 ``g++`` on the PATH. The library is written under a temporary name and
-moved into place, so that processes building at once (pytest-xdist
-workers) end with one library. A failed build raises: the callers have
+moved into place, under a lock on the build directory (``dir_lock``),
+so that processes starting at once (pytest-xdist workers, the ranks of
+a data-parallel run) build it once. This module imports nothing of the
+package, so that it can be loaded on its own. A failed build raises: the callers have
 no fallback unless they ask for the numpy version by name.
 
 A ``NativeFunction`` owns one exported C function; each call adds one to
@@ -20,7 +22,9 @@ its ``calls``, the count a run reads to show that it went through C++.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -35,6 +39,21 @@ CXX_FLAGS = ["-O2", "-shared", "-fPIC", "-ffp-contract=off", "-std=c++17"]
 
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
+
+
+@contextlib.contextmanager
+def dir_lock(path: str):
+    """Hold an exclusive ``flock`` on the directory ``path`` (made if
+    missing) for the block: one process of any number at a time, with no
+    lock file left behind; released when the block ends or the process
+    dies."""
+    os.makedirs(path, exist_ok=True)
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        fcntl.flock(fd, fcntl.LOCK_EX)
+        yield
+    finally:
+        os.close(fd)
 
 
 def compiler() -> str:
@@ -65,13 +84,15 @@ def build() -> str:
     so = library_path()
     if os.path.exists(so):
         return so
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.{threading.get_ident()}.tmp"
-    cmd = [compiler(), *CXX_FLAGS, "-o", tmp, *(os.path.join(_HERE, s) for s in SOURCES)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"native build failed ({' '.join(cmd)}):\n{res.stderr}")
-    os.replace(tmp, so)
+    with dir_lock(BUILD_DIR):
+        if os.path.exists(so):
+            return so
+        tmp = f"{so}.{os.getpid()}.{threading.get_ident()}.tmp"
+        cmd = [compiler(), *CXX_FLAGS, "-o", tmp, *(os.path.join(_HERE, s) for s in SOURCES)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"native build failed ({' '.join(cmd)}):\n{res.stderr}")
+        os.replace(tmp, so)
     return so
 
 

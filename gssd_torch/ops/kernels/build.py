@@ -10,7 +10,9 @@ on its own into ``gssd_torch/_build/<name>_<source hash>.so``:
 A changed source, or a changed shared header (``csrc/*.cuh``), gets a
 new hash and is rebuilt. ``build`` starts one
 nvcc per missing library, all at once, and raises if any fails: there
-is no fallback. The ptxas report (registers, shared memory, spills) is
+is no fallback. It holds a lock on the build directory while it builds
+(``gssd_torch.native.build.dir_lock``), so that processes starting at
+once (the ranks of a data-parallel run) build each library once. The ptxas report (registers, shared memory, spills) is
 kept beside each library as ``<so>.log``.
 
 A ``CudaKernel`` owns one exported C function. The function takes
@@ -31,6 +33,8 @@ import subprocess
 import threading
 import time
 from typing import Dict, Iterable, List, Optional, Sequence
+
+from gssd_torch.native.build import dir_lock
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
@@ -113,34 +117,42 @@ def build(kernels: Iterable[CudaKernel]) -> Dict[str, float]:
     """Compile every missing library among ``kernels`` in parallel, one
     nvcc process per source. Returns {source: build seconds} for the
     libraries built now (already built ones are absent)."""
+    kernels = list(kernels)
     with _LOCK:
-        todo: Dict[str, CudaKernel] = {}
-        for k in kernels:
-            if not os.path.exists(k.library_path()):
-                todo.setdefault(k.library_path(), k)
-        if not todo:
+        if all(os.path.exists(k.library_path()) for k in kernels):
             return {}
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        nvcc = _nvcc()
-        procs: List = []
-        t0 = time.perf_counter()
-        for so, k in todo.items():
-            tmp = f"{so}.{os.getpid()}.tmp"
-            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, k.source_path]
-            procs.append((so, tmp, k, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
-        times: Dict[str, float] = {}
-        failed: Optional[str] = None
-        for so, tmp, k, proc in procs:
-            log, _ = proc.communicate()
-            times[k.source] = time.perf_counter() - t0
-            text = log.decode(errors="replace")
-            if proc.returncode != 0:
-                failed = failed or f"nvcc failed on {k.source}:\n{text}"
-                continue
-            with open(so + ".log", "w") as f:
-                f.write(text)
-            os.replace(tmp, so)
-        if failed:
-            raise RuntimeError(failed)
-        return times
+        with dir_lock(BUILD_DIR):
+            return _build_missing(kernels)
+
+
+def _build_missing(kernels: List[CudaKernel]) -> Dict[str, float]:
+    """``build``'s work, under its locks."""
+    todo: Dict[str, CudaKernel] = {}
+    for k in kernels:
+        if not os.path.exists(k.library_path()):
+            todo.setdefault(k.library_path(), k)
+    if not todo:
+        return {}
+    nvcc = _nvcc()
+    procs: List = []
+    t0 = time.perf_counter()
+    for so, k in todo.items():
+        tmp = f"{so}.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, k.source_path]
+        procs.append((so, tmp, k, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    times: Dict[str, float] = {}
+    failed: Optional[str] = None
+    for so, tmp, k, proc in procs:
+        log, _ = proc.communicate()
+        times[k.source] = time.perf_counter() - t0
+        text = log.decode(errors="replace")
+        if proc.returncode != 0:
+            failed = failed or f"nvcc failed on {k.source}:\n{text}"
+            continue
+        with open(so + ".log", "w") as f:
+            f.write(text)
+        os.replace(tmp, so)
+    if failed:
+        raise RuntimeError(failed)
+    return times

@@ -26,6 +26,7 @@ from torch.utils.checkpoint import checkpoint
 
 from gssd_torch.ops.kernels.flash_attn import flash_attention, flash_eligible
 from gssd_torch.ops.kernels.stem_conv import stem_conv
+from gssd_torch.parallel.collectives import all_reduce_sum, group_size
 
 # the wide-conv switch (gssd_tpu/ops/layers.py:279 USE_PALLAS_WIDE_CONV),
 # read at every call
@@ -68,7 +69,13 @@ class BatchNorm(nn.BatchNorm2d):
     (N, H, W), and ``running = 0.9 * running + 0.1 * batch`` for both
     statistics, updated in place outside autograd. Unlike torch's own
     train mode it keeps the biased variance and takes a 1x1 map at batch
-    1 (variance 0). Parameter and buffer names are torch's."""
+    1 (variance 0). Parameter and buffer names are torch's.
+
+    Inside a data-parallel group (``parallel.collectives.data_group``)
+    the train-mode statistics are those of the fold's whole batch: each
+    rank's per-channel sums of x and x^2 and its element count go through
+    one differentiable all-reduce of a [2C + 1] vector, whose backward
+    sums the same terms' gradients over the ranks."""
 
     MOMENTUM = 0.9  # flax's convention: the weight of the running value
 
@@ -77,8 +84,16 @@ class BatchNorm(nn.BatchNorm2d):
         if not self.training:
             mean, var = self.running_mean, self.running_var
         else:
-            mean = x.mean(dim=(0, 2, 3))
-            var = ((x * x).mean(dim=(0, 2, 3)) - mean * mean).clamp(min=0.0)
+            if group_size() == 1:
+                mean = x.mean(dim=(0, 2, 3))
+                var = ((x * x).mean(dim=(0, 2, 3)) - mean * mean).clamp(min=0.0)
+            else:
+                c = x.shape[1]
+                count = x.new_full((1,), x.numel() // c)
+                sums = all_reduce_sum(torch.cat([x.sum(dim=(0, 2, 3)),
+                                                 (x * x).sum(dim=(0, 2, 3)), count]))
+                mean = sums[:c] / sums[2 * c]
+                var = (sums[c:2 * c] / sums[2 * c] - mean * mean).clamp(min=0.0)
             with torch.no_grad():
                 mom = self.MOMENTUM
                 self.running_mean.mul_(mom).add_((1 - mom) * mean)

@@ -6,6 +6,12 @@ P - 1), ranked by the double argsort. Both sorts are stable, as
 ``jnp.argsort`` is, so equal losses keep the order of their priors and
 the same negatives are mined. Both terms are summed and divided by the
 batch's total positives, clamped at 1.
+
+Inside a data-parallel group (``parallel.collectives.data_group``) the
+total positives are those of the fold's whole batch, summed over the
+ranks, and each rank's loss is its share: its rows' sums over that
+total. The shares add up to the loss of the whole batch. The negatives
+are mined per image, so they stay local.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ import torch
 
 from gssd_torch.config import LossConfig
 from gssd_torch.ops.matcher import match_batch
+from gssd_torch.parallel.collectives import all_reduce_
 
 
 def smooth_l1(x: torch.Tensor) -> torch.Tensor:
@@ -51,7 +58,7 @@ def multibox_loss(
                                     cfg.overlap_thresh, cfg.variance)
     pos = conf_t > 0
     num_pos = pos.sum(dim=1)
-    n_total = num_pos.sum()
+    n_total = all_reduce_(num_pos.sum())
 
     l1 = smooth_l1(loc_pred.float() - loc_t).sum(dim=-1)
     loss_l = (l1 * pos).sum()

@@ -15,6 +15,11 @@ cross entropy per neighbour (the port of ``gssd_tpu/ops/pixellink_loss.py``).
 
 Logits are NHWC as the model returns them: pixel [B, H, W, 2], link [B,
 H, W, 16]; masks [B, H, W] and link masks [B, 8, H, W].
+
+Every term is a per-image value; inside a data-parallel group
+(``parallel.collectives.data_group``) each rank's term is its rows' sum
+over the fold's whole batch (B times the ranks), its share of the batch
+mean.
 """
 
 from __future__ import annotations
@@ -23,7 +28,16 @@ from typing import Dict, Tuple
 
 import torch
 
+from gssd_torch.parallel.collectives import group_size
+
 NO_POSITIVE_BUDGET = 10000
+
+
+def _batch_mean(v: torch.Tensor) -> torch.Tensor:
+    """The mean of the per-image ``v`` over the batch; in a group, this
+    rank's share of the mean over the fold's batch."""
+    n = group_size()
+    return v.mean() if n == 1 else v.sum() / (v.shape[0] * n)
 
 
 def _ce(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -58,7 +72,7 @@ def pixel_loss(logits: torch.Tensor, pixel_mask: torch.Tensor, neg_pixel_mask: t
     pos_term = (pos_weight.reshape(B, -1) * ce.reshape(B, -1)).sum(dim=1)
     neg_term = (neg_sel * ce.reshape(B, -1)).sum(dim=1)
     denom = torch.clamp(area + neg_area, min=1).float()
-    return (pos_term / denom).mean(), (neg_term / denom).mean()
+    return _batch_mean(pos_term / denom), _batch_mean(neg_term / denom)
 
 
 def link_loss(logits: torch.Tensor, link_mask: torch.Tensor, pos_weight: torch.Tensor
@@ -79,7 +93,7 @@ def link_loss(logits: torch.Tensor, link_mask: torch.Tensor, pos_weight: torch.T
     neg = (neg_w * ce).reshape(B, -1).sum(dim=1)
     pos = torch.where(sum_pos > 0, pos / torch.clamp(sum_pos, min=1e-12), zero)
     neg = torch.where(sum_neg > 0, neg / torch.clamp(sum_neg, min=1e-12), zero)
-    return pos.mean(), neg.mean()
+    return _batch_mean(pos), _batch_mean(neg)
 
 
 def pixellink_loss(pixel_logits: torch.Tensor, link_logits: torch.Tensor,

@@ -20,6 +20,13 @@ loss in place of MultiBox, the same backward and SGD update.
 ``make_infer_step_with_aux`` and ``make_pixellink_forward_with_aux`` are
 the ``--visualize`` variants: the same outputs plus the aux lists of the
 eval-mode forward (DCN offsets, attention maps), on the device.
+
+Inside a data-parallel group (``parallel.collectives.data_group``) a
+batch holds this rank's rows and the loss is its share of the fold's
+loss; ``backward`` sums the gradients over the group (one flat
+all-reduce, before the norm, the clip and the SGD step), so every rank
+applies the gradient of the whole batch's loss, and the steps report
+the losses summed over the group: the whole batch's.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from gssd_torch.config import DetectConfig, LossConfig, OptimConfig, PixelLinkCo
 from gssd_torch.ops.losses import multibox_loss
 from gssd_torch.ops.pixellink_loss import pixellink_loss
 from gssd_torch.ops.nms import detect
+from gssd_torch.parallel.collectives import all_reduce_, group_size, sum_grads_
 from gssd_torch.train.optim import clip_by_global_norm_, global_norm, set_lr
 
 
@@ -48,7 +56,8 @@ def forward_loss(model, priors: torch.Tensor, batch: Dict[str, torch.Tensor],
 def backward(model, optimizer, loss: torch.Tensor) -> List[torch.Tensor]:
     """Gradients of ``loss`` into every parameter (zeros where a
     parameter does not reach the loss, so that weight decay and momentum
-    still apply to it as in optax). Returns them."""
+    still apply to it as in optax), summed over the data-parallel group.
+    Returns them."""
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
     grads = []
@@ -56,7 +65,17 @@ def backward(model, optimizer, loss: torch.Tensor) -> List[torch.Tensor]:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
         grads.append(p.grad)
+    sum_grads_(grads)
     return grads
+
+
+def group_total(values: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Each of the rank's loss shares summed over the data-parallel group
+    (one all-reduce): the fold's losses. Unchanged outside a group."""
+    if group_size() == 1:
+        return values
+    summed = all_reduce_(torch.stack([v.detach().float() for v in values.values()]))
+    return dict(zip(values, summed.unbind()))
 
 
 def update(optimizer, grads: List[torch.Tensor], optim_cfg: OptimConfig,
@@ -80,8 +99,9 @@ def train_step(model, optimizer, priors, batch, loss_cfg: LossConfig,
     loss = loss_l + loss_c
     grads = backward(model, optimizer, loss)
     norm, lr = update(optimizer, grads, optim_cfg, step)
-    return {"loss": loss.detach(), "loss_l": loss_l.detach(), "loss_c": loss_c.detach(),
-            "grad_norm": norm, "num_pos": aux["num_pos"], "lr": lr}
+    losses = group_total({"loss": loss.detach(), "loss_l": loss_l.detach(),
+                          "loss_c": loss_c.detach()})
+    return {**losses, "grad_norm": norm, "num_pos": aux["num_pos"], "lr": lr}
 
 
 def eval_step(model, priors, batch, loss_cfg: LossConfig) -> Dict[str, torch.Tensor]:
@@ -90,7 +110,7 @@ def eval_step(model, priors, batch, loss_cfg: LossConfig) -> Dict[str, torch.Ten
     model.eval()
     with torch.no_grad():
         loss_l, loss_c, _ = forward_loss(model, priors, batch, loss_cfg)
-    return {"loss": loss_l + loss_c, "loss_l": loss_l, "loss_c": loss_c}
+    return group_total({"loss": loss_l + loss_c, "loss_l": loss_l, "loss_c": loss_c})
 
 
 def make_infer_step(model, priors: torch.Tensor, detect_cfg: DetectConfig) -> Callable:
@@ -164,8 +184,8 @@ def pixellink_train_step(model, optimizer, batch, plc: PixelLinkConfig,
     loss, parts = pixellink_forward_loss(model, batch, plc)
     grads = backward(model, optimizer, loss)
     norm, lr = update(optimizer, grads, optim_cfg, step)
-    return {"loss": loss.detach(), **{k: v.detach() for k, v in parts.items()},
-            "grad_norm": norm, "lr": lr}
+    losses = group_total({"loss": loss.detach(), **{k: v.detach() for k, v in parts.items()}})
+    return {**losses, "grad_norm": norm, "lr": lr}
 
 
 def pixellink_eval_step(model, batch, plc: PixelLinkConfig) -> Dict[str, torch.Tensor]:
@@ -173,7 +193,7 @@ def pixellink_eval_step(model, batch, plc: PixelLinkConfig) -> Dict[str, torch.T
     model.eval()
     with torch.no_grad():
         loss, parts = pixellink_forward_loss(model, batch, plc)
-    return {"loss": loss, **parts}
+    return group_total({"loss": loss, **parts})
 
 
 def make_pixellink_forward(model, device) -> Callable:

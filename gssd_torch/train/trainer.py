@@ -41,9 +41,24 @@ in flight). ``--profile_dir`` writes a ``torch.profiler`` trace of
 iterations start+20 to start+30; ``--warmup_eval`` builds the CUDA
 kernels and runs every fold's evaluation step once at startup.
 
-``prepare`` (device, data split, logs) and ``run`` (the loop,
-evaluation, checkpoints, resume, test mode) are shared with the
-PixelLink++ trainer, ``gssd_torch.train_pixellink``.
+Data parallelism (``gssd_torch.parallel.mesh``, JAX's
+``plan_parallelism``): the run spreads over every card, capped by
+``GSSD_DP_DEVICES`` (on the CPU, ``GSSD_DP_DEVICES`` gloo ranks), one
+process per card, and prints ``parallelism: <plan> layout=<layout>``.
+Under ``data`` every rank trains every fold on its rows of the batch;
+under ``fold_data`` each fold's ranks split its batch. The ranks compute
+what one process computes at the whole batch (BatchNorm statistics,
+loss normalisers and gradients over the fold's batch,
+``gssd_torch.parallel.collectives``); each draws the whole batch's
+stream and keeps its rows. Rank 0 prints and logs the fold means; the
+first rank of each fold evaluates it and writes its checkpoints (the
+one-process format) while the fold's other ranks wait. ``--test`` runs
+in one process.
+
+``launch_trainer`` (the plan and the ranks), ``prepare`` (device, data
+split, logs) and ``run`` (the loop, evaluation, checkpoints, resume,
+test mode) are shared with the PixelLink++ trainer,
+``gssd_torch.train_pixellink``.
 
 ``--test True --visualize True`` first dumps fold 0's checkpoint over
 the test set, image by image, into ``<output>/visualize/<model_name>/``
@@ -242,24 +257,92 @@ class Setup:
     iobb_list: List[float]
 
 
-def prepare(args, unported=()) -> Setup:
-    """Refuse the flags named in ``unported``,
-    resolve the device (no card, no run unless --device cpu), generate
-    the synthetic set if asked, open the logs and split the data into
-    ``--cross_validation`` folds and the test set."""
-    _refuse(args, unported)
-    device = resolve_device(args.device)
-    from gssd_torch.data import (BaseTransform, DataSplitter, LesionDataset,
-                                 make_synthetic_dataset)
-    from gssd_torch.utils.logging import MetricsLogger
+def synthesize(args) -> None:
+    """--synthetic: generate the dataset at --datapath (default
+    ``<output>/synthetic_ml_ready``) unless it is there."""
+    from gssd_torch.data import make_synthetic_dataset
 
     if args.synthetic and not args.datapath:
         args.datapath = os.path.join(args.output, "synthetic_ml_ready")
     if args.synthetic and not os.path.exists(os.path.join(args.datapath, "metadata.txt")):
         print(f"generating synthetic dataset at {args.datapath}")
         make_synthetic_dataset(args.datapath)
-    logger = MetricsLogger(os.path.join(args.output, "logs", args.model_name))
-    logger.log_args(vars(args))
+
+
+def _spawned_run(rank, body: Callable, args) -> Dict[str, Any]:
+    """A spawned rank's run of ``body`` on its own card: the result
+    without the live objects (models, optimizers, fold members), with
+    the rank's kernel launches and a digest of each of its models'
+    state (parameters, statistics, spectral vectors)."""
+    import copy
+    import hashlib
+
+    from gssd_torch.ops.kernels import KERNELS
+
+    args = copy.copy(args)
+    args.device = str(rank.device)
+    res = body(rank, args)
+    models = [m.model for m in res["folds"]] if "folds" in res else [res["model"]]
+    digests = []
+    for model in models:
+        h = hashlib.sha256()
+        for name, t in model.state_dict().items():
+            h.update(name.encode())
+            h.update(t.detach().cpu().contiguous().view(-1).view(torch.uint8).numpy().tobytes())
+        digests.append(h.hexdigest())
+    out = {k: v for k, v in res.items() if k not in ("model", "optimizer", "folds")}
+    out.update(launches={name: k.launches for name, k in KERNELS.items()},
+               state_digests=digests)
+    return out
+
+
+def launch_trainer(body: Callable, args, devices=None, unported=None) -> Dict[str, Any]:
+    """Plan the run over the usable devices (``devices``, a list that may
+    name one card twice, takes their place), print the plan as the JAX
+    trainers do, and run ``body(rank, args)``: in this process for a plan
+    of one rank or with --test, else once per rank (``parallel.launch``).
+    Returns the body's result; from spawned ranks, rank 0's (without its
+    models) with ``"ranks"``: every rank's, each with its kernel
+    launches and ``state_digests``. ``unported`` (a tuple) refuses flags
+    first, as ``prepare`` does."""
+    from gssd_torch.parallel.launch import Rank, launch
+    from gssd_torch.parallel.mesh import plan_parallelism
+
+    if unported is not None:
+        _refuse(args, unported)
+    plan = plan_parallelism(getattr(args, "cross_validation", 1), args.batch_size, devices,
+                            args.device)
+    print(f"parallelism: {plan.describe()} layout={plan.layout}", flush=True)
+    if args.test and plan.world_size > 1:
+        print("--test: the evaluation runs in this process", flush=True)
+        plan = plan_parallelism(plan.n_folds, plan.batch_size, plan.devices[:1])
+    if plan.world_size == 1:
+        return body(Rank(plan), args)
+    if hasattr(args, "synthetic"):
+        synthesize(args)
+    results = launch(_spawned_run, plan, body, args)
+    return {**results[0], "ranks": results}
+
+
+def prepare(args, rank, unported=()) -> Setup:
+    """Refuse the flags named in ``unported``,
+    resolve the device (no card, no run unless --device cpu), generate
+    the synthetic set if asked, open the logs and split the data into
+    ``--cross_validation`` folds and the test set. Of the ranks
+    (``gssd_torch.parallel.launch.Rank``), only the first of a fold's
+    ranks logs, and only rank 0 writes the arguments."""
+    _refuse(args, unported)
+    device = resolve_device(args.device)
+    from gssd_torch.data import BaseTransform, DataSplitter, LesionDataset
+    from gssd_torch.utils.logging import MetricsLogger, NullLogger
+
+    synthesize(args)
+    if rank.leader:
+        logger = MetricsLogger(os.path.join(args.output, "logs", args.model_name))
+    else:
+        logger = NullLogger()
+    if rank.first:
+        logger.log_args(vars(args))
     splitter = DataSplitter(args.datapath, args.cross_validation, args.num_test_subjects)
     return Setup(device, logger, splitter,
                  BaseTransform(args.ssd_dim, args.means, args.p_only, args.use_normalize),
@@ -275,11 +358,15 @@ def prepare(args, unported=()) -> Setup:
 PROFILE_WINDOW = (20, 30)
 
 
-def train_batches(args, setup: Setup, train_tf, collate_fn: Callable, fold: int = 0):
+def train_batches(args, setup: Setup, train_tf, collate_fn: Callable, fold: int = 0,
+                  rows: Optional[slice] = None):
     """The training batch stream of ``fold`` (its training split, seed
     ``--seed + fold``) for ``--aug_method`` and ``--num_workers``, each
     batch's tensors on the device -> (iterator, the loaders to close, a
-    line naming the path).
+    line naming the path). A data-parallel rank passes its ``rows``: the
+    stream draws the whole batch (indices, augmentation draws) as every
+    rank does, and only those rows are kept, augmented on the card and
+    copied there.
 
     The multi-process loader and the device cache start at batch
     ``--resume`` (or ``--start_iter``), so a resumed run sees the batches
@@ -287,7 +374,8 @@ def train_batches(args, setup: Setup, train_tf, collate_fn: Callable, fold: int 
     stream. Host images travel to the card in the model's compute dtype
     (the model's first op casts to it, so the bits are the same)."""
     from gssd_torch.data import (BatchLoader, DeviceAugmentation, DeviceCacheLoader,
-                                 LesionDataset, MPBatchLoader, collate_raw, device_prefetch)
+                                 LesionDataset, MPBatchLoader, collate_raw, device_prefetch,
+                                 take_rows)
 
     device, ids = setup.device, setup.splitter.data_cv_train[fold]
     seed = args.seed + fold
@@ -298,7 +386,7 @@ def train_batches(args, setup: Setup, train_tf, collate_fn: Callable, fold: int 
             LesionDataset(args.datapath, ids), args.batch_size, size=args.ssd_dim,
             max_gt=args.max_gt, seed=seed, pixeljitter=args.gt_pixel_jitter,
             ratio=args.expand_ratio, mean=args.means, use_normalize=args.use_normalize,
-            start_batch=start, device=device)
+            start_batch=start, device=device, rows=rows)
         return (device_prefetch(cached, device), [],
                 f"device_cached: {len(ids)} slices, {cached.cache.nbytes / 2**20:.1f} MiB "
                 f"uint8 on {cached.cache.device}, from batch {start}")
@@ -316,14 +404,17 @@ def train_batches(args, setup: Setup, train_tf, collate_fn: Callable, fold: int 
                              collate_fn=collate_fn)
         how = "one thread, from the stream's first batch"
     cast = {"image": torch.bfloat16} if args.compute_dtype == "bfloat16" else None
-    batches = device_prefetch(loader, device, cast=cast)
+    # the device augmentation draws every item's geometry from the lists
+    lists = ("boxes_list", "labels_list") if on_device else ()
+    batches = device_prefetch(take_rows(loader, rows, keep=lists), device, cast=cast)
     if on_device:
         aug = DeviceAugmentation(
             size=args.ssd_dim, src_size=dataset.pull_image(0).shape[1],
             pixeljitter=args.gt_pixel_jitter, ratio=args.expand_ratio, mean=args.means,
             use_normalize=args.use_normalize, seed=seed, max_gt=args.max_gt,
             device=device)
-        batches = (aug(b["raw_image"], b["boxes_list"], b["labels_list"]) for b in batches)
+        batches = (aug(b["raw_image"], b["boxes_list"], b["labels_list"], rows)
+                   for b in batches)
     return batches, [loader], f"{aug_method}: {how}"
 
 
@@ -388,7 +479,7 @@ def _profile_stop(prof, directory: str, first: int, last: int) -> str:
 
 
 def run(args, setup: Setup, make_fold: Callable, collate_fn: Callable,
-        parts: Tuple[Tuple[str, str], ...], warm: Optional[Callable] = None,
+        parts: Tuple[Tuple[str, str], ...], rank, warm: Optional[Callable] = None,
         input_grid: bool = False) -> Dict[str, Any]:
     """The loop every trainer of the port shares, or with --test the
     evaluation of every fold's checkpoint.
@@ -403,8 +494,15 @@ def run(args, setup: Setup, make_fold: Callable, collate_fn: Callable,
     dumps the test set first.
     A record's ``wait_ms`` is the host time blocked on the folds' next
     batches, ``ms`` the K steps after it, synchronised; its metrics are
-    the means over the folds, ``folds`` holds each fold's."""
-    from gssd_torch.data import BatchLoader, LesionDataset
+    the means over the folds, ``folds`` holds each fold's.
+
+    ``rank`` (``gssd_torch.parallel.launch.Rank``) builds and trains only
+    its folds, on
+    its rows of each batch; the folds' metrics are gathered so that
+    every rank holds the records of the one-process run, which rank 0
+    prints and logs. The first rank of each fold evaluates the fold and
+    writes its checkpoint; the other ranks wait for them."""
+    from gssd_torch.data import BatchLoader, LesionDataset, take_rows
     from gssd_torch.parallel.folds import fold_mean, fold_train_step
     from gssd_torch.train.checkpoint import (checkpoint_path, load_weights_partial,
                                              restore_checkpoint, save_checkpoint)
@@ -431,7 +529,7 @@ def run(args, setup: Setup, make_fold: Callable, collate_fn: Callable,
         logger.close()
         return {"test": mean, "folds": results, "visualized": visualized}
 
-    members = [make_fold(f) for f in range(k)]
+    members = [make_fold(f) for f in rank.folds]
     start_iter = getattr(args, "start_iter", 0)
     if args.resume is not None:
         for m in members:
@@ -439,20 +537,23 @@ def run(args, setup: Setup, make_fold: Callable, collate_fn: Callable,
                                         args.resume, m.fold)
         start_iter = args.resume
         steps = members[0].step if k == 1 else [m.step for m in members]
-        print(f"resumed from iteration {args.resume} (step {steps})")
+        if rank.first:
+            print(f"resumed from iteration {args.resume} (step {steps})")
     if warm is not None:
         warm(members)
 
     streams, valid_streams, loaders = [], [], []
     for m in members:
-        batches, fold_loaders, path = train_batches(args, setup, m.train_tf, collate_fn, m.fold)
-        print(f"input{'' if k == 1 else f' (fold {m.fold})'}: {path}", flush=True)
+        batches, fold_loaders, path = train_batches(args, setup, m.train_tf, collate_fn, m.fold,
+                                                    rank.rows)
+        if rank.leader:
+            print(f"input{'' if k == 1 else f' (fold {m.fold})'}: {path}", flush=True)
         valid_loader = BatchLoader(
             LesionDataset(args.datapath, setup.splitter.data_cv_eval[m.fold],
                           transform=m.valid_tf),
             args.batch_size, args.max_gt, seed=args.seed + 100 + m.fold, collate_fn=collate_fn)
         streams.append(batches)
-        valid_streams.append(iter(valid_loader))
+        valid_streams.append(take_rows(valid_loader, rank.rows))
         loaders += fold_loaders + [valid_loader]
 
     def split(rec):
@@ -465,56 +566,68 @@ def run(args, setup: Setup, make_fold: Callable, collate_fn: Callable,
         t0 = time.perf_counter()
         batches = [next(s) for s in streams]
         t1 = time.perf_counter()
-        folds = [scalars(m) for m in fold_train_step(members, batches)]
+        own = {m.fold: scalars(out) for m, out in zip(members, fold_train_step(members, batches))}
         if device.type == "cuda":
             torch.cuda.synchronize(device)
-        rec = {"iter": it, **fold_mean(folds), "folds": folds,
-               "ms": (time.perf_counter() - t1) * 1e3, "wait_ms": (t1 - t0) * 1e3}
+        ms = (time.perf_counter() - t1) * 1e3
+        folds = rank.fold_values(own)
+        rec = {"iter": it, **fold_mean(folds), "folds": folds, "ms": ms,
+               "wait_ms": (t1 - t0) * 1e3}
         records.append(rec)
-        each = "" if k == 1 else " folds [" + " ".join(f"{f['loss']:.4f}" for f in folds) + "]"
-        print(f"iter {it}: loss={rec['loss']:.4f} ({split(rec)}){each} lr={rec['lr']:.2e} "
-              f"{rec['ms']:.1f} ms/{'step' if k == 1 else f'iteration ({k} steps)'} "
-              f"input_wait={rec['wait_ms']:.1f} ms", flush=True)
-        if getattr(args, "log_iters", True) and it % 10 == 0:
-            keys = ("loss", *(key for _, key in parts), "lr", "grad_norm")
-            logger.log_scalars("loss", it, {key: rec[key] for key in keys})
-        if input_grid and it % 100 == 0:
-            log_input_grid(logger, it, batches[0])
+        if rank.first:
+            each = "" if k == 1 else " folds [" + " ".join(f"{f['loss']:.4f}" for f in folds) + "]"
+            print(f"iter {it}: loss={rec['loss']:.4f} ({split(rec)}){each} lr={rec['lr']:.2e} "
+                  f"{rec['ms']:.1f} ms/{'step' if k == 1 else f'iteration ({k} steps)'} "
+                  f"input_wait={rec['wait_ms']:.1f} ms", flush=True)
+            if getattr(args, "log_iters", True) and it % 10 == 0:
+                keys = ("loss", *(key for _, key in parts), "lr", "grad_norm")
+                logger.log_scalars("loss", it, {key: rec[key] for key in keys})
+            if input_grid and it % 100 == 0:
+                log_input_grid(logger, it, batches[0])
+        evaluate_and_save(it)
 
+    def evaluate_and_save(it):
         last = it == args.max_iter - 1
-        if ((it % args.val_every == 0 and it > start_iter) or last) and it >= args.speedrun:
-            vfolds = [scalars(m.valid_fn(to_device(next(vs), device)))
-                      for m, vs in zip(members, valid_streams)]
-            vrec = fold_mean(vfolds)
-            valid.append({"iter": it, **vrec, "folds": vfolds})
+        if not (((it % args.val_every == 0 and it > start_iter) or last)
+                and it >= args.speedrun):
+            return
+        vfolds = rank.fold_values({m.fold: scalars(m.valid_fn(to_device(next(vs), device)))
+                                   for m, vs in zip(members, valid_streams)})
+        vrec = fold_mean(vfolds)
+        valid.append({"iter": it, **vrec, "folds": vfolds})
+        if rank.first:
             logger.log_scalars("eval_loss", it, vrec, file="valid")
             print(f"iter {it} valid: loss={vrec['loss']:.4f} ({split(vrec)})", flush=True)
-            per_fold = []
-            for m in members:
-                res_v = m.evaluate(setup.valid_sets[m.fold], f"eval_ap_cv{m.fold}", it)
-                res_t = m.evaluate(setup.test_set, f"test_ap_cv{m.fold}", it)
-                ckpt = save_checkpoint(m.model, m.optimizer, m.step, ckpt_dir, args.model_name,
-                                       it, m.fold)
-                per_fold.append({"valid": res_v, "test": res_t, "checkpoint": ckpt})
-                if k > 1:
-                    print(f"iter {it} fold {m.fold} valid: {json.dumps(res_v)} test: "
-                          f"{json.dumps(res_t)}")
-            mean_v = fold_mean([p["valid"] for p in per_fold])
-            mean_t = fold_mean([p["test"] for p in per_fold])
-            logger.log_scalars("eval_ap", it, mean_v, file="valid")
-            logger.log_scalars("test_ap", it, mean_t, file="test")
-            print(f"iter {it} valid: {json.dumps(mean_v)}")
-            print(f"iter {it} test:  {json.dumps(mean_t)}")
-            for p in per_fold:
-                print(f"checkpoint -> {p['checkpoint']}", flush=True)
-            evals.append({"iter": it, "valid": mean_v, "test": mean_t,
-                          "checkpoint": per_fold[0]["checkpoint"], "folds": per_fold})
+        own = {}
+        for m in members if rank.leader else ():
+            res_v = m.evaluate(setup.valid_sets[m.fold], f"eval_ap_cv{m.fold}", it)
+            res_t = m.evaluate(setup.test_set, f"test_ap_cv{m.fold}", it)
+            ckpt = save_checkpoint(m.model, m.optimizer, m.step, ckpt_dir, args.model_name,
+                                   it, m.fold)
+            own[m.fold] = {"valid": res_v, "test": res_t, "checkpoint": ckpt}
+            if k > 1:
+                print(f"iter {it} fold {m.fold} valid: {json.dumps(res_v)} test: "
+                      f"{json.dumps(res_t)}")
+        # every rank waits here for the folds' evaluations and checkpoints
+        per_fold = rank.fold_values(own, sync=True)
+        mean_v = fold_mean([p["valid"] for p in per_fold])
+        mean_t = fold_mean([p["test"] for p in per_fold])
+        evals.append({"iter": it, "valid": mean_v, "test": mean_t,
+                      "checkpoint": per_fold[0]["checkpoint"], "folds": per_fold})
+        if not rank.first:
+            return
+        logger.log_scalars("eval_ap", it, mean_v, file="valid")
+        logger.log_scalars("test_ap", it, mean_t, file="test")
+        print(f"iter {it} valid: {json.dumps(mean_v)}")
+        print(f"iter {it} test:  {json.dumps(mean_t)}")
+        for p in per_fold:
+            print(f"checkpoint -> {p['checkpoint']}", flush=True)
 
     records, valid, evals, traces = [], [], [], []
     prof = None
     try:
         for it in range(start_iter, args.max_iter):
-            if args.profile_dir and it - start_iter == PROFILE_WINDOW[0]:
+            if args.profile_dir and rank.first and it - start_iter == PROFILE_WINDOW[0]:
                 prof, first = _profile_start(device), it
             if prof is None:
                 iteration(it)
@@ -535,8 +648,11 @@ def run(args, setup: Setup, make_fold: Callable, collate_fn: Callable,
     median = statistics.median(steps) if steps else float("nan")
     slices = args.batch_size * k / median * 1e3
     what = "step" if k == 1 else f"iteration ({k} folds)"
-    print(f"median {median:.1f} ms/{what} after the first, {slices:.1f} slices/s (batch "
-          f"{args.batch_size}{'' if k == 1 else f' x {k} folds'}, device {device})", flush=True)
+    if rank.first:
+        ranks = "" if rank.plan.world_size == 1 else f", {rank.plan.world_size} ranks"
+        print(f"median {median:.1f} ms/{what} after the first, {slices:.1f} slices/s (batch "
+              f"{args.batch_size}{'' if k == 1 else f' x {k} folds'}, device {device}{ranks})",
+              flush=True)
     return {"records": records, "valid": valid, "evals": evals, "median_step_ms": median,
             "slices_per_s": slices,
             "weights": evals[-1]["checkpoint"] if evals else None, "step": members[0].step,
@@ -570,8 +686,10 @@ def warm_eval(args, members, device) -> None:
     print("eval executables warmed", flush=True)
 
 
-def main(argv=None) -> Dict[str, Any]:
-    """Train (or, with --test, evaluate a checkpoint). Returns {"records":
+def main(argv=None, devices=None) -> Dict[str, Any]:
+    """Train (or, with --test, evaluate a checkpoint) over the usable
+    devices, or over ``devices`` (see ``launch_trainer``; a list that may
+    name one card twice). Returns {"records":
     one dict per iteration (the fold means, and "folds": each fold's),
     "valid": the validation losses, "evals": per evaluation the
     iteration, the fold-mean valid and test AP/IoBB, fold 0's checkpoint
@@ -583,9 +701,15 @@ def main(argv=None) -> Dict[str, Any]:
     ``FoldMember``}; with --test, {"test": the mean over the folds of the
     checkpoints' AP/IoBB, "folds": each fold's, "visualized": with
     --visualize {"dir": the dump directory, "detections": {test index:
-    fold 0's detections [C, K, 5]}}, else None}."""
-    args = parse_args(argv)
-    setup = prepare(args)
+    fold 0's detections [C, K, 5]}}, else None}. A run of several ranks
+    returns rank 0's dict without "model", "optimizer" and "folds", with
+    "ranks" (``launch_trainer``)."""
+    return launch_trainer(_train, parse_args(argv), devices, unported=())
+
+
+def _train(rank, args) -> Dict[str, Any]:
+    """One rank's run of ``main``."""
+    setup = prepare(args, rank)
 
     from gssd_torch.data import SSDAugmentation, collate
     from gssd_torch.eval import run_detection_eval
@@ -649,5 +773,5 @@ def main(argv=None) -> Dict[str, Any]:
 
     warming = (args.warmup_eval and not args.test and args.val_every <= args.max_iter
                and args.speedrun <= args.max_iter)
-    return run(args, setup, make_fold, collate, (("l", "loss_l"), ("c", "loss_c")),
+    return run(args, setup, make_fold, collate, (("l", "loss_l"), ("c", "loss_c")), rank,
                warm if warming else None, input_grid=True)

@@ -15,7 +15,9 @@ union-find mask decoder, and a checkpoint a fold
 JAX trainer) and logs the means over the folds. ``--resume N`` continues
 every fold from checkpoint N; ``--test True --checkpoint N`` evaluates
 each fold's checkpoint N on the test set and prints their mean. The
-loop, checkpoints and logs are ``gssd_torch.train.trainer``'s.
+loop, checkpoints and logs are ``gssd_torch.train.trainer``'s, and so
+is the data parallelism (one process per card, capped by
+``GSSD_DP_DEVICES``; the ``parallelism:`` line).
 
 Runs on the GPU (``--device cuda``, the default) and refuses to start
 without one unless ``--device cpu`` is given. ``--num_workers > 1``
@@ -42,7 +44,7 @@ import numpy as np
 
 from gssd_torch.config import OptimConfig, PixelLinkConfig
 from gssd_torch.infer import str2bool
-from gssd_torch.train.trainer import prepare, run, visualize_set
+from gssd_torch.train.trainer import launch_trainer, prepare, run, visualize_set
 
 # the JAX package's recipes (train_pixellink.py REFERENCE_RECIPES):
 # 'pixellink' is the ungrouped baseline, 'pixellink++' adds grouped convs,
@@ -167,12 +169,21 @@ def pixellink_config(args) -> PixelLinkConfig:
         max_pool_factor=args.max_pool_factor, remat_attention=args.remat_attention)
 
 
-def main(argv=None) -> Dict[str, Any]:
-    """Train (or, with --test, evaluate each fold's checkpoint); returns
-    what ``gssd_torch.train.trainer.run`` returns, the records' loss parts
-    being pixel_loss and link_loss."""
-    args = parse_args(argv)
-    setup = prepare(args, unported=("profile_dir", "warmup_eval"))
+UNPORTED = ("profile_dir", "warmup_eval")
+
+
+def main(argv=None, devices=None) -> Dict[str, Any]:
+    """Train (or, with --test, evaluate each fold's checkpoint) over the
+    usable devices or ``devices``, as ``gssd_torch.train.main`` does;
+    returns what ``gssd_torch.train.trainer.run`` returns (the records'
+    loss parts being pixel_loss and link_loss), or from several ranks
+    what ``launch_trainer`` returns."""
+    return launch_trainer(_train, parse_args(argv), devices, unported=UNPORTED)
+
+
+def _train(rank, args) -> Dict[str, Any]:
+    """One rank's run of ``main``."""
+    setup = prepare(args, rank, unported=UNPORTED)
 
     from gssd_torch.data import SSDAugmentation, collate_pixellink
     from gssd_torch.eval import run_detection_eval
@@ -242,7 +253,7 @@ def main(argv=None) -> Dict[str, Any]:
             augmentation(0.0, args.seed + 100 + f), visualize=visualize)
 
     return run(args, setup, make_fold, collate_pixellink,
-               (("pixel", "pixel_loss"), ("link", "link_loss")))
+               (("pixel", "pixel_loss"), ("link", "link_loss")), rank)
 
 
 if __name__ == "__main__":

@@ -12,7 +12,14 @@ difficult objects ignored) and a checkpoint
 ``<output>/checkpoints/<model_name>/<model_name>_<iter>_CV0.pt``.
 ``--resume N`` restores checkpoint N (weights, momenta, step) and
 continues from iteration N; ``--test True --checkpoint N`` evaluates
-checkpoint N. One card holds the model and the whole batch.
+checkpoint N.
+
+Data parallelism as in ``gssd_torch.train`` (JAX's ``plan_parallelism(1,
+B)``): one process per card, capped by ``GSSD_DP_DEVICES``, each rank on
+its rows of every batch (the whole batch drawn and augmented on every
+rank), the loss normaliser and the gradients summed over the ranks; rank
+0 prints the ``parallelism:`` line, evaluates and writes the checkpoints
+while the other ranks wait. ``--test`` runs in one process.
 
 It prints the loss parts every 10th iteration; every iteration is timed
 from the batch on the device to the updated weights, synchronised
@@ -90,27 +97,38 @@ def model_config(args):
                        groups_extra=1, use_fuseconv=False, compute_dtype=args.compute_dtype)
 
 
-def main(argv=None) -> Dict[str, Any]:
-    """Train (or, with --test, evaluate a checkpoint). Returns {"voc_map":
-    the last mAP dict ({"map", "ap_<class>"}; None if none ran),
-    "evals": every evaluation with its iteration and checkpoint,
-    "records": per iteration its loss parts, ms and input wait,
-    "median_step_ms" (after the first iteration), "step": SGD steps taken
-    in all, "model", "optimizer"}; with --test, {"voc_map": ...}."""
+def main(argv=None, devices=None) -> Dict[str, Any]:
+    """Train (or, with --test, evaluate a checkpoint) over the usable
+    devices or ``devices`` (``gssd_torch.train.trainer.launch_trainer``).
+    Returns {"voc_map": the last mAP dict ({"map", "ap_<class>"}; None if
+    none ran), "evals": every evaluation with its iteration and
+    checkpoint, "records": per iteration its loss parts, ms and input
+    wait, "median_step_ms" (after the first iteration), "step": SGD steps
+    taken in all, "model", "optimizer"}; with --test, {"voc_map": ...};
+    from several ranks, rank 0's without "model" and "optimizer", with
+    "ranks"."""
+    from gssd_torch.train.trainer import launch_trainer
+
     args = parse_args(argv)
-    device = resolve_device(args.device)
     if args.test and args.checkpoint is None:
         raise ValueError("--test requires --checkpoint")
+    return launch_trainer(_train, args, devices)
+
+
+def _train(rank, args) -> Dict[str, Any]:
+    """One rank's run of ``main``."""
+    device = resolve_device(args.device)
 
     from gssd_torch.config import DetectConfig, LossConfig, OptimConfig
-    from gssd_torch.data import BaseTransform, BatchLoader, SSDAugmentation, device_prefetch
+    from gssd_torch.data import (BaseTransform, BatchLoader, SSDAugmentation, device_prefetch,
+                                 take_rows)
     from gssd_torch.data.voc import VOCDataset
     from gssd_torch.eval.voc_map import run_voc_map
     from gssd_torch.models import build_model
     from gssd_torch.train.checkpoint import restore_checkpoint, save_checkpoint
     from gssd_torch.train.optim import make_optimizer
     from gssd_torch.train.steps import make_infer_step, train_step
-    from gssd_torch.utils.logging import MetricsLogger
+    from gssd_torch.utils.logging import MetricsLogger, NullLogger
 
     model, priors = build_model(model_config(args), device="cpu", seed=args.seed)
     model = model.to(device)
@@ -120,13 +138,15 @@ def main(argv=None) -> Dict[str, Any]:
     optim_cfg = OptimConfig(lr=args.lr, momentum=args.momentum, weight_decay=args.weight_decay,
                             gamma=args.gamma, stepvalues=tuple(args.stepvalues))
     optimizer = make_optimizer(model, optim_cfg)
-    print(f"parallelism: one device ({device}), batch {args.batch_size}")
 
     base_tf = BaseTransform(args.ssd_dim, args.means, False, args.use_normalize)
     eval_set = VOCDataset(args.voc_root, _sets(args.eval_sets), keep_difficult=False)
     infer_step = make_infer_step(model, priors_t, DetectConfig(num_classes=args.num_classes))
-    logger = MetricsLogger(os.path.join(args.output, "logs", args.model_name))
-    logger.log_args(vars(args))
+    if rank.first:
+        logger = MetricsLogger(os.path.join(args.output, "logs", args.model_name))
+        logger.log_args(vars(args))
+    else:
+        logger = NullLogger()
     ckpt_dir = os.path.join(args.output, "checkpoints")
 
     def eval_map(iteration):
@@ -141,7 +161,8 @@ def main(argv=None) -> Dict[str, Any]:
     if args.resume is not None or args.test:
         start_iter = args.checkpoint if args.test else args.resume
         step = restore_checkpoint(model, optimizer, ckpt_dir, args.model_name, start_iter, 0)
-        print(f"restored iteration {start_iter} (step {step})")
+        if rank.first:
+            print(f"restored iteration {start_iter} (step {step})")
     if args.test:
         res = eval_map(start_iter)
         print(json.dumps(res))
@@ -154,7 +175,7 @@ def main(argv=None) -> Dict[str, Any]:
                            keep_difficult=False)
     loader = BatchLoader(train_set, args.batch_size, args.max_gt, seed=args.seed)
     cast = {"image": torch.bfloat16} if args.compute_dtype == "bfloat16" else None
-    stream = device_prefetch(loader, device, cast=cast)
+    stream = device_prefetch(take_rows(loader, rank.rows), device, cast=cast)
 
     records, evals, res = [], [], None
     try:
@@ -167,27 +188,31 @@ def main(argv=None) -> Dict[str, Any]:
             step += 1
             records.append({"iter": iteration, **m, "ms": (time.perf_counter() - ts) * 1e3,
                             "wait_ms": (ts - tw) * 1e3})
-            if iteration % 10 == 0:
+            if iteration % 10 == 0 and rank.first:
                 logger.log_scalars("loss", iteration, m)
                 print(f"iter {iteration}: loss={m['loss']:.4f} (l={m['loss_l']:.4f} "
                       f"c={m['loss_c']:.4f}) {records[-1]['ms']:.1f} ms/step", flush=True)
             last = iteration == args.max_iter - 1
             if ((iteration % args.val_every == 0 and iteration > start_iter)
                     or last) and iteration >= args.speedrun:
-                res = eval_map(iteration)
-                ckpt = save_checkpoint(model, optimizer, step, ckpt_dir, args.model_name,
-                                       iteration, 0)
-                print(f"checkpoint -> {ckpt}", flush=True)
-                evals.append({"iter": iteration, "voc_map": res, "checkpoint": ckpt})
+                if rank.first:
+                    res = eval_map(iteration)
+                    ckpt = save_checkpoint(model, optimizer, step, ckpt_dir, args.model_name,
+                                           iteration, 0)
+                    print(f"checkpoint -> {ckpt}", flush=True)
+                    evals.append({"iter": iteration, "voc_map": res, "checkpoint": ckpt})
+                rank.barrier()  # the other ranks wait for the evaluation
     finally:
         loader.close()
         logger.close()
 
     steps = [r["ms"] for r in records[1:]] or [r["ms"] for r in records]
     median = statistics.median(steps) if steps else float("nan")
-    print(f"median {median:.1f} ms/step after the first, "
-          f"{args.batch_size / median * 1e3:.1f} images/s (batch {args.batch_size}, "
-          f"device {device})", flush=True)
+    if rank.first:
+        ranks = "" if rank.plan.world_size == 1 else f", {rank.plan.world_size} ranks"
+        print(f"median {median:.1f} ms/step after the first, "
+              f"{args.batch_size / median * 1e3:.1f} images/s (batch {args.batch_size}, "
+              f"device {device}{ranks})", flush=True)
     return {"voc_map": res, "evals": evals, "records": records, "median_step_ms": median,
             "step": step, "model": model, "optimizer": optimizer}
 

@@ -68,3 +68,25 @@ class MetricsLogger:
         self._files.clear()
         if self.tb is not None:
             self.tb.close()
+
+
+class NullLogger:
+    """``MetricsLogger``'s interface, writing nothing: the logger of a
+    data-parallel rank that neither prints the run nor evaluates a fold."""
+
+    tb = None
+
+    def log_args(self, args):
+        pass
+
+    def log_scalars(self, group, step, scalars, file=None):
+        pass
+
+    def log_histogram(self, tag, step, values):
+        pass
+
+    def log_image(self, tag, step, image):
+        pass
+
+    def close(self):
+        pass

@@ -26,12 +26,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-import torch.nn as nn
-import torch.nn.functional as F
-from mini_model import MINI_ANCHORS, build_mini, mini_batch
+from mini_model import build_mini, mini_batch
+from torch_ranks import MiniTwin, _Stage  # noqa: F401 (the twin, also imported from here)
 
 from gssd_torch.config import LossConfig, OptimConfig
-from gssd_torch.ops.layers import BatchNorm
 from gssd_torch.parallel.folds import FoldMember, fold_mean, fold_seed, fold_train_step
 from gssd_torch.params import load_jax_fold
 from gssd_torch.train import make_optimizer, train_step
@@ -133,41 +131,6 @@ def test_fold_streams_match_jax(small_data, tmp_path, monkeypatch, workers):
                                               transform=BaseTransform(300)),
                                 batch, seed=seed + 101)
     _assert_batch(validated[1], {k: np.array(v) for k, v in next(iter(vloader)).items()})
-
-
-class _Stage(nn.Module):
-    """conv (flax SAME padding: stride 2 pads one row and column at the
-    end) + optional BatchNorm, NCHW."""
-
-    def __init__(self, cin, cout, stride, bn):
-        super().__init__()
-        self.stride = stride
-        self.conv = nn.Conv2d(cin, cout, 3, stride, padding=0)
-        self.bn = BatchNorm(cout) if bn else None
-
-    def forward(self, x):
-        x = self.conv(F.pad(x, (0, 1, 0, 1) if self.stride == 2 else (1, 1, 1, 1)))
-        return x if self.bn is None else F.relu(self.bn(x))
-
-
-class MiniTwin(nn.Module):
-    """The port's twin of tests/mini_model.py's ``MiniDetector``."""
-
-    def __init__(self, num_classes=2):
-        super().__init__()
-        nb = MINI_ANCHORS.num_priors_per_cell[0]
-        self.s0, self.s1, self.s2 = _Stage(12, 8, 2, True), _Stage(8, 16, 2, True), \
-            _Stage(16, 32, 2, True)
-        self.loc = _Stage(32, nb * 4, 1, False)
-        self.conf = _Stage(32, nb * num_classes, 1, False)
-        self.num_classes = num_classes
-
-    def forward(self, x):
-        x = x.permute(0, 3, 1, 2)
-        x = self.s2(self.s1(self.s0(x)))
-        B = x.shape[0]
-        return {"loc": self.loc(x).permute(0, 2, 3, 1).reshape(B, -1, 4),
-                "conf": self.conf(x).permute(0, 2, 3, 1).reshape(B, -1, self.num_classes)}
 
 
 # flax module of MiniDetector -> (the twin's submodule, its flax name)

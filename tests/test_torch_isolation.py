@@ -118,14 +118,15 @@ def test_default_device_refuses_cpu(monkeypatch, tmp_path):
         build_model(ModelConfig())
 
 
-def _refuses_without_card(module, out):
-    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+def _refuses_without_card(module, out, **env):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", **env)
     res = subprocess.run([sys.executable, "-m", module, "--max_iter", "1",
                           "--output", str(out)], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode != 0
     assert "CUDA is not available" in res.stderr
     assert not list(out.iterdir())  # nothing generated or trained
+    return res
 
 
 def test_trainer_module_refuses_without_card(tmp_path):
@@ -145,6 +146,41 @@ def test_unet_trainer_module_refuses_without_card(tmp_path):
     # python -m gssd_torch.train_unet defaults to --device cuda: no card, no
     # data generated, nothing trained; --device cpu is what runs here
     _refuses_without_card("gssd_torch.train_unet", tmp_path)
+
+
+@pytest.mark.parametrize("module", ["gssd_torch.train", "gssd_torch.train_pixellink",
+                                    "gssd_torch.train_voc"])
+def test_data_parallel_trainer_refuses_without_card(module, tmp_path):
+    # two ranks asked for on a host with no card: no run, and no gloo
+    # ranks on the CPU in their place
+    res = _refuses_without_card(module, tmp_path, GSSD_DP_DEVICES="2")
+    assert "parallelism:" not in res.stdout
+
+
+def test_parallel_modules_import_nothing_of_jax():
+    code = ("import sys\n"
+            f"for name in {BLOCKED!r}:\n"
+            "    sys.modules[name] = None\n"
+            "import gssd_torch.parallel.mesh, gssd_torch.parallel.launch\n"
+            "import gssd_torch.parallel.collectives, gssd_torch.native.build\n"
+            "print('isolated')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and "isolated" in res.stdout, res.stderr
+
+
+def test_spawned_ranks_import_nothing_of_jax():
+    # this process has JAX loaded; the ranks the launcher spawns do not
+    from torch_ranks import loaded_roots
+
+    from gssd_torch.parallel.launch import launch
+    from gssd_torch.parallel.mesh import plan_parallelism
+
+    ranks = launch(loaded_roots, plan_parallelism(1, 2, devices=["cpu"] * 2), deadline=240)
+    for roots in ranks:
+        assert "gssd_torch" in roots and "torch" in roots
+        assert not set(roots) & set(BLOCKED), set(roots) & set(BLOCKED)
 
 
 def test_chip_smoke_refuses_without_card(tmp_path):
