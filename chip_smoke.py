@@ -252,8 +252,20 @@ In order, failing (exit code 1) at the first phase that goes wrong:
    ``gssd_torch.train.main`` at ``--batch_size 32 --aug_method
    device_cached``, bf16: exactly 12 + 12 attention and 1 + 1 hat DCN
    launches a step on each rank, finite losses, the ranks' states
-   bit-equal, ms/step (two ranks sharing one card: not a speed-up); with
-   two cards or more the first check on NCCL, one rank a card, and the
+   bit-equal, ms/step (two ranks sharing one card: not a speed-up); its
+   last iteration evaluates split over the two ranks
+   (``parallel.mesh.plan_infer_step``): 12 attention and 1 hat DCN
+   launches more on each rank for each of its evaluation forwards, and
+   the valid and test AP/IoBB of a one-rank evaluation of the checkpoint
+   it wrote (``--test --checkpoint``); ``plan_infer_step`` called through
+   the launcher on that checkpoint (``dp_infer``): two ranks at
+   eval_batch 16 give every full chunk of one rank at 8 bit for bit (the
+   same rows, shapes and kernels; the tail's max difference printed),
+   with the seconds of one evaluation on one rank and on two;
+   PixelLink++ 4s ``--test`` on the two ranks (the stem kernels on the
+   split path: 2 stem, 8 attention, 1 hat DCN launches a forward on each)
+   equal to its one-rank ``--test``; with two cards or more the first
+   check and the split evaluation on NCCL, one rank a card, and the
    trainer at batch 32 a card (ms/step, slices/s); with one card it says
    that the NCCL run was not made. ``python3 chip_smoke.py
    --data-parallel`` builds the kernels and runs this phase alone.
@@ -4035,7 +4047,206 @@ def dp_compare(one, rev, ranks, label):
     return res
 
 
-def dp_phase(tmp, data, device="cuda"):
+def dp_infer(rank, weights, data, eval_batch, tail_piece=None):
+    """Rank body of phase 31's split evaluation: GSSD++ 300 bf16 on
+    ``hat`` from the checkpoint ``weights``, every image of the synthetic
+    set ``data`` (its test, validation and training ids) through
+    ``plan_infer_step`` at ``eval_batch`` -> the detections [n, C, K, 5]
+    on the host, the seconds of that evaluation (the host transform, the
+    forwards and the gathers, synchronised), then of the same forwards
+    again on the transformed chunks, their launches, and whether the two
+    passes gave the same bits. With ``tail_piece``, the last chunk runs in
+    pieces of that many rows: the shapes that ranks splitting it give it."""
+    import torch
+
+    from gssd_torch.config import DetectConfig
+    from gssd_torch.data import BaseTransform, DataSplitter, LesionDataset
+    from gssd_torch.eval.ap_iobb import _stream_batches
+    from gssd_torch.parallel.mesh import plan_infer_step
+    from gssd_torch.train.checkpoint import load_weights_partial
+    from gssd_torch.train.steps import make_infer_step
+
+    device = rank.device
+    model, priors = recipe_model("bfloat16")
+    model = model.to(device)
+    load_weights_partial(model, weights, verbose=False)
+    step = plan_infer_step(make_infer_step(model, torch.tensor(priors, device=device),
+                                           DetectConfig(num_classes=2)), rank, eval_batch)
+    sp = DataSplitter(data, 1, 4)
+    dataset = LesionDataset(data, sp.data_test + sp.data_cv_eval[0] + sp.data_cv_train[0])
+    tf = BaseTransform(300, 0.0, False, True)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def run(batch, last):
+        if last and tail_piece:
+            return torch.cat([step(batch[i:i + tail_piece])
+                              for i in range(0, len(batch), tail_piece)])
+        return step(batch)
+
+    chunks, first = [], []
+    sync()
+    t0 = time.perf_counter()
+    for start, batch, _ in _stream_batches(dataset, tf, eval_batch, {}):
+        chunks.append(batch)
+        first.append(run(batch, start + eval_batch >= len(dataset)).cpu())
+    seconds = time.perf_counter() - t0
+    _reset_launches()
+    dets = []
+    sync()
+    t0 = time.perf_counter()
+    for i, batch in enumerate(chunks):
+        dets.append(run(batch, i == len(chunks) - 1))
+    sync()
+    forward_s = time.perf_counter() - t0
+    dets = torch.cat([d.cpu() for d in dets])
+    return {"detections": dets, "seconds": seconds, "forward_s": forward_s,
+            "launches": _launches(), "repeat_bit_equal": torch.equal(torch.cat(first), dets)}
+
+
+def dp_split_check(ranks, one, whole, eval_batch, label):
+    """Phase 31's split evaluation (``dp_infer`` on the ranks at
+    ``eval_batch``) against one rank at its share (``one``: the tail in
+    the ranks' pieces): the ranks' detections the same bits, and the one
+    rank's bits; each rank's launches GSSD_FORWARD_LAUNCHES a chunk; the
+    max difference from one rank at ``eval_batch`` (``whole``: the tail in
+    one forward of another shape)."""
+    import torch
+
+    n = one["detections"].shape[0]
+    full = n // eval_batch * eval_batch
+    got = ranks[0]["detections"]
+    check(all(torch.equal(got, r["detections"]) for r in ranks[1:]),
+          f"{label}: the ranks' gathered detections differ")
+    check(torch.equal(got, one["detections"]),
+          f"{label}: the detections differ from one rank's at eval_batch "
+          f"{eval_batch // len(ranks)}: max |diff| "
+          f"{float((got - one['detections']).abs().max())}")
+    tail = float((got[full:] - whole["detections"][full:]).abs().max()) if full < n else 0.0
+    # the same on each class's scores sorted
+    scores = [torch.sort(d[full:, ..., 0], dim=-1).values for d in (got, whole["detections"])]
+    tail_scores = float((scores[0] - scores[1]).abs().max()) if full < n else 0.0
+    chunks = -(-n // eval_batch)
+    for i, r in enumerate(ranks):
+        want = {k: GSSD_FORWARD_LAUNCHES.get(k, 0) * chunks for k in r["launches"]}
+        check(r["launches"] == want and r["repeat_bit_equal"],
+              f"{label} rank {i}: launches {r['launches']}, want {want}; the same bits twice "
+              f"{r['repeat_bit_equal']}")
+    piece = -(-(n - full) // len(ranks))
+    print(f"split evaluation ({label}): {n} images at eval_batch {eval_batch}, every row "
+          f"bit-equal to one rank at {eval_batch // len(ranks)} (its {n - full}-row tail in "
+          f"pieces of {piece}, the ranks' shapes); the tail against one rank's single forward "
+          f"of {n - full} rows: max |diff| {tail:.3e}, of the sorted scores {tail_scores:.3e}; "
+          f"launches a rank {ranks[0]['launches']}", flush=True)
+    return {"images": n, "eval_batch": eval_batch, "rows_bit_equal": n,
+            "tail_rows": n - full, "tail_piece": piece,
+            "tail_max_abs_diff_one_forward": tail,
+            "tail_max_abs_diff_sorted_scores_one_forward": tail_scores,
+            "launches_per_rank": [r["launches"] for r in ranks],
+            "seconds": [r["seconds"] for r in ranks],
+            "forward_s": [r["forward_s"] for r in ranks]}
+
+
+def dp_eval_phase(tmp, data, run, argv, two_card, smi, device="cuda"):
+    """Phase 31's evaluation split over the ranks: (a) the two-rank
+    trainer ``run`` (``argv``) evaluated at its last iteration, its valid
+    and test AP/IoBB against one rank's evaluation of the checkpoint it
+    wrote (``--test --checkpoint`` and the validation set); (b)
+    ``dp_infer`` on two ranks at eval_batch 16 against one rank at 8, and
+    timed beside one rank at 16; (c) PixelLink++ 4s ``--test`` on the two
+    ranks against one rank (phase 16's checkpoint, or a one-step run's)."""
+    import torch
+
+    from gssd_torch import train as trainer
+    from gssd_torch import train_pixellink
+    from gssd_torch.config import DetectConfig
+    from gssd_torch.data import BaseTransform, DataSplitter, LesionDataset
+    from gssd_torch.eval import run_detection_eval
+    from gssd_torch.parallel.launch import launch
+    from gssd_torch.parallel.mesh import plan_parallelism
+    from gssd_torch.train.checkpoint import checkpoint_path, load_weights_partial
+    from gssd_torch.train.steps import make_infer_step
+
+    res = {}
+    splitter = DataSplitter(data, 1, 4)
+    last = DP_ITERS - 1
+    evals = run["evals"]
+    check([e["iter"] for e in evals] == [last], f"two-rank trainer evaluations {evals}")
+    weights = evals[0]["checkpoint"]
+    tested = trainer.main(argv + ["--test", "True", "--checkpoint", str(last)],
+                          devices=[f"{device}:0"])["test"]
+    model, priors = recipe_model("bfloat16")
+    model = model.to(device)
+    load_weights_partial(model, weights, verbose=False)
+    infer = make_infer_step(model, torch.tensor(priors, device=device),
+                            DetectConfig(num_classes=2))
+    valid = run_detection_eval(
+        lambda b: infer(b).cpu().numpy(), LesionDataset(data, splitter.data_cv_eval[0]),
+        BaseTransform(300, 0.0, False, True), (0.3, 0.5, 0.7), (0.3, 0.5, 0.7), 0.2, False, 16)
+    del model
+    print(f"split evaluation (trainer, two ranks): valid {evals[0]['valid']}, test "
+          f"{evals[0]['test']}; one rank from its checkpoint: valid {valid}, --test {tested}",
+          flush=True)
+    check(evals[0]["test"] == tested and evals[0]["valid"] == valid,
+          f"the two ranks' evaluation differs from one rank's: {evals[0]} vs valid {valid}, "
+          f"--test {tested}")
+    res["trainer"] = {"valid": evals[0]["valid"], "test": evals[0]["test"],
+                      "one_rank_valid": valid, "one_rank_test": tested}
+
+    alone = plan_parallelism(1, 16, [f"{device}:0"])
+    n_images = len(splitter.data_test) + len(splitter.data_cv_eval[0]) \
+        + len(splitter.data_cv_train[0])
+    # the shapes two ranks give the tail chunk: ceil(tail / 2) rows a rank
+    one8 = launch(dp_infer, alone, weights, data, 8, -(-(n_images % 16 or 16) // 2))[0]
+    one16 = launch(dp_infer, alone, weights, data, 16)[0]
+    two = launch(dp_infer, plan_parallelism(1, 16, two_card), weights, data, 16, deadline=600)
+    res["gloo_one_card"] = dp_split_check(two, one8, one16, 16, "2 gloo ranks on one card")
+    res["one_rank_seconds"], res["one_rank_forward_s"] = one16["seconds"], one16["forward_s"]
+    tail16 = float((two[0]["detections"] - one16["detections"]).abs().max())
+    print(f"split evaluation seconds ({smi}): {one8['detections'].shape[0]} images at "
+          f"eval_batch 16, one rank {one16['seconds']:.3f} s (its forwards again on the "
+          f"transformed chunks {one16['forward_s']:.3f} s), two gloo ranks sharing the card "
+          f"{max(r['seconds'] for r in two):.3f} s (forwards and gathers "
+          f"{max(r['forward_s'] for r in two):.3f} s): two ranks on one card are not a "
+          f"speed-up, and each rank transforms every chunk on the host; max |two ranks - one "
+          f"rank at 16| {tail16:.3e}", flush=True)
+    res["max_abs_diff_one_rank_16"] = tail16
+
+    pl_out, pl_iter = "pl_eval_4s", 1
+    with wide_conv():
+        if not os.path.exists(checkpoint_path(os.path.join(tmp, pl_out, "checkpoints"),
+                                              "pixellink_plusplus", pl_iter)):
+            pl_out, pl_iter = "pl_dp", 0
+            train_pixellink.main(pl_argv(tmp, data, pl_out, "--max_iter", "1", "--val_every",
+                                         "1", "--speedrun", "0", "--device", device))
+        argv_pl = pl_argv(tmp, data, pl_out, "--test", "True", "--checkpoint", str(pl_iter),
+                          "--device", device)
+        t0 = time.perf_counter()
+        one_pl = train_pixellink.main(argv_pl, devices=[f"{device}:0"])["test"]
+        one_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        two_pl = train_pixellink.main(argv_pl, devices=two_card)
+        two_s = time.perf_counter() - t0
+    forwards = -(-len(splitter.data_test) // PL_BATCH)
+    want = {k: PL_FORWARD_LAUNCHES["4s"].get(k, 0) * forwards
+            for k in two_pl["ranks"][0]["launches"]}
+    for i, r in enumerate(two_pl["ranks"]):
+        check(r["test"] == one_pl, f"PixelLink++ --test rank {i}: {r['test']} vs one rank {one_pl}")
+        check(r["launches"] == want, f"PixelLink++ --test rank {i}: launches {r['launches']}, "
+                                     f"want {want}")
+    print(f"split evaluation (PixelLink++ 4s --test --checkpoint {pl_iter}, two ranks): "
+          f"{two_pl['test']} = one rank's; launches a rank {two_pl['ranks'][0]['launches']}; "
+          f"{two_s:.2f} s with the ranks' start against {one_s:.2f} s in this process",
+          flush=True)
+    res["pixellink_test"] = {"test": two_pl["test"], "one_rank_test": one_pl,
+                             "launches_per_rank": [r["launches"] for r in two_pl["ranks"]],
+                             "seconds_two_ranks": two_s, "seconds_one_rank": one_s}
+    return res, (one8, one16), weights
+
+
+def dp_phase(tmp, data, device="cuda", smi=""):
     """Phase 31, data parallelism (``gssd_torch.parallel``): (1) two gloo
     ranks sharing the card (``cuda:0`` twice, through the launcher's device
     list) against one rank at global batch DP_BATCH, GSSD++ 300 f32 on
@@ -4046,14 +4257,18 @@ def dp_phase(tmp, data, device="cuda"):
     ``device_cached``, DP_ITERS steps: the parallelism line, exactly 12 + 12
     attention and 1 + 1 hat DCN launches a step on each rank, finite
     losses, the ranks' states bit-equal, ms/step (two ranks sharing one
-    card: not a speed-up); (3) with two cards or more, (1) on NCCL, one
-    rank a card, and the trainer at batch 32 a card (ms/step, slices/s);
-    with one card, a line saying that the NCCL run was not made.
-    (``device="cpu"`` rehearses it on the CPU, gloo ranks in place of the
-    card's.)"""
+    card: not a speed-up), and an evaluation at its last iteration split
+    over the ranks, with the split evaluation's checks (``dp_eval_phase``;
+    ``smi``, the card's name and power limit, printed beside its seconds);
+    (3) with two cards or more, (1) and the split evaluation (``dp_infer``)
+    on NCCL, one rank a card, and the trainer at batch 32 a card (ms/step,
+    slices/s); with one card, a line saying that the NCCL run was not
+    made. (``device="cpu"`` rehearses it on the CPU, gloo ranks in place
+    of the card's.)"""
     import torch
 
     from gssd_torch import train as trainer
+    from gssd_torch.data import DataSplitter
     from gssd_torch.parallel.launch import launch
     from gssd_torch.parallel.mesh import plan_parallelism
 
@@ -4085,10 +4300,13 @@ def dp_phase(tmp, data, device="cuda"):
               or l2["momentum"] > DP_GRAD_TOL, f"planted {fault} passed the checks")
 
     argv = train_argv(tmp, "hat", TRAIN_BATCH, DP_ITERS, out="run_dp", device=device) + [
-        "--aug_method", "device_cached"]
+        "--aug_method", "device_cached", "--val_every", str(DP_ITERS), "--speedrun", "0"]
     run = trainer.main(argv, devices=two_card)
+    # the steps, then the evaluation at the last iteration split over the
+    # ranks: each runs one forward a chunk (and the validation-loss batch)
+    fwd = _eval_forwards(DataSplitter(data, 1, 4), 16)
     want = {name: ROUTE_LAUNCHES["hat"].get(name, 0) * DP_ITERS
-            for name in run["ranks"][0]["launches"]}
+            + GSSD_FORWARD_LAUNCHES.get(name, 0) * fwd for name in run["ranks"][0]["launches"]}
     for r, rank in enumerate(run["ranks"]):
         check(rank["launches"] == want, f"rank {r}: launches {rank['launches']}, want {want}")
     losses = [rec["loss"] for rec in run["records"]]
@@ -4104,7 +4322,12 @@ def dp_phase(tmp, data, device="cuda"):
                                "ms_per_step": [rec["ms"] for rec in run["records"]],
                                "median_ms_per_step": median,
                                "launches_per_rank": [rank["launches"] for rank in run["ranks"]],
+                               "evaluation_forwards_per_rank": fwd,
                                "states_bit_equal": True}
+    t_eval = time.perf_counter()
+    res["split_evaluation"], (one8, one16), weights = dp_eval_phase(tmp, data, run, argv,
+                                                                    two_card, smi, device)
+    res["split_evaluation"]["seconds"] = time.perf_counter() - t_eval
 
     cards = torch.cuda.device_count() if device == "cuda" else 0
     res["cards"] = cards
@@ -4114,6 +4337,9 @@ def dp_phase(tmp, data, device="cuda"):
         check(nccl.backend == "nccl", f"plan {nccl}")
         res["nccl"] = dp_compare(one, rev, launch(dp_steps, nccl, batches, starts, deadline=600),
                                  "2 NCCL ranks on cuda:0 and cuda:1")
+        res["nccl_split_evaluation"] = dp_split_check(
+            launch(dp_infer, plan_parallelism(1, 16, devs[:2]), weights, data, 16, deadline=600),
+            one8, one16, 16, "2 NCCL ranks on cuda:0 and cuda:1")
         argv = train_argv(tmp, "hat", TRAIN_BATCH * cards, DP_ITERS, out="run_nccl") + [
             "--aug_method", "device_cached"]
         run = trainer.main(argv, devices=devs)
@@ -4144,7 +4370,7 @@ def data_parallel_only(smi) -> int:
         with tempfile.TemporaryDirectory() as tmp:
             data = os.path.join(tmp, "train_ml")
             make_synthetic_dataset(data)
-            dp = dp_phase(tmp, data)
+            dp = dp_phase(tmp, data, smi=smi)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -4240,7 +4466,7 @@ def main() -> int:
             visual = visualize_phase(tmp, train_data)
             voc = voc_phase(tmp)
             raw_drop = raw_drop_phase(tmp, harness)
-            dp = dp_phase(tmp, train_data)
+            dp = dp_phase(tmp, train_data, smi=smi)
         dcn_grad_cos = dcn_grads()
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)

@@ -14,9 +14,13 @@ entry sets around the trainer: no model or loss takes it as an
 argument. Outside the context, or in a group of one rank, every
 function here is the identity and the modules run exactly as before.
 
-A gloo group on CUDA tensors (two ranks sharing one card) sums through
-host copies; NCCL sums on the card. Every rank receives the same bits
-from the collective, so the ranks' parameters stay equal.
+The sharded evaluation forward (``mesh.plan_infer_step``) gathers each
+rank's outputs over the same group (``all_gather``).
+
+A gloo group on CUDA tensors (two ranks sharing one card) sums and
+gathers through host copies; NCCL does both on the card. Every rank
+receives the same bits from the collective, so the ranks' parameters
+stay equal.
 """
 
 from __future__ import annotations
@@ -49,8 +53,13 @@ def group_size() -> int:
     return 1 if _GROUP is None else _GROUP[1]
 
 
+def _via_host(t: torch.Tensor, group) -> bool:
+    """gloo takes no CUDA tensor: its collectives go through host copies."""
+    return t.is_cuda and dist.get_backend(group) == "gloo"
+
+
 def _sum_(t: torch.Tensor, group) -> torch.Tensor:
-    if t.is_cuda and dist.get_backend(group) == "gloo":
+    if _via_host(t, group):
         host = t.cpu()
         dist.all_reduce(host, group=group)
         t.copy_(host)
@@ -100,3 +109,18 @@ def sum_grads_(grads: List[torch.Tensor]) -> None:
     for g in grads:
         g.copy_(flat[offset:offset + g.numel()].view_as(g))
         offset += g.numel()
+
+
+def all_gather(t: torch.Tensor) -> torch.Tensor:
+    """Every rank's ``t`` (the same shape on each) concatenated along the
+    first dimension in the group's rank order, on ``t``'s device, outside
+    autograd; ``t`` itself outside a group."""
+    if _GROUP is None:
+        return t
+    group, size = _GROUP
+    src = t.detach().contiguous()
+    if _via_host(src, group):
+        src = src.cpu()
+    parts = [torch.empty_like(src) for _ in range(size)]
+    dist.all_gather(parts, src, group=group)
+    return torch.cat(parts).to(t.device)

@@ -3,8 +3,8 @@
 ``launch(fn, plan, *args)`` runs ``fn(rank, *args)`` once per rank of
 ``plan`` (``gssd_torch.parallel.mesh``) and returns the ranks' results
 in rank order. ``rank`` is a ``Rank``: the plan, the rank's index,
-device and folds, its rows of each batch, and the gathers the trainers
-use across ranks.
+device and folds, its rows of each batch, whether it evaluates, and the
+gathers the trainers use across ranks.
 
 - A plan of one rank spawns nothing: ``fn`` runs in this process, as a
   run without the launcher would.
@@ -38,11 +38,15 @@ import torch
 import torch.distributed as dist
 
 from gssd_torch.parallel.collectives import data_group
-from gssd_torch.parallel.mesh import ParallelPlan
+from gssd_torch.parallel.mesh import ParallelPlan, eval_splits
 
-# the collectives' timeout: longer than any evaluation one rank runs
-# while the others wait
-TIMEOUT_S = 1800.0
+# the collectives' timeout: longer than anything one rank runs while the
+# others wait. The ranks of a fold split its evaluations, so that is a
+# checkpoint its first rank writes, a slower rank's host part of an
+# evaluation (the decode and the sweep, the same work on every rank), or,
+# where --eval_batch does not divide by the fold's ranks, the whole
+# evaluation its first rank runs alone (minutes for a clinical test set)
+TIMEOUT_S = 900.0
 # seconds a failed run's other ranks get between SIGTERM and SIGKILL
 GRACE_S = 2.0
 
@@ -74,8 +78,14 @@ class Rank:
 
     @property
     def leader(self) -> bool:
-        """The first rank of its fold group: evaluates and saves its folds."""
+        """The first rank of its fold group: logs and saves its folds."""
         return self.plan.fold_ranks(self.index)[0] == self.index
+
+    def evaluates(self, eval_batch: int) -> bool:
+        """Whether this rank runs its folds' evaluations at ``eval_batch``:
+        every rank of the fold group where they split it
+        (``mesh.plan_infer_step``), else the leader alone."""
+        return self.leader or eval_splits(len(self.plan.fold_ranks(self.index)), eval_batch)
 
     def fold_values(self, local: Dict[int, Any], sync: bool = False) -> List[Any]:
         """The values of every fold, in fold order, from ``local`` ({fold:

@@ -17,6 +17,15 @@ ranks what that program sums across the mesh
   rank r trains fold ``r // (n/K)`` on rows block ``r % (n/K)``, each
   fold's batch split over its n/K ranks (``P('fold', 'data')``).
 
+The evaluation forward splits too (``plan_infer_step``, JAX's
+``jit_plan_infer_step``): the ranks that hold a fold's weights (the
+fold's group) split each evaluation batch of the fold, when the group's
+rank count divides ``--eval_batch``, and every rank receives all the
+outputs in row order. Under ``fold_data`` each fold's ranks split its
+batches, all folds at once (JAX flattens the mesh and evaluates the
+folds one after another: the outputs are the same). A ``--test`` run
+(``evaluation_plan``) evaluates every fold on every rank of the plan.
+
 The usable devices: on CUDA every card (``torch.cuda.device_count()``),
 capped by ``GSSD_DP_DEVICES``; on the CPU (``--device cpu``)
 ``GSSD_DP_DEVICES`` ranks (default 1), each a gloo process. An explicit
@@ -28,11 +37,12 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
 from gssd_torch import resolve_device
+from gssd_torch.parallel.collectives import all_gather, group_size
 
 DP_DEVICES_ENV = "GSSD_DP_DEVICES"
 
@@ -119,3 +129,61 @@ def plan_parallelism(n_folds: int, batch_size: int,
     if d > 1:
         return ParallelPlan("data", n_folds, batch_size, tuple(devs[:d]), d)
     return ParallelPlan("single", n_folds, batch_size, tuple(devs[:1]), 1)
+
+
+def eval_splits(n_ranks: int, eval_batch: int) -> bool:
+    """JAX's rule: an evaluation batch splits over ``n_ranks`` ranks only
+    when their count divides it; else the first of them evaluates alone."""
+    return n_ranks > 1 and eval_batch % n_ranks == 0
+
+
+def describe_eval(n_ranks: int, eval_batch: int) -> str:
+    """The line a run of several ranks prints: how the ``n_ranks`` ranks
+    that hold a fold's weights run its evaluations."""
+    if n_ranks == 1:
+        return "evaluation: each fold on the one rank that holds it"
+    if eval_splits(n_ranks, eval_batch):
+        return f"evaluation: each batch of {eval_batch} split over {n_ranks} ranks"
+    return (f"evaluation: on one rank: --eval_batch {eval_batch} does not divide by "
+            f"{n_ranks} ranks")
+
+
+def evaluation_plan(plan: ParallelPlan, eval_batch: int) -> ParallelPlan:
+    """The plan of a ``--test`` run from the training plan ``plan``: every
+    rank loads each fold's checkpoint in turn, so all of them split each
+    batch of ``eval_batch`` (a ``data`` plan over the same devices, rank r
+    on rows ``rows(r)`` of a batch); one rank where their count does not
+    divide ``eval_batch``."""
+    n = plan.world_size
+    if eval_splits(n, eval_batch):
+        return ParallelPlan("data", plan.n_folds, eval_batch, plan.devices, n)
+    return ParallelPlan("single", plan.n_folds, eval_batch, plan.devices[:1], 1)
+
+
+def plan_infer_step(infer_fn: Callable, rank, eval_batch: int) -> Callable:
+    """JAX's ``jit_plan_infer_step``: ``infer_fn`` (a batch -> a tensor, or
+    a tuple of them, each with a row per image) run over the ranks of the
+    current group (``rank``'s fold group) when ``eval_splits`` holds,
+    else ``infer_fn`` itself. The step takes a whole chunk of b <=
+    ``eval_batch`` rows (numpy or tensor), pads it with zero rows to a
+    multiple of the rank count (so that every rank runs at least one
+    row), runs ``infer_fn`` on this rank's block of rows, gathers the
+    blocks over the group in rank order and drops the padding: every rank
+    returns the outputs of the whole chunk."""
+    n = group_size()
+    if not eval_splits(n, eval_batch):
+        return infer_fn
+    position = rank.plan.fold_ranks(rank.index).index(rank.index)
+
+    def step(images):
+        images = torch.as_tensor(images)
+        b = images.shape[0]
+        per = -(-b // n)
+        if per * n > b:
+            images = torch.cat([images, images.new_zeros((per * n - b, *images.shape[1:]))])
+        out = infer_fn(images[position * per:(position + 1) * per])
+        if isinstance(out, tuple):
+            return tuple(all_gather(t)[:b] for t in out)
+        return all_gather(out)[:b]
+
+    return step

@@ -196,10 +196,11 @@ def pixellink_eval_step(model, batch, plc: PixelLinkConfig) -> Dict[str, torch.T
     return group_total({"loss": loss, **parts})
 
 
-def make_pixellink_forward(model, device) -> Callable:
+def make_pixellink_forward(model, device, host: bool = True) -> Callable:
     """Eval-mode forward: a [B, H, W, 12] float batch (numpy or tensor)
     -> (pixel [B, h, w, 2], link [B, h, w, 16]) f32 logits on the host,
-    for ``mask_to_boxes``."""
+    for ``mask_to_boxes``; with ``host=False`` the two tensors on the
+    device (for a gather over the ranks before the host copy)."""
 
     def forward(images):
         if not torch.is_tensor(images):
@@ -207,6 +208,8 @@ def make_pixellink_forward(model, device) -> Callable:
         model.eval()
         with torch.inference_mode():
             out = model(images.to(device))
+            if not host:
+                return out["pixel"], out["link"]
             return out["pixel"].cpu().numpy(), out["link"].cpu().numpy()
 
     return forward

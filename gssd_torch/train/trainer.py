@@ -51,9 +51,16 @@ what one process computes at the whole batch (BatchNorm statistics,
 loss normalisers and gradients over the fold's batch,
 ``gssd_torch.parallel.collectives``); each draws the whole batch's
 stream and keeps its rows. Rank 0 prints and logs the fold means; the
-first rank of each fold evaluates it and writes its checkpoints (the
-one-process format) while the fold's other ranks wait. ``--test`` runs
-in one process.
+first rank of each fold writes its checkpoints (the one-process format).
+The evaluations split too (``parallel.mesh.plan_infer_step``, JAX's
+``jit_plan_infer_step``): a fold's ranks share each batch of
+``--eval_batch`` and every one of them receives the detections of the
+whole batch, so each computes the AP/IoBB of one process; where their
+count does not divide ``--eval_batch``, the fold's first rank evaluates
+alone while the others wait. ``--test`` runs on the plan's ranks, each
+loading every fold's checkpoint in turn, where their count divides
+``--eval_batch``, else in one process. A run of several ranks prints
+which case it takes (``evaluation: ...``).
 
 ``launch_trainer`` (the plan and the ranks), ``prepare`` (device, data
 split, logs) and ``run`` (the loop, evaluation, checkpoints, resume,
@@ -269,20 +276,28 @@ def synthesize(args) -> None:
         make_synthetic_dataset(args.datapath)
 
 
-def _spawned_run(rank, body: Callable, args) -> Dict[str, Any]:
-    """A spawned rank's run of ``body`` on its own card: the result
-    without the live objects (models, optimizers, fold members), with
-    the rank's kernel launches and a digest of each of its models'
-    state (parameters, statistics, spectral vectors)."""
+def _spawned_run(rank, body: Callable, args, wide_conv: bool = False) -> Dict[str, Any]:
+    """A spawned rank's run of ``body`` on its own card, with the parent's
+    ``USE_WIDE_CONV_KERNEL`` (``wide_conv``; a spawned process starts from
+    the module's default): the result without the live objects (models,
+    optimizers, fold members), with the rank's kernel launches and a
+    digest of each of its trained models' state (parameters, statistics,
+    spectral vectors; none after --test)."""
     import copy
     import hashlib
 
+    from gssd_torch.ops import layers
     from gssd_torch.ops.kernels import KERNELS
 
+    layers.USE_WIDE_CONV_KERNEL = wide_conv
     args = copy.copy(args)
     args.device = str(rank.device)
     res = body(rank, args)
-    models = [m.model for m in res["folds"]] if "folds" in res else [res["model"]]
+    if args.test:  # the folds' AP/IoBB; no model trained
+        models, live = [], ()
+    else:
+        models = [m.model for m in res["folds"]] if "folds" in res else [res["model"]]
+        live = ("model", "optimizer", "folds")
     digests = []
     for model in models:
         h = hashlib.sha256()
@@ -290,7 +305,7 @@ def _spawned_run(rank, body: Callable, args) -> Dict[str, Any]:
             h.update(name.encode())
             h.update(t.detach().cpu().contiguous().view(-1).view(torch.uint8).numpy().tobytes())
         digests.append(h.hexdigest())
-    out = {k: v for k, v in res.items() if k not in ("model", "optimizer", "folds")}
+    out = {k: v for k, v in res.items() if k not in live}
     out.update(launches={name: k.launches for name, k in KERNELS.items()},
                state_digests=digests)
     return out
@@ -300,27 +315,34 @@ def launch_trainer(body: Callable, args, devices=None, unported=None) -> Dict[st
     """Plan the run over the usable devices (``devices``, a list that may
     name one card twice, takes their place), print the plan as the JAX
     trainers do, and run ``body(rank, args)``: in this process for a plan
-    of one rank or with --test, else once per rank (``parallel.launch``).
-    Returns the body's result; from spawned ranks, rank 0's (without its
-    models) with ``"ranks"``: every rank's, each with its kernel
-    launches and ``state_digests``. ``unported`` (a tuple) refuses flags
-    first, as ``prepare`` does."""
+    of one rank, else once per rank (``parallel.launch``); with --test,
+    on every rank of the plan where their count divides --eval_batch
+    (``parallel.mesh.evaluation_plan``), else in this process. A plan of
+    several ranks also prints how its evaluations run. Returns the body's
+    result; from spawned ranks, rank 0's (without its models) with
+    ``"ranks"``: every rank's, each with its kernel launches and
+    ``state_digests``. ``unported`` (a tuple) refuses flags first, as
+    ``prepare`` does."""
+    from gssd_torch.ops import layers
     from gssd_torch.parallel.launch import Rank, launch
-    from gssd_torch.parallel.mesh import plan_parallelism
+    from gssd_torch.parallel.mesh import describe_eval, evaluation_plan, plan_parallelism
 
     if unported is not None:
         _refuse(args, unported)
     plan = plan_parallelism(getattr(args, "cross_validation", 1), args.batch_size, devices,
                             args.device)
     print(f"parallelism: {plan.describe()} layout={plan.layout}", flush=True)
-    if args.test and plan.world_size > 1:
-        print("--test: the evaluation runs in this process", flush=True)
-        plan = plan_parallelism(plan.n_folds, plan.batch_size, plan.devices[:1])
+    if plan.world_size > 1:
+        if args.test:
+            print(f"--test {describe_eval(plan.world_size, args.eval_batch)}", flush=True)
+            plan = evaluation_plan(plan, args.eval_batch)
+        else:
+            print(describe_eval(plan.n_data, args.eval_batch), flush=True)
     if plan.world_size == 1:
         return body(Rank(plan), args)
     if hasattr(args, "synthetic"):
         synthesize(args)
-    results = launch(_spawned_run, plan, body, args)
+    results = launch(_spawned_run, plan, body, args, layers.USE_WIDE_CONV_KERNEL)
     return {**results[0], "ranks": results}
 
 
@@ -497,11 +519,14 @@ def run(args, setup: Setup, make_fold: Callable, collate_fn: Callable,
     the means over the folds, ``folds`` holds each fold's.
 
     ``rank`` (``gssd_torch.parallel.launch.Rank``) builds and trains only
-    its folds, on
-    its rows of each batch; the folds' metrics are gathered so that
-    every rank holds the records of the one-process run, which rank 0
-    prints and logs. The first rank of each fold evaluates the fold and
-    writes its checkpoint; the other ranks wait for them."""
+    its folds, on its rows of each batch; the folds' metrics are gathered
+    so that every rank holds the records of the one-process run, which
+    rank 0 prints and logs. The ranks of a fold run its evaluations
+    together where ``rank.evaluates`` (a ``make_fold`` splits the
+    forward with ``parallel.mesh.plan_infer_step``), else its first rank
+    alone; the first rank writes the fold's checkpoint, and every rank
+    waits for every fold's. With --test, every rank evaluates every fold
+    (``launch_trainer``) and only rank 0 prints and visualizes."""
     from gssd_torch.data import BatchLoader, LesionDataset, take_rows
     from gssd_torch.parallel.folds import fold_mean, fold_train_step
     from gssd_torch.train.checkpoint import (checkpoint_path, load_weights_partial,
@@ -517,15 +542,17 @@ def run(args, setup: Setup, make_fold: Callable, collate_fn: Callable,
         for f in range(k):
             load_weights_partial(member.model, checkpoint_path(ckpt_dir, args.model_name,
                                                                args.checkpoint, f))
-            if args.visualize and f == 0:
+            if args.visualize and f == 0 and rank.first:
                 out_dir = os.path.join(args.output, "visualize", args.model_name)
                 visualized = {"dir": out_dir,
                               "detections": member.visualize(setup.test_set, out_dir)}
             res = member.evaluate(setup.test_set, f"test_ap_cv{f}", args.checkpoint)
-            print(f"[fold {f}] {res}")
+            if rank.first:
+                print(f"[fold {f}] {res}")
             results.append(res)
         mean = fold_mean(results)
-        print("test mean over folds:", json.dumps(mean), flush=True)
+        if rank.first:
+            print("test mean over folds:", json.dumps(mean), flush=True)
         logger.close()
         return {"test": mean, "folds": results, "visualized": visualized}
 
@@ -599,16 +626,19 @@ def run(args, setup: Setup, make_fold: Callable, collate_fn: Callable,
             logger.log_scalars("eval_loss", it, vrec, file="valid")
             print(f"iter {it} valid: loss={vrec['loss']:.4f} ({split(vrec)})", flush=True)
         own = {}
-        for m in members if rank.leader else ():
+        for m in members if rank.evaluates(args.eval_batch) else ():
             res_v = m.evaluate(setup.valid_sets[m.fold], f"eval_ap_cv{m.fold}", it)
             res_t = m.evaluate(setup.test_set, f"test_ap_cv{m.fold}", it)
+            if not rank.leader:
+                continue
             ckpt = save_checkpoint(m.model, m.optimizer, m.step, ckpt_dir, args.model_name,
                                    it, m.fold)
             own[m.fold] = {"valid": res_v, "test": res_t, "checkpoint": ckpt}
             if k > 1:
                 print(f"iter {it} fold {m.fold} valid: {json.dumps(res_v)} test: "
                       f"{json.dumps(res_t)}")
-        # every rank waits here for the folds' evaluations and checkpoints
+        # every rank waits here for the folds' checkpoints (and, where a
+        # fold's first rank evaluates alone, for its evaluations)
         per_fold = rank.fold_values(own, sync=True)
         mean_v = fold_mean([p["valid"] for p in per_fold])
         mean_t = fold_mean([p["test"] for p in per_fold])
@@ -660,19 +690,23 @@ def run(args, setup: Setup, make_fold: Callable, collate_fn: Callable,
             "folds": members}
 
 
-def warm_eval(args, members, device) -> None:
+def warm_eval(args, members, device, rank) -> None:
     """--warmup_eval: build the CUDA kernels, then run every fold's
-    validation-loss step on a batch of ``--batch_size`` and fold 0's
-    inference step on one of ``--eval_batch`` (zeros), as the JAX
-    trainer warms its vmapped evaluation step and fold 0's inference, so
-    that the first evaluation pays for neither. Eval mode: no model's
-    state changes."""
+    validation-loss step on a batch of ``--batch_size`` (the rank's rows
+    of it) and fold 0's inference step on the rows of ``--eval_batch``
+    that the rank's forward takes (zeros; its share where the fold's
+    ranks split the evaluation), as the JAX trainer warms its vmapped
+    evaluation step and fold 0's inference, so that the first evaluation
+    pays for neither. Eval mode: no model's state changes."""
     from gssd_torch.ops.kernels import KERNELS, build
+    from gssd_torch.parallel.mesh import eval_splits
 
     if device.type == "cuda":
         build(KERNELS.values())
     size, channels = args.ssd_dim, model_config(args).in_channels
-    b, g = args.batch_size, args.max_gt
+    b, g = args.batch_size // rank.plan.n_data, args.max_gt
+    share = args.eval_batch // rank.plan.n_data \
+        if eval_splits(rank.plan.n_data, args.eval_batch) else args.eval_batch
     batch = {
         "image": torch.zeros((b, size, size, channels), device=device),
         "boxes": torch.tensor([0.3, 0.3, 0.6, 0.6], device=device).repeat(b, g, 1),
@@ -680,7 +714,7 @@ def warm_eval(args, members, device) -> None:
         "valid": torch.ones((b, g), dtype=torch.bool, device=device)}
     for member in members:
         member.valid_fn(batch)
-    members[0].infer(torch.zeros((args.eval_batch, size, size, channels)))
+    members[0].infer(torch.zeros((share, size, size, channels)))
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     print("eval executables warmed", flush=True)
@@ -702,8 +736,8 @@ def main(argv=None, devices=None) -> Dict[str, Any]:
     checkpoints' AP/IoBB, "folds": each fold's, "visualized": with
     --visualize {"dir": the dump directory, "detections": {test index:
     fold 0's detections [C, K, 5]}}, else None}. A run of several ranks
-    returns rank 0's dict without "model", "optimizer" and "folds", with
-    "ranks" (``launch_trainer``)."""
+    returns rank 0's dict without "model", "optimizer" and the fold
+    members, with "ranks" (``launch_trainer``)."""
     return launch_trainer(_train, parse_args(argv), devices, unported=())
 
 
@@ -715,6 +749,7 @@ def _train(rank, args) -> Dict[str, Any]:
     from gssd_torch.eval import run_detection_eval
     from gssd_torch.models import build_model
     from gssd_torch.parallel.folds import FoldMember, fold_seed
+    from gssd_torch.parallel.mesh import plan_infer_step
     from gssd_torch.train.optim import make_optimizer
     from gssd_torch.train.steps import (eval_step, make_infer_step, make_infer_step_with_aux,
                                         train_step)
@@ -734,11 +769,12 @@ def _train(rank, args) -> Dict[str, Any]:
         optimizer = make_optimizer(model, optim_cfg)
         detect_cfg = DetectConfig(num_classes=args.num_classes)
         infer_step = make_infer_step(model, priors_t, detect_cfg)
+        split_step = plan_infer_step(infer_step, rank, args.eval_batch)
 
         def evaluate(dataset, tag, iteration):
             sink: Dict[str, np.ndarray] = {}
             res = run_detection_eval(
-                lambda batch: infer_step(batch).cpu().numpy(), dataset, setup.base_tf,
+                lambda batch: split_step(batch).cpu().numpy(), dataset, setup.base_tf,
                 setup.ap_list, setup.iobb_list, args.confidence_threshold,
                 args.use_07_metric, args.eval_batch, score_sink=sink)
             logger.log_scalars(tag, iteration, res, file="test")
@@ -769,7 +805,7 @@ def _train(rank, args) -> Dict[str, Any]:
             evaluate, aug, setup.base_tf, infer=infer_step, visualize=visualize)
 
     def warm(members):
-        warm_eval(args, members, device)
+        warm_eval(args, members, device, rank)
 
     warming = (args.warmup_eval and not args.test and args.val_every <= args.max_iter
                and args.speedrun <= args.max_iter)

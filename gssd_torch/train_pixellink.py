@@ -17,7 +17,9 @@ every fold from checkpoint N; ``--test True --checkpoint N`` evaluates
 each fold's checkpoint N on the test set and prints their mean. The
 loop, checkpoints and logs are ``gssd_torch.train.trainer``'s, and so
 is the data parallelism (one process per card, capped by
-``GSSD_DP_DEVICES``; the ``parallelism:`` line).
+``GSSD_DP_DEVICES``; the ``parallelism:`` line), the evaluation forward
+split over a fold's ranks included (the pixel and link logits gathered
+in row order on the device before the host decode).
 
 Runs on the GPU (``--device cuda``, the default) and refuses to start
 without one unless ``--device cpu`` is given. ``--num_workers > 1``
@@ -189,6 +191,7 @@ def _train(rank, args) -> Dict[str, Any]:
     from gssd_torch.eval import run_detection_eval
     from gssd_torch.models.pixellink import build_pixellink
     from gssd_torch.parallel.folds import FoldMember, fold_seed
+    from gssd_torch.parallel.mesh import plan_infer_step
     from gssd_torch.train.optim import make_optimizer
     from gssd_torch.eval.pixellink_decode import mask_to_boxes
     from gssd_torch.train.steps import (make_pixellink_forward,
@@ -213,7 +216,13 @@ def _train(rank, args) -> Dict[str, Any]:
                                 args.dcn_impl, device="cpu",
                                 seed=fold_seed(args.seed, f)).to(setup.device)
         optimizer = make_optimizer(model, optim_cfg)
-        forward = make_pixellink_forward(model, setup.device)
+        # the logit maps gathered over the fold's ranks on the device, then
+        # copied to the host for the decode
+        split = plan_infer_step(make_pixellink_forward(model, setup.device, host=False), rank,
+                                args.eval_batch)
+
+        def forward(images):
+            return tuple(t.cpu().numpy() for t in split(images))
 
         def evaluate(dataset, tag, iteration):
             res = run_detection_eval(

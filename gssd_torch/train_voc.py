@@ -17,9 +17,13 @@ checkpoint N.
 Data parallelism as in ``gssd_torch.train`` (JAX's ``plan_parallelism(1,
 B)``): one process per card, capped by ``GSSD_DP_DEVICES``, each rank on
 its rows of every batch (the whole batch drawn and augmented on every
-rank), the loss normaliser and the gradients summed over the ranks; rank
-0 prints the ``parallelism:`` line, evaluates and writes the checkpoints
-while the other ranks wait. ``--test`` runs in one process.
+rank), the loss normaliser and the gradients summed over the ranks; the
+ranks split each evaluation batch (``parallel.mesh.plan_infer_step``)
+and each computes the mAP of the gathered detections, or, where their
+count does not divide ``--eval_batch``, rank 0 evaluates alone while the
+others wait; rank 0 prints and writes the checkpoints. ``--test`` runs on
+the ranks where their count divides ``--eval_batch``, else in one
+process.
 
 It prints the loss parts every 10th iteration; every iteration is timed
 from the batch on the device to the updated weights, synchronised
@@ -125,6 +129,7 @@ def _train(rank, args) -> Dict[str, Any]:
     from gssd_torch.data.voc import VOCDataset
     from gssd_torch.eval.voc_map import run_voc_map
     from gssd_torch.models import build_model
+    from gssd_torch.parallel.mesh import plan_infer_step
     from gssd_torch.train.checkpoint import restore_checkpoint, save_checkpoint
     from gssd_torch.train.optim import make_optimizer
     from gssd_torch.train.steps import make_infer_step, train_step
@@ -141,7 +146,9 @@ def _train(rank, args) -> Dict[str, Any]:
 
     base_tf = BaseTransform(args.ssd_dim, args.means, False, args.use_normalize)
     eval_set = VOCDataset(args.voc_root, _sets(args.eval_sets), keep_difficult=False)
-    infer_step = make_infer_step(model, priors_t, DetectConfig(num_classes=args.num_classes))
+    infer_step = plan_infer_step(
+        make_infer_step(model, priors_t, DetectConfig(num_classes=args.num_classes)), rank,
+        args.eval_batch)
     if rank.first:
         logger = MetricsLogger(os.path.join(args.output, "logs", args.model_name))
         logger.log_args(vars(args))
@@ -154,7 +161,8 @@ def _train(rank, args) -> Dict[str, Any]:
                           args.num_classes, args.confidence_threshold, 0.5,
                           args.use_07_metric, args.eval_batch)
         logger.log_scalars("voc_map", iteration, res, file="test")
-        print(f"iter {iteration} VOC mAP: {res['map']:.4f}", flush=True)
+        if rank.first:
+            print(f"iter {iteration} VOC mAP: {res['map']:.4f}", flush=True)
         return res
 
     start_iter, step = 0, 0
@@ -165,7 +173,8 @@ def _train(rank, args) -> Dict[str, Any]:
             print(f"restored iteration {start_iter} (step {step})")
     if args.test:
         res = eval_map(start_iter)
-        print(json.dumps(res))
+        if rank.first:
+            print(json.dumps(res))
         logger.close()
         return {"voc_map": res}
 
@@ -195,13 +204,14 @@ def _train(rank, args) -> Dict[str, Any]:
             last = iteration == args.max_iter - 1
             if ((iteration % args.val_every == 0 and iteration > start_iter)
                     or last) and iteration >= args.speedrun:
-                if rank.first:
+                if rank.evaluates(args.eval_batch):
                     res = eval_map(iteration)
+                if rank.first:
                     ckpt = save_checkpoint(model, optimizer, step, ckpt_dir, args.model_name,
                                            iteration, 0)
                     print(f"checkpoint -> {ckpt}", flush=True)
                     evals.append({"iter": iteration, "voc_map": res, "checkpoint": ckpt})
-                rank.barrier()  # the other ranks wait for the evaluation
+                rank.barrier()  # the other ranks wait for the checkpoint
     finally:
         loader.close()
         logger.close()

@@ -16,7 +16,8 @@
   port: the MultiBox loss and gradients, the PixelLink loss and its
   logits' gradients, a BatchNorm's output and input gradient.
 - The trainer CLI on 2 and 4 gloo ranks (``GSSD_DP_DEVICES``), and the
-  launcher failing fast.
+  launcher failing fast; the VOC trainer's evaluation split over 2 ranks
+  against a one-rank ``--test`` of its checkpoint.
 
 The ranks run tests/torch_ranks.py's bodies: a spawned rank imports
 neither JAX nor gssd_tpu. Every launch has a deadline.
@@ -35,7 +36,8 @@ import pytest
 import torch
 from mini_model import MINI_ANCHORS, build_mini, mini_batch
 from test_torch_folds import OPTIM, _twin_tree
-from torch_ranks import MINI_PRIORS_PER_CELL, MiniTwin, fails, shares, twin_steps
+from torch_ranks import (MINI_PRIORS_PER_CELL, MiniTwin, build_mini_voc, fails, mini_voc, shares,
+                         twin_steps)
 
 from gssd_torch.parallel.launch import launch
 from gssd_torch.parallel.mesh import plan_parallelism, usable_devices
@@ -235,7 +237,8 @@ def _argv(data, out, *extra):
 def test_trainer_cli_two_ranks_equal_one(dp_data, tmp_path, monkeypatch, capfd):
     """gssd_torch.train on 2 gloo ranks (GSSD_DP_DEVICES=2) at batch 2:
     the parallelism line, the losses of the one-rank run within 1e-5
-    relative, the ranks' states bit-equal, and a checkpoint that a
+    relative, the ranks' states bit-equal, the evaluation split over the
+    ranks with the AP/IoBB of the one-rank run, and a checkpoint that a
     one-rank --resume and gssd_torch.infer load."""
     from gssd_torch import infer
     from gssd_torch.train import main
@@ -257,6 +260,10 @@ def test_trainer_cli_two_ranks_equal_one(dp_data, tmp_path, monkeypatch, capfd):
         for key in ("loss", "loss_l", "loss_c"):
             assert r2[key] == pytest.approx(r1[key], rel=1e-5), (r1["iter"], key)
     assert two["valid"][0]["loss"] == pytest.approx(one["valid"][0]["loss"], rel=1e-5)
+    # the evaluation split over the two ranks: the AP/IoBB of one rank
+    assert "evaluation: each batch of 2 split over 2 ranks" in text
+    for key in ("valid", "test"):
+        assert two["evals"][0][key] == one["evals"][0][key], key
     ckpt = two["evals"][0]["checkpoint"]
     assert ckpt.endswith("GSSD_1_CV0.pt") and os.path.exists(ckpt)
 
@@ -323,3 +330,39 @@ def test_trainer_prints_the_plan_and_raises_a_rank_error(module, tmp_path, monke
               "--device", "cpu", "--output", str(tmp_path / "out")])
     assert time.monotonic() - t0 < DEADLINE_S
     assert "parallelism: mesh(data=2) layout=data" in capfd.readouterr().out
+
+
+def test_voc_split_evaluation_equals_one_rank(tmp_path, monkeypatch, capfd):
+    """gssd_torch.train_voc on 2 gloo ranks (tests/test_torch_voc.py's
+    tree, its mini detector at 64) trained 13 steps, evaluated at the last
+    split over the ranks: the mAP of a one-rank --test of the checkpoint
+    it wrote, on both ranks."""
+    from mini_model import MINI_ANCHORS as JAX_MINI_ANCHORS
+    from test_torch_voc import OBJECTS
+    from torch_ranks import MINI_ANCHORS
+
+    import gssd_torch.models as models_pkg
+    from gssd_torch import train_voc
+    from gssd_torch.data.voc import write_voc_tree
+    from gssd_torch.train.trainer import launch_trainer
+
+    assert all(getattr(MINI_ANCHORS, f) == getattr(JAX_MINI_ANCHORS, f)
+               for f in ("feature_maps", "min_dim", "steps", "min_sizes", "max_sizes"))
+    write_voc_tree(str(tmp_path / "voc"), OBJECTS)
+    argv = ["--voc_root", str(tmp_path / "voc"), "--eval_sets", "2007:trainval", "--ssd_dim",
+            "64", "--batch_size", "2", "--max_gt", "8", "--eval_batch", "2",
+            "--compute_dtype", "float32", "--device", "cpu", "--output", str(tmp_path / "out")]
+    t0 = time.monotonic()
+    two = launch_trainer(mini_voc, train_voc.parse_args(argv + ["--max_iter", "13",
+                                                               "--val_every", "100"]),
+                         devices=["cpu"] * 2)
+    assert time.monotonic() - t0 < DEADLINE_S
+    assert "evaluation: each batch of 2 split over 2 ranks" in capfd.readouterr().out
+    assert [e["iter"] for e in two["evals"]] == [12]
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    monkeypatch.setattr(models_pkg, "build_model", build_mini_voc)
+    monkeypatch.setenv("GSSD_DP_DEVICES", "1")
+    tested = train_voc.main(argv + ["--test", "True", "--checkpoint", "12"])
+    assert {"ap_dog", "ap_cat", "ap_person"} <= set(tested["voc_map"])
+    for rank in two["ranks"]:
+        assert rank["voc_map"] == tested["voc_map"]

@@ -4,7 +4,10 @@ Spawned ranks unpickle their function by module, so the bodies live
 here, in a module that imports neither JAX nor ``gssd_tpu`` (nor
 tests/mini_model.py, which does): a rank must not load them. The tests
 compute their JAX references in the test process and pass numpy trees
-and arrays in.
+and arrays in. ``quiet_train``, ``quiet_pixellink`` and ``mini_voc`` are the trainers'
+rank bodies with TensorBoard's import blocked (it can drag TensorFlow
+in), as the in-process tests block it; ``mini_voc`` also puts
+``MiniVOC`` in place of the VOC trainer's SSD300.
 
 ``MiniTwin`` is the port's twin of tests/mini_model.py's
 ``MiniDetector`` (three conv + BatchNorm stages, loc and conf heads),
@@ -19,7 +22,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from gssd_torch.config import LossConfig, OptimConfig
+from gssd_torch.config import AnchorConfig, LossConfig, OptimConfig
 from gssd_torch.ops.layers import BatchNorm
 from gssd_torch.ops.pixellink_loss import pixellink_loss
 from gssd_torch.params import load_jax_fold
@@ -64,6 +67,28 @@ class MiniTwin(nn.Module):
         B = x.shape[0]
         return {"loc": self.loc(x).permute(0, 2, 3, 1).reshape(B, -1, 4),
                 "conf": self.conf(x).permute(0, 2, 3, 1).reshape(B, -1, self.num_classes)}
+
+
+# tests/mini_model.py's MINI_ANCHORS, for the port's make_anchors
+MINI_ANCHORS = AnchorConfig(name="v2_mini", feature_maps=(8,), min_dim=64, steps=(8,),
+                            min_sizes=(16,), max_sizes=(32,), aspect_ratios=((2,),))
+
+
+class MiniVOC(MiniTwin):
+    """The mini detector on 3 input channels (VOC images)."""
+
+    def __init__(self, num_classes):
+        super().__init__(num_classes)
+        self.s0 = _Stage(3, 8, 2, True)
+
+
+def build_mini_voc(cfg, device, seed):
+    """``build_model``'s signature: ``MiniVOC`` (from ``seed``) and its
+    priors."""
+    from gssd_torch.ops.anchors import make_anchors
+
+    torch.manual_seed(seed)
+    return MiniVOC(cfg.num_classes), make_anchors(MINI_ANCHORS)
 
 
 def _rows(batch, rows):
@@ -160,3 +185,82 @@ def loaded_roots(rank):
     import sys
 
     return sorted({name.split(".")[0] for name, mod in sys.modules.items() if mod is not None})
+
+
+def split_eval(rank, state, priors_np, datapath, ids, image_size, eval_batch):
+    """Rank body: the twin from ``state`` evaluated over ``ids`` with
+    ``make_infer_step`` split by ``plan_infer_step`` at ``eval_batch`` ->
+    {"ap": run_detection_eval's dict, "detections": every chunk's
+    detections, concatenated, "pairs": a tuple-valued function's split
+    outputs on a chunk of 4 rows and one of 1, "rows_seen": the rows each
+    of its calls on this rank took, "not_split": whether the step at
+    ``eval_batch - 1`` is the function itself}."""
+    from gssd_torch.config import DetectConfig
+    from gssd_torch.data import BaseTransform, LesionDataset
+    from gssd_torch.eval import run_detection_eval
+    from gssd_torch.parallel.mesh import plan_infer_step
+    from gssd_torch.train.steps import make_infer_step
+
+    model = MiniTwin()
+    model.load_state_dict(state)
+    step = plan_infer_step(make_infer_step(model, torch.from_numpy(priors_np), DetectConfig()),
+                           rank, eval_batch)
+    chunks = []
+
+    def infer(batch):
+        chunks.append(step(batch).cpu().numpy())
+        return chunks[-1]
+
+    ap = run_detection_eval(infer, LesionDataset(datapath, ids),
+                            BaseTransform(image_size, 0.0, False, True), batch_size=eval_batch)
+    seen = []
+    split_pair = plan_infer_step(lambda x: pair(x, seen), rank, 4)
+    x = pair_input()
+    return {"ap": ap, "detections": np.concatenate(chunks),
+            "pairs": [split_pair(x[:4]), split_pair(x[4:])], "rows_seen": seen,
+            "not_split": plan_infer_step(pair, rank, eval_batch - 1) is pair}
+
+
+def pair_input():
+    return torch.arange(5 * 2 * 2 * 3, dtype=torch.float32).reshape(5, 2, 2, 3)
+
+
+def pair(x, seen=None):
+    """A two-output function with a row per image, as PixelLink's forward
+    is; records the rows it took in ``seen``."""
+    if seen is not None:
+        seen.append(x.shape[0])
+    return x[:, 0] * 2.0, x.sum(dim=(1, 2, 3))[:, None]
+
+
+def _quiet():
+    import sys
+
+    sys.modules["torch.utils.tensorboard"] = None
+
+
+def quiet_train(rank, args):
+    """``gssd_torch.train``'s rank body, TensorBoard blocked."""
+    from gssd_torch.train.trainer import _train
+
+    _quiet()
+    return _train(rank, args)
+
+
+def quiet_pixellink(rank, args):
+    """``gssd_torch.train_pixellink``'s rank body, TensorBoard blocked."""
+    from gssd_torch.train_pixellink import _train
+
+    _quiet()
+    return _train(rank, args)
+
+
+def mini_voc(rank, args):
+    """``gssd_torch.train_voc``'s rank body with ``MiniVOC`` in place of
+    the SSD300, TensorBoard blocked."""
+    import gssd_torch.models as models
+    from gssd_torch.train_voc import _train
+
+    _quiet()
+    models.build_model = build_mini_voc
+    return _train(rank, args)
